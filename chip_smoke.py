@@ -1,0 +1,340 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, the CUDA toolkit (``nvcc`` under ``$CUDA_HOME`` or on
+``PATH``) and this checkout's ``src/``.  It builds the fixed-accuracy ZFP
+kernels from ``src/repro_torch/csrc`` into ``build/``, holds each kernel
+against its plain PyTorch version (run on the CPU) bit for bit, then runs
+the paper's workflow 2 at the repo's full model width: encode a synthetic
+study into a device-resident compressed store, train the DCGAN surrogate
+for a few steps with gather + decode + L1 + Adam on the card.  It prints
+the card's name and power limit, one ``kernels`` JSON line (launches on the
+main path, agreement, times and bounds), and as its last line
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
+that line.  Precision: float32 with TF32 off.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  The
+# codec's integer work is counted at the f32 non-tensor rate, which is at
+# least the card's int32 rate, so the bound stays a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+VECTOR_OPS_PER_S = 67e12
+
+# main-path configuration: SurrogateConfig() = 96x32 grid, 6 fields,
+# base_channels 256 (RT_SPEC); 64 sims x 51 snapshots of synthetic data
+N_SAMPLES = 64 * 51
+TOLERANCE = 1e-3
+BATCH, LR, STEPS = 64, 1e-4, 30
+CHECK_SAMPLES = 128                  # 147,456 main-path blocks held to the CPU
+LOSS_RTOL = 1e-4                     # first-step loss, card vs CPU (f32 convs)
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    print(f"check {'ok  ' if cond else 'FAIL'} {what}", flush=True)
+    if not cond:
+        raise CheckFailed(what)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / VECTOR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# Operations per 4x4 block, counted from the CUDA sources: unpack is 8 per
+# lane per word; a 4-point lift 16; negabinary 2 per lane; dequantize 3 per
+# lane; the error check 3 per lane; the pack 8 per lane per word.
+def decode_ops(nb: int, words: int) -> float:
+    return nb * (128 * words + 17 + 32 + 8 * 16 + 48)
+
+
+def encode_ops(nb: int) -> float:
+    front = 16 + 32 + 5 + 64 + 8 * 16 + 32 + 16 + 5
+    per_pass = 16 + 32 + 8 * 16 + 48 + 48 + 3
+    return nb * (front + 6 * per_pass + 8 * 16 * 15)
+
+
+def profile_steps(store, cond, model, transform, steps: int = 10) -> None:
+    """Trace ``steps`` fused train steps with torch.profiler and print the
+    device's busy share and the kernels that take most of its time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import ShardedLoader
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+    from repro_torch.train.source import make_batch_source, make_fused_step
+    source = make_batch_source(store, cond, transform)
+    opt_cfg = AdamConfig(lr=LR)
+    step = make_fused_step(source, model, opt_cfg)
+    opt = adam_init(dict(model.named_parameters()), opt_cfg)
+    idxs = [source.fetch(i) for i in
+            ShardedLoader(store.num_samples, BATCH, seed=1).take(steps + 2)]
+    for idx in idxs[:2]:
+        opt, loss = step(opt, idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for idx in idxs[2:]:
+            opt, loss = step(opt, idx)
+            float(loss)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    # kernels only: operator rows repeat their kernels' device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        print(f"profile: {wall_ms:.3f} ms/step wall; the profiler recorded no "
+              "device time (device busy share not measured)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    print(f"profile: {steps} steps, {wall_ms:.3f} ms/step wall (profiler on), device "
+          f"busy {busy_ms:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{sum(e.count for e in events) / steps:.0f} kernels/step")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        ms = e.self_device_time_total / 1e3 / steps
+        print(f"  {ms:8.4f} ms/step {e.count // steps:4d}x  {100 * ms / busy_ms:5.1f}%  "
+              f"{e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.compression import floor_log2, transform as T
+    from repro_torch.data import DeviceResidentCompressedStore, channels_last
+    from repro_torch.kernels import ref, zfp_codec
+    from repro_torch.models.surrogate import SurrogateConfig
+    from repro_torch.sim.synthetic import synthetic_study
+    from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    print(smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"tf32: cudnn={torch.backends.cudnn.allow_tf32} "
+          f"matmul={torch.backends.cuda.matmul.allow_tf32}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    dev = torch.device("cuda")
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    zfp_codec.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    for key, log in zfp_codec.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {key}: {line.strip()}")
+
+    # -- 2. data at full width -----------------------------------------------
+    cfg_full = SurrogateConfig()
+    _, cond, fields = synthetic_study(n=N_SAMPLES, height=cfg_full.height,
+                                      width=cfg_full.width,
+                                      base_channels=cfg_full.base_channels, seed=0)
+    samples = np.ascontiguousarray(fields.transpose(0, 3, 1, 2))   # (N, 6, H, W)
+    del fields
+    print(f"data: {samples.shape} float32, {samples.nbytes / 1e6:.1f} MB raw")
+
+    # -- 3. each kernel against its plain version on the CPU -------------------
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(samples[:CHECK_SAMPLES])
+    main_blocks = T.blockify(T.pad_to_blocks(xs)).contiguous()
+    specials = [(rng.uniform(-1, 1, 16) * 2.0 ** (em - 1)) for em in range(-119, -98)]
+    sub = np.zeros(16)
+    sub[:3] = [2.0 ** -100, 2.0 ** -127, -3 * 2.0 ** -128]
+    specials += [sub, np.zeros(16), np.full(16, 1e-40)]
+    special_blocks = torch.from_numpy(np.stack(specials).astype(np.float32))
+    mixed_blocks = torch.cat([main_blocks[:16384], special_blocks]).contiguous()
+    cases = [
+        ("main-path data at tol 1e-3", main_blocks,
+         torch.full((main_blocks.shape[0],), TOLERANCE)),
+        ("F1 blocks, zero blocks, mixed tolerances", mixed_blocks,
+         torch.from_numpy((10.0 ** rng.uniform(-6, 0, mixed_blocks.shape[0]))
+                          .astype(np.float32))),
+        ("F1 blocks at tol 2^-126", special_blocks,
+         torch.full((special_blocks.shape[0],), 2.0 ** -126)),
+    ]
+    for what, blocks, tols in cases:
+        l2 = floor_log2(tols)
+        want = ref.zfp_encode_blocks_fa_ref(blocks, tols, l2)
+        got = zfp_codec.zfp_encode_blocks_fa(blocks.to(dev), tols.to(dev), l2.to(dev))
+        torch.cuda.synchronize()
+        got = [g.cpu() for g in got]
+        for name, g, w in zip(("payload", "emax", "nplanes"), got, want):
+            require(torch.equal(g, w), f"encode kernel == plain ({what}, "
+                                       f"{blocks.shape[0]} blocks): {name}")
+        dec_want = ref.zfp_decode_blocks_fa_ref(*want)
+        dec_got = zfp_codec.zfp_decode_blocks_fa(*(w.to(dev) for w in want)).cpu()
+        require(torch.equal(dec_got, dec_want),
+                f"decode kernel == plain ({what}, 15 words)")
+        w_trim = max((int(want[2].max()) + 1) // 2, 1)
+        trimmed = want[0][:, :w_trim].contiguous()
+        dec_got = zfp_codec.zfp_decode_blocks_fa(trimmed.to(dev), want[1].to(dev),
+                                                 want[2].to(dev)).cpu()
+        require(torch.equal(dec_got, dec_want),
+                f"decode kernel == plain ({what}, trimmed to {w_trim} words)")
+    deep = torch.cat([main_blocks[:4096], special_blocks]).contiguous()
+    deep_tols = torch.full((deep.shape[0],), 2.0 ** -126)
+    full_p, full_e, _ = ref.zfp_encode_blocks_fa_ref(deep, deep_tols,
+                                                     floor_log2(deep_tols))
+    npl = torch.arange(deep.shape[0], dtype=torch.int32) % 31
+    require(torch.equal(zfp_codec.zfp_decode_blocks_fa(full_p.to(dev), full_e.to(dev),
+                                                       npl.to(dev)).cpu(),
+                        ref.zfp_decode_blocks_fa_ref(full_p, full_e, npl)),
+            "decode kernel == plain (full-depth words, counts 0..30 mask planes)")
+    del main_blocks, mixed_blocks
+
+    # -- 4. the main path at full width ------------------------------------------
+    zfp_codec.reset_launches()
+    t0 = time.perf_counter()
+    store = DeviceResidentCompressedStore.from_samples(
+        samples, np.full(N_SAMPLES, TOLERANCE, np.float32))
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    stamps = []
+    t0 = time.perf_counter()
+    model, losses = train_surrogate(
+        cfg_full, TrainConfig(epochs=1, batch_size=BATCH, lr=LR, seed=0, log_every=1,
+                              max_steps=STEPS),
+        cond, store, hooks=[lambda step, m, loss: stamps.append(time.perf_counter())],
+        target_transform=channels_last)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = dict(zfp_codec.LAUNCHES)
+    print(f"main path: store build {t_store:.3f} s, {STEPS} steps {t_train:.3f} s; "
+          f"launches {launches}")
+    print(f"store: {store.num_samples} samples x {store.nb} blocks, width "
+          f"{store.payload.shape[-1]} words, ratio {store.ratio:.3f}, resident "
+          f"{store.resident_bytes} bytes ({store.resident_bytes / 1e6:.1f} MB), "
+          f"logical {store.logical_bytes} bytes")
+    print("losses: " + json.dumps([round(l, 7) for _, l in losses]))
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    print(f"step time: median {statistics.median(step_ms):.3f} ms over steps "
+          f"2..{STEPS} (min {min(step_ms):.3f}, max {max(step_ms):.3f})")
+    for name in launches:
+        require(launches[name] > 0, f"{name} launched on the main path "
+                                    f"({launches[name]} times)")
+    require(len(losses) == STEPS and all(np.isfinite(l) for _, l in losses),
+            f"{STEPS} finite losses")
+
+    # -- 5. the outputs are right ------------------------------------------------
+    worst = 0.0
+    for i in range(0, N_SAMPLES, 256):
+        idx = torch.arange(i, min(i + 256, N_SAMPLES), device=dev)
+        dec = store.decode_indices(idx)
+        x = torch.from_numpy(samples[i:i + 256]).to(dev)
+        worst = max(worst, float((dec - x).abs().max()))
+    require(worst <= TOLERANCE, f"store decodes within the L-inf bound "
+                                f"(max error {worst:.3e} <= {TOLERANCE})")
+    cpu_store = DeviceResidentCompressedStore(
+        store.payload.cpu(), store.emax.cpu(), store.nplanes.cpu(), store.shape,
+        store.padded_shape, store.tolerances, store.logical_bytes_per)
+    _, cpu_losses = train_surrogate(
+        cfg_full, TrainConfig(epochs=1, batch_size=BATCH, lr=LR, seed=0, log_every=1,
+                              max_steps=1),
+        cond, cpu_store, target_transform=channels_last, device="cpu")
+    l_gpu, l_cpu = losses[0][1], cpu_losses[0][1]
+    require(abs(l_gpu - l_cpu) <= LOSS_RTOL * abs(l_cpu),
+            f"first-step loss on the card {l_gpu:.7f} == plain CPU path "
+            f"{l_cpu:.7f} (rtol {LOSS_RTOL})")
+    preds = predict_fields(model, cond[:8])
+    require(preds.shape == (8, 96, 32, 6) and bool(np.isfinite(preds).all()),
+            "predict_fields gives finite (8, 96, 32, 6) fields")
+
+    # -- 6. times at the main-path shapes ----------------------------------------
+    idx = torch.arange(BATCH, device=dev)
+    bp = store.payload[idx].reshape(-1, store.payload.shape[-1]).contiguous()
+    be = store.emax[idx].reshape(-1).contiguous()
+    bn = store.nplanes[idx].reshape(-1).contiguous()
+    nb_dec, words = bp.shape
+    dec_ms = cuda_ms(lambda: zfp_codec.zfp_decode_blocks_fa(bp, be, bn), reps=200)
+    dec_plain_ms = cuda_ms(lambda: ref.zfp_decode_blocks_fa_ref(bp, be, bn), reps=20)
+    dec_err = float((ref.zfp_decode_blocks_fa_ref(bp, be, bn)
+                     - zfp_codec.zfp_decode_blocks_fa(bp, be, bn)).abs().max())
+    require(dec_err == 0.0,
+            f"decode kernel == plain version on the card ({nb_dec} blocks)")
+    dec_bound, dec_by = bound_ms(nb_dec * (words * 4 + 8) + nb_dec * 64,
+                                 decode_ops(nb_dec, words))
+
+    xs = torch.from_numpy(samples).to(dev)
+    blocks = T.blockify(T.pad_to_blocks(xs)).contiguous()
+    del xs
+    nb_enc = blocks.shape[0]
+    tols = torch.full((nb_enc,), TOLERANCE, device=dev)
+    l2 = floor_log2(tols)
+    enc_ms = cuda_ms(lambda: zfp_codec.zfp_encode_blocks_fa(blocks, tols, l2), reps=5,
+                     warmup=1)
+    enc_plain_ms = cuda_ms(lambda: ref.zfp_encode_blocks_fa_ref(blocks, tols, l2),
+                           reps=2, warmup=1)
+    enc_err = max(float((a - b).abs().max()) for a, b in zip(
+        zfp_codec.zfp_encode_blocks_fa(blocks, tols, l2),
+        ref.zfp_encode_blocks_fa_ref(blocks, tols, l2)))
+    require(enc_err == 0.0,
+            f"encode kernel == plain version on the card ({nb_enc} blocks)")
+    enc_bound, enc_by = bound_ms(nb_enc * 72 + nb_enc * 68, encode_ops(nb_enc))
+
+    # -- 7. where a step's device time goes (profiler on; launches not counted)
+    profile_steps(store, cond, model, channels_last)
+
+    kernels = [
+        {"name": "zfp_decode_blocks_fa", "route": "cuda",
+         "source": "src/repro_torch/csrc/zfp_fa_decode.cu",
+         "replaces": "src/repro/kernels/zfp_codec.py:190",
+         "launches": launches["zfp_decode_blocks_fa"], "max_abs_err": dec_err,
+         "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
+         "bound_by": dec_by, "library_ms": None,
+         "shape": [nb_dec, words]},
+        {"name": "zfp_encode_blocks_fa", "route": "cuda",
+         "source": "src/repro_torch/csrc/zfp_fa_encode.cu",
+         "replaces": "src/repro/kernels/zfp_codec.py:313",
+         "launches": launches["zfp_encode_blocks_fa"], "max_abs_err": enc_err,
+         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
+         "bound_by": enc_by, "library_ms": None,
+         "shape": [nb_enc, 16]},
+    ]
+    print(f"card: {smi}; step median {statistics.median(step_ms):.3f} ms")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

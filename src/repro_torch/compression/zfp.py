@@ -1,0 +1,115 @@
+"""Fixed-accuracy (error-bounded) ZFP codec on tensors.
+
+Counterpart of the fixed-accuracy half of ``repro/compression/zfp.py``:
+per-block plane counts at a deterministic two-planes-per-int32-word layout,
+with the L-inf bound verified per block.  The batch functions route the
+per-block work through :mod:`repro_torch.kernels.ops`, which launches the
+CUDA kernel for tensors on the card and runs the plain version for tensors
+on the CPU; both give the same bits.
+
+The fixed-rate mode, ``FAEncodeState`` and the stats-only search
+(``fa_stats_batch``) are not ported yet (ROADMAP Queue 1, item 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.compression import transform as T
+
+GUARD_BITS = 2          # optimistic initial guess; correction passes enforce bound
+MAX_FIX_ITERS = 6
+
+
+@dataclasses.dataclass
+class CompressedField:
+    """Tensors of one (batched) compressed array.
+
+    payload : (N, nb, W) int32 -- packed bit planes; planes beyond
+                                  nplanes[b] are zero
+    emax    : (N, nb) int32    -- per-block shared exponent
+    nplanes : (N, nb) int32    -- per-block kept planes
+    shape   : one sample's original shape
+    padded_shape : one sample's shape after padding the trailing dims to 4
+    """
+    payload: torch.Tensor
+    emax: torch.Tensor
+    nplanes: torch.Tensor
+    shape: Tuple[int, ...]
+    padded_shape: Tuple[int, ...]
+
+
+def floor_log2(tols: torch.Tensor) -> torch.Tensor:
+    """Exact ``floor(log2(tol))`` for positive normal f32 tolerances.
+
+    Taken from the binary exponent (``tol = m 2^e``, m in [0.5, 1)), so it is
+    exact at every power of two.  XLA's CPU ``log2`` lands just under ``k``
+    at a dozen powers of two >= 2^13, where the JAX package therefore guesses
+    one plane more; the error bound holds either way (ROADMAP Queue 3, F2).
+    """
+    _, e = torch.frexp(tols.to(torch.float32))
+    return (e - 1).to(torch.int32)
+
+
+def encode_fixed_accuracy_batch(xs: torch.Tensor,
+                                tols: torch.Tensor) -> CompressedField:
+    """Batched error-bounded encode: max |x - decode| <= tol per sample.
+
+    xs   : (N, ...) float tensor, compressed over the trailing two dims
+    tols : (N,) per-sample L-inf tolerances (positive, normal f32)
+
+    All N samples' blocks go through one encode call on one (N*nb, 16) grid.
+    """
+    from repro_torch.kernels import ops
+    n = xs.shape[0]
+    xp = T.pad_to_blocks(xs.to(torch.float32))
+    blocks = T.blockify(xp).contiguous()               # (N * nb, 16)
+    nb = blocks.shape[0] // n
+    tols_b = torch.as_tensor(tols, dtype=torch.float32,
+                             device=xs.device).repeat_interleave(nb)
+    payload, emax, nplanes = ops.zfp_encode_blocks_fa(blocks, tols_b)
+    return CompressedField(payload.reshape(n, nb, -1), emax.reshape(n, nb),
+                           nplanes.reshape(n, nb), tuple(xs.shape[1:]),
+                           tuple(xp.shape[1:]))
+
+
+def decode_batch(cf: CompressedField) -> torch.Tensor:
+    """Decode a batched CompressedField -> (N, ...) float32."""
+    from repro_torch.compression.api import decode_stacked_payloads
+    return decode_stacked_payloads(cf.payload, cf.emax, cf.padded_shape,
+                                   cf.shape, cf.nplanes)
+
+
+# ---------------------------------------------------------------------------
+# sizes
+# ---------------------------------------------------------------------------
+
+def compressed_nbytes_batch(cf: CompressedField) -> torch.Tensor:
+    """Per-sample logical bytes of the two-level fixed-accuracy layout: a
+    2-byte header per block (emax, plane count) plus 2 bytes per kept
+    plane of 16 lanes.  (N,) int64."""
+    nb = cf.nplanes.shape[-1]
+    return 2 * nb + 2 * cf.nplanes.to(torch.int64).sum(dim=-1)
+
+
+def trim_to_nplanes(cf: CompressedField) -> CompressedField:
+    """Drop payload words beyond ``ceil(max(nplanes) / 2)``.
+
+    Words past a block's kept planes are zero by construction and the decode
+    accepts any width covering the deepest kept plane, so trimming is
+    bit-exact.  Reads ``nplanes`` on the host: call at store build time.
+    """
+    npl = int(cf.nplanes.max()) if cf.nplanes.numel() else 0
+    w = max(int(np.ceil(npl / 2)), 1)
+    return CompressedField(cf.payload[..., :w].contiguous(), cf.emax,
+                           cf.nplanes, cf.shape, cf.padded_shape)
+
+
+def crop(xp: torch.Tensor, shape) -> torch.Tensor:
+    """Crop the trailing dims of a padded (B, ...) batch to ``shape``."""
+    if tuple(xp.shape[1:]) == tuple(shape):
+        return xp
+    return xp[(slice(None),) + tuple(slice(0, s) for s in shape)]

@@ -1,0 +1,116 @@
+"""Device-resident compressed training data: upload once, decode in-step.
+
+Counterpart of ``repro/data/device_store.py``.  The packed payload, emax
+and nplanes of the whole dataset live in device memory; a batch is a
+``payload[idx]`` gather plus one fixed-accuracy decode launch, so no host
+bytes move per batch.  Device footprint is ``N * nb * (wmax + 2) * 4``
+bytes; ``stored_bytes`` reports the logical two-level layout so ratios
+match the host stores.  ``from_store`` (upload of a sharded on-disk store)
+waits for the shards port.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.compression import (CompressedField, compressed_nbytes_batch,
+                                     decode_stacked_payloads, get_codec,
+                                     trim_to_nplanes)
+from repro_torch.device import DeviceLike, resolve_device
+
+
+class DeviceResidentCompressedStore:
+    """ArrayStore whose compressed payload lives on one device.
+
+    ``get_batch`` accepts host indices and returns decoded (B, ...) float32;
+    ``decode_indices`` is the same on device indices, the call the fused
+    train step makes.
+    """
+
+    def __init__(self, payload: torch.Tensor, emax: torch.Tensor,
+                 nplanes: torch.Tensor, shape, padded_shape,
+                 tolerances: np.ndarray, logical_bytes_per: np.ndarray):
+        if payload.dtype != torch.int32 or emax.dtype != torch.int32 \
+                or nplanes.dtype != torch.int32:
+            raise TypeError("resident arrays must be int32")
+        if payload.ndim != 3 or emax.shape != payload.shape[:2] \
+                or nplanes.shape != emax.shape:
+            raise ValueError(
+                f"inconsistent resident arrays: payload {tuple(payload.shape)}, "
+                f"emax {tuple(emax.shape)}, nplanes {tuple(nplanes.shape)}")
+        if not (payload.device == emax.device == nplanes.device):
+            raise ValueError("resident arrays must share one device")
+        self.payload = payload.contiguous()                 # (N, nb, W)
+        self.emax = emax.contiguous()                       # (N, nb)
+        self.nplanes = nplanes.contiguous()                 # (N, nb)
+        self.device = payload.device
+        self.shape = tuple(shape)
+        self.padded_shape = tuple(padded_shape)
+        self.num_samples = int(payload.shape[0])
+        self.nb = int(payload.shape[1])
+        self.sample_nbytes = int(np.prod(self.shape)) * 4
+        self.tolerances = np.asarray(tolerances, np.float32)
+        self.logical_bytes_per = np.asarray(logical_bytes_per, np.int64)
+        self.logical_bytes = int(self.logical_bytes_per.sum())
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def from_samples(cls, samples: Sequence[np.ndarray] | np.ndarray,
+                     tolerances: Sequence[float] | np.ndarray,
+                     device: DeviceLike = None
+                     ) -> "DeviceResidentCompressedStore":
+        """Encode channels-first samples (N, C, H, W) on ``device`` (the card
+        unless ``device="cpu"``) at per-sample L-inf ``tolerances``, keeping
+        true per-block plane counts."""
+        dev = resolve_device(device)
+        xs = torch.from_numpy(np.stack([np.asarray(s, np.float32)
+                                        for s in samples])).to(dev)
+        tols = np.asarray(tolerances, np.float32)
+        codec = get_codec("fixed_accuracy")
+        cf = codec.encode_batch(xs, torch.from_numpy(tols).to(dev))
+        del xs
+        return cls.from_compressed(cf, tols, nbytes=codec.nbytes(cf))
+
+    @classmethod
+    def from_compressed(cls, cf: CompressedField, tolerances, nbytes=None
+                        ) -> "DeviceResidentCompressedStore":
+        """Wrap a batched ``CompressedField`` where its tensors already live;
+        nothing is re-encoded.  Payload words beyond the deepest kept plane
+        are dropped (they are zero by construction)."""
+        if nbytes is None:
+            nbytes = compressed_nbytes_batch(cf)
+        cf = trim_to_nplanes(cf)
+        return cls(cf.payload, cf.emax, cf.nplanes, cf.shape, cf.padded_shape,
+                   np.asarray(tolerances, np.float32),
+                   np.asarray(torch.as_tensor(nbytes).cpu(), np.int64))
+
+    # -- store protocol ------------------------------------------------------
+
+    @property
+    def stored_bytes(self) -> int:
+        return self.logical_bytes
+
+    @property
+    def resident_bytes(self) -> int:
+        """Actual device footprint of the resident arrays."""
+        return (self.payload.numel() + self.emax.numel()
+                + self.nplanes.numel()) * 4
+
+    @property
+    def ratio(self) -> float:
+        return self.sample_nbytes * self.num_samples / max(self.logical_bytes, 1)
+
+    def decode_indices(self, idx: torch.Tensor) -> torch.Tensor:
+        """Gather + decode a batch of sample indices already on the store's
+        device -> (B, ...) float32."""
+        return decode_stacked_payloads(self.payload[idx], self.emax[idx],
+                                       self.padded_shape, self.shape,
+                                       self.nplanes[idx])
+
+    def get_batch(self, idx: np.ndarray) -> torch.Tensor:
+        """ArrayStore-compatible batch access from host indices."""
+        idx_t = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
+        return self.decode_indices(idx_t.to(self.device))

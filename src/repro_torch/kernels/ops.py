@@ -1,0 +1,46 @@
+"""Public codec kernels, dispatched on the device of their inputs.
+
+A tensor on the CPU goes to the plain version (:mod:`.ref`); a tensor on
+the card goes to the CUDA kernel (:mod:`.zfp_codec`), which launches or
+raises.  There is no fallback and no switch that sends card tensors through
+plain code.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.compression.zfp import floor_log2
+from repro_torch.kernels import ref, zfp_codec
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"no ZFP kernel for device {dev}")
+
+
+def zfp_decode_blocks_fa(payload: torch.Tensor, emax: torch.Tensor,
+                         nplanes: torch.Tensor) -> torch.Tensor:
+    """Fixed-accuracy decode: ((nb, W), (nb,), (nb,)) int32 -> (nb, 16) f32."""
+    if _on_cpu(payload, emax, nplanes):
+        return ref.zfp_decode_blocks_fa_ref(payload, emax, nplanes)
+    return zfp_codec.zfp_decode_blocks_fa(payload, emax, nplanes)
+
+
+def zfp_encode_blocks_fa(blocks: torch.Tensor, tols: torch.Tensor):
+    """Fixed-accuracy encode with per-block L-inf tolerances.
+
+    (nb, 16) f32, (nb,) f32 -> ((nb, 15) int32 payload, (nb,) int32 emax,
+    (nb,) int32 nplanes).  ``floor(log2(tol))`` is computed here, outside
+    the kernel, exactly (:func:`repro_torch.compression.zfp.floor_log2`).
+    """
+    log2tols = floor_log2(tols)
+    if _on_cpu(blocks, tols):
+        return ref.zfp_encode_blocks_fa_ref(blocks, tols, log2tols)
+    return zfp_codec.zfp_encode_blocks_fa(blocks, tols, log2tols)

@@ -1,0 +1,170 @@
+"""CUDA fixed-accuracy ZFP kernels: build, load and launch.
+
+The kernels live in ``repro_torch/csrc`` as CUDA C++ with a plain C
+interface.  At first use each source is compiled by its own ``nvcc`` (all
+started together) into a shared library under ``<repo>/build/``, keyed by a
+hash of the sources and flags, and loaded with ``ctypes``.  Nothing is
+built or imported at module import, so the module loads on machines with
+no CUDA toolkit.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current stream, raises if the
+launch returned an error, and adds one to its entry in :data:`LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from repro_torch.compression.transform import MAX_WORDS
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+SOURCES = {"zfp_fa_decode": "zfp_fa_decode.cu",
+           "zfp_fa_encode": "zfp_fa_encode.cu"}
+HEADERS = ("zfp_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--ftz=true", "--fmad=false", "-Xptxas", "-v",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES: Dict[str, int] = {"zfp_decode_blocks_fa": 0,
+                            "zfp_encode_blocks_fa": 0}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+# nvcc output (ptxas registers and spills) of each source this process built
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the ZFP kernels "
+                           "are built from source at first use")
+    return found
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(SOURCES.values()) + sorted(HEADERS):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_ROOT / f"zfp_codec-{h.hexdigest()[:16]}"
+
+
+def build() -> Dict[str, ctypes.CDLL]:
+    """Compile (if not cached) and load every kernel library; idempotent."""
+    with _build_lock:
+        if _libs:
+            return _libs
+        out = _build_dir()
+        out.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for key, src in SOURCES.items():
+            so = out / f"lib{key}.so"
+            if so.exists():
+                continue
+            tmp = out / f"lib{key}.{os.getpid()}.tmp.so"
+            procs[key] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, so)
+        for key, (proc, tmp, so) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOGS[key] = log
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {SOURCES[key]}:\n{log}")
+            os.replace(tmp, so)
+        libs = {key: ctypes.CDLL(str(out / f"lib{key}.so")) for key in SOURCES}
+        dec = libs["zfp_fa_decode"].zfp_decode_blocks_fa_launch
+        dec.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                                ctypes.c_void_p]
+        dec.restype = ctypes.c_int
+        enc = libs["zfp_fa_encode"].zfp_encode_blocks_fa_launch
+        enc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                                ctypes.c_void_p]
+        enc.restype = ctypes.c_int
+        _libs.update(libs)
+        return _libs
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def zfp_decode_blocks_fa(payload: torch.Tensor, emax: torch.Tensor,
+                         nplanes: torch.Tensor) -> torch.Tensor:
+    """CUDA fixed-accuracy decode: ((nb, W) int32, (nb,) int32, (nb,) int32)
+    -> (nb, 16) float32, with 1 <= W <= 15."""
+    if payload.dim() != 2 or not 1 <= payload.shape[1] <= MAX_WORDS:
+        raise ValueError(f"payload must be (nb, W) with 1 <= W <= {MAX_WORDS},"
+                         f" got {tuple(payload.shape)}")
+    nb, num_words = payload.shape
+    dev = payload.device
+    _check(payload, "payload", torch.int32, (nb, num_words), dev)
+    _check(emax, "emax", torch.int32, (nb,), dev)
+    _check(nplanes, "nplanes", torch.int32, (nb,), dev)
+    fn = build()["zfp_fa_decode"].zfp_decode_blocks_fa_launch
+    out = torch.empty((nb, 16), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fn(payload.data_ptr(), emax.data_ptr(), nplanes.data_ptr(),
+                     out.data_ptr(), nb, num_words, stream),
+                  "zfp_decode_blocks_fa")
+    LAUNCHES["zfp_decode_blocks_fa"] += 1
+    return out
+
+
+def zfp_encode_blocks_fa(blocks: torch.Tensor, tols: torch.Tensor,
+                         log2tols: torch.Tensor):
+    """CUDA fixed-accuracy encode: ((nb, 16) f32, (nb,) f32, (nb,) int32
+    floor(log2(tol))) -> ((nb, 15) int32 payload, (nb,) int32 emax,
+    (nb,) int32 nplanes)."""
+    if blocks.dim() != 2:
+        raise ValueError(f"blocks must be (nb, 16), got {tuple(blocks.shape)}")
+    nb = blocks.shape[0]
+    dev = blocks.device
+    _check(blocks, "blocks", torch.float32, (nb, 16), dev)
+    _check(tols, "tols", torch.float32, (nb,), dev)
+    _check(log2tols, "log2tols", torch.int32, (nb,), dev)
+    fn = build()["zfp_fa_encode"].zfp_encode_blocks_fa_launch
+    payload = torch.empty((nb, MAX_WORDS), dtype=torch.int32, device=dev)
+    emax = torch.empty((nb,), dtype=torch.int32, device=dev)
+    nplanes = torch.empty((nb,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fn(blocks.data_ptr(), tols.data_ptr(), log2tols.data_ptr(),
+                     payload.data_ptr(), emax.data_ptr(), nplanes.data_ptr(),
+                     nb, stream),
+                  "zfp_encode_blocks_fa")
+    LAUNCHES["zfp_encode_blocks_fa"] += 1
+    return payload, emax, nplanes

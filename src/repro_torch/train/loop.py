@@ -1,0 +1,95 @@
+"""Surrogate training loop over a device-resident compressed store.
+
+Counterpart of ``repro/train/loop.py`` for the paper's workflow 2 with the
+dataset resident in device memory: each step ships only the (B,) index
+vector, and gather + fixed-accuracy decode + L1 + Adam run on the device.
+Batches follow ``ShardedLoader``'s ``(seed, epoch)`` order, the same as the
+JAX package's.  Checkpointing waits for ROADMAP Queue 1 item 8 and
+telemetry for item 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device, same_device
+from repro_torch.models.surrogate import Surrogate, SurrogateConfig, init_surrogate
+from repro_torch.train.optimizer import AdamConfig, adam_init
+from repro_torch.train.source import (batch_stream, make_batch_source,
+                                      make_fused_step, make_loader)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    epochs: int = 40
+    batch_size: int = 64
+    lr: float = 1e-4
+    seed: int = 0
+    ckpt_dir: Optional[str] = None   # not ported: must stay None
+    log_every: int = 50
+    max_steps: Optional[int] = None  # stop after this many steps
+
+
+def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
+                    conditions: np.ndarray, data,
+                    params: Optional[Mapping[str, torch.Tensor]] = None,
+                    hooks: Sequence[Callable] = (),
+                    target_transform: Optional[Callable] = None,
+                    device: DeviceLike = None):
+    """Train; returns (model, loss_history of (step, loss) pairs).
+
+    ``data`` is a ``DeviceResidentCompressedStore`` on ``device`` (the card
+    unless ``device="cpu"``).  ``params`` is an optional state dict, e.g.
+    from :func:`repro_torch.models.surrogate.params_from_jax`; otherwise the
+    model is initialised from ``train_cfg.seed``.  Each hook is called as
+    ``hook(step, model, loss)`` after every step.
+    """
+    if train_cfg.ckpt_dir:
+        raise NotImplementedError("checkpointing is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
+    dev = resolve_device(device)
+    source = make_batch_source(data, conditions, target_transform)
+    if not same_device(source.store.device, dev):
+        raise ValueError(f"store lives on {source.store.device}, training "
+                         f"was asked to run on {dev}")
+    model = init_surrogate(model_cfg, train_cfg.seed, dev)
+    if params is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+    opt_cfg = AdamConfig(lr=train_cfg.lr)
+    opt_state = adam_init(dict(model.named_parameters()), opt_cfg)
+    loader = make_loader(data, train_cfg.batch_size, train_cfg.seed)
+    fused_step = make_fused_step(source, model, opt_cfg)
+
+    losses = []
+    step = 0
+    for _, idx in batch_stream(loader, source.fetch, train_cfg.epochs):
+        opt_state, loss = fused_step(opt_state, idx)
+        step += 1
+        if step % train_cfg.log_every == 0:
+            losses.append((step, float(loss)))
+        for h in hooks:
+            h(step, model, loss)
+        if train_cfg.max_steps is not None and step >= train_cfg.max_steps:
+            break
+    return model, losses
+
+
+@torch.no_grad()
+def predict_fields(model: Surrogate, conditions, batch: int = 256,
+                   device: DeviceLike = None) -> np.ndarray:
+    """Predict (N, H, W, fields) for (N, cond_dim) conditions on ``device``
+    (the card unless ``device="cpu"``); the model must live there."""
+    dev = resolve_device(device)
+    p_dev = next(model.parameters()).device
+    if not same_device(p_dev, dev):
+        raise ValueError(f"model lives on {p_dev}, prediction was asked to "
+                         f"run on {dev}")
+    conditions = np.asarray(conditions, np.float32)
+    outs = []
+    for i in range(0, len(conditions), batch):
+        c = torch.from_numpy(conditions[i:i + batch]).to(dev)
+        outs.append(model(c).cpu().numpy())
+    return np.concatenate(outs)

@@ -1,0 +1,71 @@
+"""Adam / AdamW on dicts of tensors, as ``repro/train/optimizer.py`` writes it.
+
+Deliberately not ``torch.optim.Adam``: this keeps the reference's order of
+operations (f32 bias corrections ``1 - b ** step``, then
+``mhat / (sqrt(vhat) + eps)``) so trajectories compare across packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor     # () int32
+    m: Tensors
+    v: Tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    lr: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: Optional[float] = None
+
+
+def adam_init(params: Tensors, cfg: AdamConfig) -> AdamState:
+    del cfg
+    dev = next(iter(params.values())).device
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                     m={k: torch.zeros_like(p) for k, p in params.items()},
+                     v={k: torch.zeros_like(p) for k, p in params.items()})
+
+
+def global_norm(tensors: Tensors) -> torch.Tensor:
+    return torch.sqrt(sum(x.float().square().sum() for x in tensors.values()))
+
+
+@torch.no_grad()
+def adam_update(grads: Tensors, state: AdamState, params: Tensors,
+                cfg: AdamConfig, lr_scale: float = 1.0):
+    """Returns (new_params, new_state); inputs are left unchanged."""
+    if cfg.grad_clip is not None:
+        gn = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
+        grads = {k: g * scale for k, g in grads.items()}
+    step = state.step + 1
+    b1, b2 = cfg.b1, cfg.b2
+    m = {k: b1 * state.m[k] + (1 - b1) * g for k, g in grads.items()}
+    v = {k: b2 * state.v[k] + (1 - b2) * g.square() for k, g in grads.items()}
+    step_f = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                     device=step.device), step_f)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                     device=step.device), step_f)
+    lr = cfg.lr * lr_scale
+
+    def upd(p, mm, vv):
+        delta = (mm / bc1) / (torch.sqrt(vv / bc2) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p
+        return (p - lr * delta).to(p.dtype)
+
+    new_params = {k: upd(p, m[k], v[k]) for k, p in params.items()}
+    return new_params, AdamState(step=step, m=m, v=v)

@@ -1,0 +1,84 @@
+"""The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
+
+An AST scan of every module under ``src/repro_torch/`` and of
+``chip_smoke.py`` shows no import of ``jax``, ``repro`` or ``triton`` at
+module level; the entry points raise without a GPU unless the caller asks
+for the CPU.
+"""
+import ast
+import importlib
+import pathlib
+import pkgutil
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.data import DeviceResidentCompressedStore, channels_last
+from repro_torch.kernels import zfp_codec
+from repro_torch.models.surrogate import SurrogateConfig, init_surrogate
+from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_repro_imports(path):
+    assert path.exists(), path
+    bad = [(name, node.lineno) for name, node in _imported_roots(path)
+           if name in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_every_port_module_imports_without_toolchain():
+    """Every module imports with no nvcc, no triton and no card, and
+    importing builds nothing."""
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    assert "repro_torch.kernels.zfp_codec" in names
+    for name in names:
+        importlib.import_module(name)
+    assert not zfp_codec._libs
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
+    samples = np.zeros((2, 6, 16, 16), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceResidentCompressedStore.from_samples(samples, [1e-3, 1e-3])
+    store = DeviceResidentCompressedStore.from_samples(samples, [1e-3, 1e-3],
+                                                       device="cpu")
+    cfg = SurrogateConfig(height=16, width=16, base_channels=8)
+    cond = np.zeros((2, cfg.cond_dim), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_surrogate(cfg, TrainConfig(batch_size=2, max_steps=1), cond, store)
+    model, losses = train_surrogate(cfg, TrainConfig(batch_size=2, max_steps=1,
+                                                     log_every=1),
+                                    cond, store, target_transform=channels_last,
+                                    device="cpu")
+    assert len(losses) == 1 and np.isfinite(losses[0][1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_fields(model, cond)
+    assert predict_fields(model, cond, device="cpu").shape == (2, 16, 16, 6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_fields(init_surrogate(cfg), cond, device="cuda")

@@ -1,0 +1,121 @@
+"""The port's training slice against the JAX package on the CPU.
+
+Same samples, same tolerances, the same initial parameters (through
+``params_from_jax``) and the same loader seed, so both packages draw the same
+batches in the same order from device-resident stores.  The comparison is
+to a tolerance, not bitwise: the L1 gradient is ``sign(pred - target)``, and
+a residual within float noise of zero can flip between the two runtimes.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.data import (DeviceResidentCompressedStore as JaxStore,
+                        channels_last as jax_channels_last)
+from repro.data.loader import ShardedLoader as JaxLoader
+from repro.models.surrogate import (SurrogateConfig as JaxConfig,
+                                    init_surrogate as jax_init)
+from repro.sim.synthetic import synthetic_study as jax_synthetic_study
+from repro.train.loop import (TrainConfig as JaxTrainConfig,
+                              predict_fields as jax_predict_fields,
+                              train_surrogate as jax_train_surrogate)
+
+from repro_torch.data import (DeviceResidentCompressedStore, ShardedLoader,
+                              channels_last)
+from repro_torch.models.surrogate import (SurrogateConfig, init_surrogate,
+                                          params_from_jax)
+from repro_torch.sim.synthetic import synthetic_study
+from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
+from repro_torch.train.source import make_batch_source
+
+torch.set_num_threads(2)
+
+STEPS, LR, BATCH = 6, 1e-3, 4
+LOSS_RTOL = 1e-5      # per logged step, relative
+# Final params: an element whose gradient flipped sign in some step can move
+# by up to ~2 LR per step differently (Adam normalizes the step size), so
+# all elements are held to 2 * LR * STEPS and all but FLIP_SHARE of them to
+# PARAM_ATOL.
+PARAM_ATOL = 1e-6
+FLIP_SHARE = 1e-3
+
+
+@pytest.fixture(scope="module")
+def study():
+    cfg, cond, fields = synthetic_study(n=24, height=16, width=16, base_channels=8)
+    samples = np.ascontiguousarray(fields.transpose(0, 3, 1, 2))   # (N, 6, H, W)
+    tols = np.full(len(samples), 1e-3, np.float32)
+    return cfg, cond, samples, tols
+
+
+def test_synthetic_study_matches_jax():
+    cfg, cond, fields = synthetic_study(n=5, height=16, width=8, base_channels=8)
+    jcfg, jcond, jfields = jax_synthetic_study(n=5, height=16, width=8,
+                                               base_channels=8)
+    assert dataclass_fields(cfg) == dataclass_fields(jcfg)
+    assert np.array_equal(cond, jcond) and np.array_equal(fields, jfields)
+
+
+def dataclass_fields(c):
+    return {k: getattr(c, k) for k in ("height", "width", "fields",
+                                       "base_channels", "cond_dim")}
+
+
+def test_loader_order_matches_jax():
+    a, b = ShardedLoader(37, 5, seed=11), JaxLoader(37, 5, seed=11)
+    xs, ys = list(a.iter_epochs(3)), list(b.iter_epochs(3))
+    assert len(xs) == len(ys) == 21
+    assert all(np.array_equal(x, y) for x, y in zip(xs, ys))
+    assert a.state() == b.state() and a.steps_per_epoch == b.steps_per_epoch
+
+
+def test_train_surrogate_matches_jax(study):
+    cfg, cond, samples, tols = study
+    jcfg = JaxConfig(height=16, width=16, base_channels=8)
+    jparams = jax_init(jax.random.PRNGKey(0), jcfg)
+    jstore = JaxStore.from_samples(list(samples), tols)
+    jp, jl = jax_train_surrogate(
+        jcfg, JaxTrainConfig(epochs=2, batch_size=BATCH, lr=LR, seed=5,
+                             log_every=1, max_steps=STEPS),
+        cond, jstore, params=jparams, target_transform=jax_channels_last)
+
+    store = DeviceResidentCompressedStore.from_samples(samples, tols, device="cpu")
+    seen = []
+    model, losses = train_surrogate(
+        cfg, TrainConfig(epochs=2, batch_size=BATCH, lr=LR, seed=5, log_every=1,
+                         max_steps=STEPS),
+        cond, store, params=params_from_jax(jparams),
+        hooks=[lambda step, m, loss: seen.append(step)],
+        target_transform=channels_last, device="cpu")
+
+    assert seen == list(range(1, STEPS + 1))
+    assert [s for s, _ in losses] == [s for s, _ in jl] == seen
+    np.testing.assert_allclose([l for _, l in losses], [l for _, l in jl],
+                               rtol=LOSS_RTOL, atol=0)
+    want = params_from_jax(jax.tree.map(np.asarray, jp))
+    for name, p in model.state_dict().items():
+        diff = np.abs(p.numpy() - want[name].numpy())
+        assert diff.max() <= 2 * LR * STEPS, name
+        assert np.mean(diff > PARAM_ATOL) <= FLIP_SHARE, name
+    # moved away from the init by Adam, by about LR per step
+    init = params_from_jax(jparams)
+    assert float((model.state_dict()["out.w"] - init["out.w"]).abs().max()) > LR
+
+    preds = predict_fields(model, cond[:10], batch=4, device="cpu")
+    jpreds = jax_predict_fields(jp, jcfg, cond[:10], batch=4)
+    assert preds.shape == jpreds.shape == (10, 16, 16, 6)
+    np.testing.assert_allclose(preds, jpreds, rtol=0, atol=1e-4)
+
+
+def test_train_rejects_what_is_not_ported(study):
+    cfg, cond, samples, tols = study
+    store = DeviceResidentCompressedStore.from_samples(samples[:4], tols[:4],
+                                                       device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        train_surrogate(cfg, TrainConfig(ckpt_dir="ckpt"), cond, store,
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        make_batch_source(lambda idx: samples[idx], cond)
+    with pytest.raises(ValueError, match="unsupported device"):
+        predict_fields(init_surrogate(cfg), cond, device="meta")
