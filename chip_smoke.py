@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (``nvcc`` under ``$CUDA_HOME`` or on
-``PATH``) and this checkout's ``src/``.  It builds the fixed-accuracy ZFP
-kernels from ``src/repro_torch/csrc`` into ``build/``, holds each kernel
-against its plain PyTorch version (run on the CPU) bit for bit, then runs
-the paper's workflow 2 at the repo's full model width: encode a synthetic
-study into a device-resident compressed store, train the DCGAN surrogate
-for a few steps with gather + decode + L1 + Adam on the card.  It prints
-the card's name and power limit, one ``kernels`` JSON line (launches on the
-main path, agreement, times and bounds), and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
-that line.  Precision: float32 with TF32 off.
+``PATH``) and this checkout's ``src/``.  It builds the four ZFP kernels
+(fixed-accuracy and fixed-rate encode and decode) from
+``src/repro_torch/csrc`` into ``build/``, holds each kernel against its
+plain PyTorch version (run on the CPU) bit for bit, then runs two paths at
+the repo's full model width:
+
+* the device-resident path (the paper's workflow 2 with the store in device
+  memory): encode a synthetic study into a device-resident store and train
+  the DCGAN surrogate with gather + decode + L1 + Adam on the card;
+* the host-streaming path (workflows 1 and 2 from disk): write a raw store,
+  a per-sample fixed-accuracy store, a sharded store and a per-sample
+  fixed-rate store to a temporary directory (removed at exit), and train
+  from each, with and without the prefetch worker and, for the raw and
+  sharded stores, at the paper's emulated workspace bandwidth.
+
+It prints the card's name and power limit, per run the median step time,
+the summed fetch wait and the store's ``IoStats``, one ``kernels`` JSON
+line (launches on the paths, agreement, times and bounds), and as its last
+line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+without that line.  Precision: float32 with TF32 off.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -28,6 +40,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+DEV = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  The
 # codec's integer work is counted at the f32 non-tensor rate, which is at
@@ -42,6 +55,14 @@ TOLERANCE = 1e-3
 BATCH, LR, STEPS = 64, 1e-4, 30
 CHECK_SAMPLES = 128                  # 147,456 main-path blocks held to the CPU
 LOSS_RTOL = 1e-4                     # first-step loss, card vs CPU (f32 convs)
+# host-streaming path: fixed-rate store at 12 bits per value, shards of 32
+# samples, and the paper's workspace file system as an emulated bandwidth
+# (benchmarks/loading_throughput.py:23)
+HOST_STEPS = 30
+FR_BITS = 12
+FR_CHECK_BITS = (1, 2, 7, 12, 13, 16, 29, 30)
+SHARD_SIZE = 32
+WORKSPACE_MBS = 145.65
 
 
 class CheckFailed(RuntimeError):
@@ -83,6 +104,31 @@ def encode_ops(nb: int) -> float:
     front = 16 + 32 + 5 + 64 + 8 * 16 + 32 + 16 + 5
     per_pass = 16 + 32 + 8 * 16 + 48 + 48 + 3
     return nb * (front + 6 * per_pass + 8 * 16 * 15)
+
+
+def fr_decode_ops(nb: int, words: int) -> float:
+    return nb * (128 * words + 32 + 8 * 16 + 48)
+
+
+def fr_encode_ops(nb: int, words: int) -> float:
+    front = 16 + 32 + 5 + 64 + 8 * 16 + 32
+    return nb * (front + 16 + 8 * 16 * words)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bit patterns (signed zeros included)."""
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def gpu_line() -> str:
+    return subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
 
 
 def profile_steps(store, cond, model, transform, steps: int = 10) -> None:
@@ -138,16 +184,15 @@ def main() -> int:
     from repro_torch.sim.synthetic import synthetic_study
     from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
 
-    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip()
+    smi = gpu_line()
     print(smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"tf32: cudnn={torch.backends.cudnn.allow_tf32} "
           f"matmul={torch.backends.cuda.matmul.allow_tf32}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
+    t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -197,30 +242,64 @@ def main() -> int:
                                        f"{blocks.shape[0]} blocks): {name}")
         dec_want = ref.zfp_decode_blocks_fa_ref(*want)
         dec_got = zfp_codec.zfp_decode_blocks_fa(*(w.to(dev) for w in want)).cpu()
-        require(torch.equal(dec_got, dec_want),
+        require(same_bits(dec_got, dec_want),
                 f"decode kernel == plain ({what}, 15 words)")
         w_trim = max((int(want[2].max()) + 1) // 2, 1)
         trimmed = want[0][:, :w_trim].contiguous()
         dec_got = zfp_codec.zfp_decode_blocks_fa(trimmed.to(dev), want[1].to(dev),
                                                  want[2].to(dev)).cpu()
-        require(torch.equal(dec_got, dec_want),
+        require(same_bits(dec_got, dec_want),
                 f"decode kernel == plain ({what}, trimmed to {w_trim} words)")
     deep = torch.cat([main_blocks[:4096], special_blocks]).contiguous()
     deep_tols = torch.full((deep.shape[0],), 2.0 ** -126)
     full_p, full_e, _ = ref.zfp_encode_blocks_fa_ref(deep, deep_tols,
                                                      floor_log2(deep_tols))
     npl = torch.arange(deep.shape[0], dtype=torch.int32) % 31
-    require(torch.equal(zfp_codec.zfp_decode_blocks_fa(full_p.to(dev), full_e.to(dev),
-                                                       npl.to(dev)).cpu(),
-                        ref.zfp_decode_blocks_fa_ref(full_p, full_e, npl)),
+    require(same_bits(zfp_codec.zfp_decode_blocks_fa(full_p.to(dev), full_e.to(dev),
+                                                     npl.to(dev)),
+                      ref.zfp_decode_blocks_fa_ref(full_p, full_e, npl)),
             "decode kernel == plain (full-depth words, counts 0..30 mask planes)")
-    del main_blocks, mixed_blocks
 
-    # -- 4. the main path at full width ------------------------------------------
+    # fixed-rate kernels: every rate class on the main-path, F1 and zero blocks
+    fr_blocks = torch.cat([main_blocks, special_blocks]).contiguous()
+    fr_blocks_dev = fr_blocks.to(dev)
+    for bits in FR_CHECK_BITS:
+        want = ref.zfp_encode_blocks_ref(fr_blocks, bits)
+        got = zfp_codec.zfp_encode_blocks(fr_blocks_dev, bits)
+        for name, g, w in zip(("payload", "emax"), got, want):
+            require(same_bits(g, w), f"fixed-rate encode kernel == plain ({bits} bits, "
+                                     f"{fr_blocks.shape[0]} blocks): {name}")
+        require(same_bits(zfp_codec.zfp_decode_blocks(want[0].to(dev), want[1].to(dev),
+                                                      bits),
+                          ref.zfp_decode_blocks_ref(want[0], want[1], bits)),
+                f"fixed-rate decode kernel == plain ({bits} bits, "
+                f"{(bits + 1) // 2} words)")
+    # FA main-path streams at per-sample tolerances 1e-5..1e-1, padded to
+    # the widest sample's words and decoded without nplanes (the
+    # host-streaming stores' decode)
+    nb_s = main_blocks.shape[0] // CHECK_SAMPLES
+    sample_tols = torch.from_numpy(np.logspace(-5, -1, CHECK_SAMPLES).astype(np.float32))
+    block_tols = sample_tols.repeat_interleave(nb_s)
+    fa_p, fa_e, fa_n = ref.zfp_encode_blocks_fa_ref(main_blocks, block_tols,
+                                                    floor_log2(block_tols))
+    widths = [max((int(n.max()) + 1) // 2, 1) for n in fa_n.reshape(CHECK_SAMPLES, nb_s)]
+    wmax = max(widths)
+    padded = fa_p[:, :wmax].contiguous()
+    dec_want = ref.zfp_decode_blocks_fa_ref(fa_p, fa_e, fa_n)
+    require(same_bits(ref.zfp_decode_blocks_ref(padded, fa_e, 2 * wmax), dec_want),
+            f"plain fixed-rate decode of FA streams == FA decode ({wmax} words)")
+    require(same_bits(zfp_codec.zfp_decode_blocks(padded.to(dev), fa_e.to(dev), 2 * wmax),
+                      dec_want),
+            f"fixed-rate decode kernel of FA streams padded to {wmax} words (per-sample "
+            f"widths {min(widths)}..{wmax}) == plain FA decode")
+    del main_blocks, mixed_blocks, fr_blocks, fr_blocks_dev, padded
+    print(f"kernel checks: {time.perf_counter() - t_start:.1f} s since start", flush=True)
+
+    # -- 4. device-resident path at full width -----------------------------------
     zfp_codec.reset_launches()
     t0 = time.perf_counter()
     store = DeviceResidentCompressedStore.from_samples(
-        samples, np.full(N_SAMPLES, TOLERANCE, np.float32))
+        samples, np.full(N_SAMPLES, TOLERANCE, np.float32), device=DEV)
     torch.cuda.synchronize()
     t_store = time.perf_counter() - t0
     stamps = []
@@ -229,12 +308,12 @@ def main() -> int:
         cfg_full, TrainConfig(epochs=1, batch_size=BATCH, lr=LR, seed=0, log_every=1,
                               max_steps=STEPS),
         cond, store, hooks=[lambda step, m, loss: stamps.append(time.perf_counter())],
-        target_transform=channels_last)
+        target_transform=channels_last, device=DEV)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    launches = dict(zfp_codec.LAUNCHES)
-    print(f"main path: store build {t_store:.3f} s, {STEPS} steps {t_train:.3f} s; "
-          f"launches {launches}")
+    resident_launches = dict(zfp_codec.LAUNCHES)
+    print(f"device-resident path: store build {t_store:.3f} s, {STEPS} steps "
+          f"{t_train:.3f} s; launches {resident_launches}")
     print(f"store: {store.num_samples} samples x {store.nb} blocks, width "
           f"{store.payload.shape[-1]} words, ratio {store.ratio:.3f}, resident "
           f"{store.resident_bytes} bytes ({store.resident_bytes / 1e6:.1f} MB), "
@@ -243,13 +322,13 @@ def main() -> int:
     step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     print(f"step time: median {statistics.median(step_ms):.3f} ms over steps "
           f"2..{STEPS} (min {min(step_ms):.3f}, max {max(step_ms):.3f})")
-    for name in launches:
-        require(launches[name] > 0, f"{name} launched on the main path "
-                                    f"({launches[name]} times)")
+    for name in ("zfp_decode_blocks_fa", "zfp_encode_blocks_fa"):
+        require(resident_launches[name] > 0, f"{name} launched on the device-resident "
+                                             f"path ({resident_launches[name]} times)")
     require(len(losses) == STEPS and all(np.isfinite(l) for _, l in losses),
             f"{STEPS} finite losses")
 
-    # -- 5. the outputs are right ------------------------------------------------
+    # -- 5. the device-resident outputs are right ---------------------------------
     worst = 0.0
     for i in range(0, N_SAMPLES, 256):
         idx = torch.arange(i, min(i + 256, N_SAMPLES), device=dev)
@@ -269,11 +348,19 @@ def main() -> int:
     require(abs(l_gpu - l_cpu) <= LOSS_RTOL * abs(l_cpu),
             f"first-step loss on the card {l_gpu:.7f} == plain CPU path "
             f"{l_cpu:.7f} (rtol {LOSS_RTOL})")
-    preds = predict_fields(model, cond[:8])
+    preds = predict_fields(model, cond[:8], device=DEV)
     require(preds.shape == (8, 96, 32, 6) and bool(np.isfinite(preds).all()),
             "predict_fields gives finite (8, 96, 32, 6) fields")
 
-    # -- 6. times at the main-path shapes ----------------------------------------
+    # -- 6. host-streaming path: stores on disk, decoded per batch ----------------
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    try:
+        host = host_streaming_path(tmp.name, samples, cond, cfg_full, store)
+    finally:
+        tmp.cleanup()
+    host_launches, fr_store_words, shard_batch = host
+
+    # -- 7. times at the main-path shapes ----------------------------------------
     idx = torch.arange(BATCH, device=dev)
     bp = store.payload[idx].reshape(-1, store.payload.shape[-1]).contiguous()
     be = store.emax[idx].reshape(-1).contiguous()
@@ -287,6 +374,20 @@ def main() -> int:
             f"decode kernel == plain version on the card ({nb_dec} blocks)")
     dec_bound, dec_by = bound_ms(nb_dec * (words * 4 + 8) + nb_dec * 64,
                                  decode_ops(nb_dec, words))
+
+    # fixed-rate decode at the host-stream shape: one sharded batch
+    sp, se = (t.to(dev) for t in shard_batch)
+    nb_fr, fr_words = sp.shape
+    fr_dec_ms = cuda_ms(lambda: zfp_codec.zfp_decode_blocks(sp, se, 2 * fr_words),
+                        reps=200)
+    fr_dec_plain_ms = cuda_ms(lambda: ref.zfp_decode_blocks_ref(sp, se, 2 * fr_words),
+                              reps=20)
+    fr_dec_err = float((ref.zfp_decode_blocks_ref(sp, se, 2 * fr_words)
+                        - zfp_codec.zfp_decode_blocks(sp, se, 2 * fr_words)).abs().max())
+    require(fr_dec_err == 0.0, f"fixed-rate decode kernel == plain version on the "
+                               f"card ({nb_fr} blocks x {fr_words} words)")
+    fr_dec_bound, fr_dec_by = bound_ms(nb_fr * (fr_words * 4 + 4) + nb_fr * 64,
+                                       fr_decode_ops(nb_fr, fr_words))
 
     xs = torch.from_numpy(samples).to(dev)
     blocks = T.blockify(T.pad_to_blocks(xs)).contiguous()
@@ -305,31 +406,187 @@ def main() -> int:
             f"encode kernel == plain version on the card ({nb_enc} blocks)")
     enc_bound, enc_by = bound_ms(nb_enc * 72 + nb_enc * 68, encode_ops(nb_enc))
 
-    # -- 7. where a step's device time goes (profiler on; launches not counted)
+    fr_enc_words = (FR_BITS + 1) // 2
+    fr_enc_ms = cuda_ms(lambda: zfp_codec.zfp_encode_blocks(blocks, FR_BITS), reps=10,
+                        warmup=1)
+    fr_enc_plain_ms = cuda_ms(lambda: ref.zfp_encode_blocks_ref(blocks, FR_BITS),
+                              reps=2, warmup=1)
+    got_fr = zfp_codec.zfp_encode_blocks(blocks, FR_BITS)
+    fr_enc_err = max(float((a - b).abs().max()) for a, b in zip(
+        got_fr, ref.zfp_encode_blocks_ref(blocks, FR_BITS)))
+    require(fr_enc_err == 0.0, f"fixed-rate encode kernel == plain version on the "
+                               f"card ({nb_enc} blocks, {FR_BITS} bits)")
+    require(same_bits(got_fr[0].reshape(N_SAMPLES, -1), fr_store_words),
+            "fixed-rate store words == the whole-store encode kernel's")
+    fr_enc_bound, fr_enc_by = bound_ms(nb_enc * 64 + nb_enc * (4 * fr_enc_words + 4),
+                                       fr_encode_ops(nb_enc, fr_enc_words))
+    del blocks, got_fr
+
+    # -- 8. where a step's device time goes (profiler on; launches not counted)
     profile_steps(store, cond, model, channels_last)
+
+    def launches(name):
+        return resident_launches[name] + host_launches[name]
 
     kernels = [
         {"name": "zfp_decode_blocks_fa", "route": "cuda",
          "source": "src/repro_torch/csrc/zfp_fa_decode.cu",
          "replaces": "src/repro/kernels/zfp_codec.py:190",
-         "launches": launches["zfp_decode_blocks_fa"], "max_abs_err": dec_err,
+         "launches": launches("zfp_decode_blocks_fa"), "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
          "bound_by": dec_by, "library_ms": None,
          "shape": [nb_dec, words]},
         {"name": "zfp_encode_blocks_fa", "route": "cuda",
          "source": "src/repro_torch/csrc/zfp_fa_encode.cu",
          "replaces": "src/repro/kernels/zfp_codec.py:313",
-         "launches": launches["zfp_encode_blocks_fa"], "max_abs_err": enc_err,
+         "launches": launches("zfp_encode_blocks_fa"), "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": None,
          "shape": [nb_enc, 16]},
+        {"name": "zfp_decode_blocks", "route": "cuda",
+         "source": "src/repro_torch/csrc/zfp_fr_decode.cu",
+         "replaces": "src/repro/kernels/zfp_codec.py:127",
+         "launches": launches("zfp_decode_blocks"), "max_abs_err": fr_dec_err,
+         "ms": fr_dec_ms, "plain_ms": fr_dec_plain_ms, "bound_ms": fr_dec_bound,
+         "bound_by": fr_dec_by, "library_ms": None,
+         "shape": [nb_fr, fr_words]},
+        {"name": "zfp_encode_blocks", "route": "cuda",
+         "source": "src/repro_torch/csrc/zfp_fr_encode.cu",
+         "replaces": "src/repro/kernels/zfp_codec.py:346",
+         "launches": launches("zfp_encode_blocks"), "max_abs_err": fr_enc_err,
+         "ms": fr_enc_ms, "plain_ms": fr_enc_plain_ms, "bound_ms": fr_enc_bound,
+         "bound_by": fr_enc_by, "library_ms": None,
+         "shape": [nb_enc, fr_enc_words]},
     ]
-    print(f"card: {smi}; step median {statistics.median(step_ms):.3f} ms")
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} launched on the paths "
+                                   f"({k['launches']} times)")
+    print(f"card: {smi}; device-resident step median {statistics.median(step_ms):.3f} "
+          f"ms; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
+
+
+def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,
+                        resident) -> tuple:
+    """Write the four on-disk stores, train from each, check their batches.
+
+    Returns (launches of each kernel on this path, the fixed-rate store's
+    payload words per sample, one sharded batch's (B * nb, wmax) payload
+    and emax for timing the fixed-rate decode).
+    """
+    from repro_torch.data import (CompressedArrayStore, DeviceResidentCompressedStore,
+                                  RawArrayStore, ShardAwareLoader,
+                                  ShardedCompressedStore, channels_last)
+    from repro_torch.kernels import zfp_codec
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.train.loop import TrainConfig, train_surrogate
+
+    zfp_codec.reset_launches()
+    tols = np.full(N_SAMPLES, TOLERANCE, np.float32)
+    built = {}
+
+    def build(name, make):
+        t0 = time.perf_counter()
+        st = make()
+        torch.cuda.synchronize()
+        built[name] = st
+        print(f"store {name}: build {time.perf_counter() - t0:.3f} s, ratio "
+              f"{st.sample_nbytes * st.num_samples / st.stored_bytes:.3f}, "
+              f"stored {st.stored_bytes} bytes", flush=True)
+
+    build("raw", lambda: RawArrayStore(samples, root=os.path.join(tmp, "raw"),
+                                       device=DEV))
+    build("fa", lambda: CompressedArrayStore(samples, tolerances=tols,
+                                             root=os.path.join(tmp, "fa"), device=DEV))
+    def sharded_reopened():
+        # the timed runs read through the memory-mapped shards of open()
+        root = os.path.join(tmp, "sharded")
+        ShardedCompressedStore(samples, tols, root=root, shard_size=SHARD_SIZE,
+                               device=DEV)
+        return ShardedCompressedStore.open(root, device=DEV)
+
+    build("sharded", sharded_reopened)
+    build("fixed_rate", lambda: CompressedArrayStore(
+        samples, bits_per_value=FR_BITS, root=os.path.join(tmp, "fixed_rate"),
+        device=DEV))
+
+    wait = get_registry().counter("train.fetch_wait_seconds")
+    runs = [("raw", 0, None), ("raw", 2, None), ("fa", 0, None), ("sharded", 0, None),
+            ("sharded", 2, None), ("fixed_rate", 0, None),
+            ("raw", 2, WORKSPACE_MBS), ("sharded", 2, WORKSPACE_MBS)]
+    histories = {}
+    for name, prefetch, bw in runs:
+        st = built[name]
+        st.bandwidth_mbs = bw
+        st.stats.reset()
+        wait0 = wait.value
+        stamps = []
+        t0 = time.perf_counter()
+        _, losses = train_surrogate(
+            cfg, TrainConfig(epochs=1, batch_size=BATCH, lr=LR, seed=0, log_every=1,
+                             max_steps=HOST_STEPS, prefetch=prefetch),
+            cond, st, hooks=[lambda step, m, loss: stamps.append(time.perf_counter())],
+            target_transform=channels_last, device=DEV)
+        torch.cuda.synchronize()
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        io = st.stats
+        print(f"run {name} prefetch={prefetch} bandwidth="
+              f"{'unthrottled' if bw is None else f'{bw} MB/s'}: {HOST_STEPS} steps "
+              f"{time.perf_counter() - t0:.3f} s, step median "
+              f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+              f"{max(step_ms):.3f}), fetch wait {1e3 * (wait.value - wait0):.3f} ms, "
+              f"io bytes_read {io.bytes_read} read_seconds {io.read_seconds:.6f} "
+              f"decode_seconds {io.decode_seconds:.6f} batches {io.batches}, "
+              f"last loss {losses[-1][1]:.7f}", flush=True)
+        require(len(losses) == HOST_STEPS and all(np.isfinite(l) for _, l in losses),
+                f"{HOST_STEPS} finite losses from the {name} store (prefetch "
+                f"{prefetch})")
+        st.bandwidth_mbs = None
+        # batches built on the worker's side stream train like synchronous
+        # ones (the losses differ only by cuDNN's nondeterministic backward)
+        if name not in histories:
+            histories[name] = losses
+            continue
+        worst = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(losses, histories[name]))
+        require(worst <= LOSS_RTOL, f"{name} store, prefetch {prefetch}: losses == "
+                                    f"the prefetch-0 run's (worst rel {worst:.2e})")
+    host_launches = dict(zfp_codec.LAUNCHES)
+    print(f"host-streaming path: launches {host_launches}")
+    for name in ("zfp_decode_blocks", "zfp_encode_blocks", "zfp_encode_blocks_fa"):
+        require(host_launches[name] > 0, f"{name} launched on the host-streaming path "
+                                         f"({host_launches[name]} times)")
+
+    # the outputs are right (these launches are not counted above)
+    sharded = built["sharded"]
+    batches = ShardAwareLoader.for_store(sharded, BATCH, seed=3).take(3) + \
+        [np.arange(N_SAMPLES - BATCH, N_SAMPLES)]
+    from_store = DeviceResidentCompressedStore.from_store(sharded, device=DEV)
+    for idx in batches:
+        require(same_bits(built["raw"].get_batch(idx), torch.from_numpy(samples[idx])),
+                "raw store batch == the samples")
+        want = resident.decode_indices(torch.as_tensor(idx, device=resident.device))
+        require(same_bits(built["fa"].get_batch(idx), want),
+                "per-sample FA store batch (fixed-rate decode kernel) == "
+                "device-resident decode (FA decode kernel)")
+        got = sharded.get_batch(idx)
+        require(same_bits(got, want), "sharded store batch == device-resident decode")
+        require(same_bits(from_store.decode_indices(
+            torch.as_tensor(idx, device=from_store.device)), got),
+            "from_store(sharded) decode == sharded store batch")
+        fr = built["fixed_rate"].get_batch(idx)
+        require(bool(torch.isfinite(fr).all()) and fr.shape == (len(idx),) +
+                samples.shape[1:], "fixed-rate store batch is finite, of sample shape")
+    require(from_store.shard_size == SHARD_SIZE, "from_store carries the shard size")
+    fr_words = np.stack([
+        np.load(os.path.join(tmp, "fixed_rate", f"sample_{i:06d}.npz"))["payload"].ravel()
+        for i in range(N_SAMPLES)])
+    payload, emax, _ = sharded.read_records(batches[0])
+    shard_batch = (torch.from_numpy(payload.reshape(-1, payload.shape[-1])),
+                   torch.from_numpy(emax.reshape(-1)))
+    return host_launches, torch.from_numpy(fr_words), shard_batch
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
 Counterpart of ``repro/compression/api.py``, with the port's own registry:
 
   get_codec("fixed_accuracy", tolerance=1e-3)
+  get_codec("fixed_rate", bits_per_value=12)
 
 There is no backend switch.  The device of the tensors decides: a tensor on
 the card goes through the CUDA kernels, a tensor on the CPU through their
@@ -19,22 +20,30 @@ import torch
 from repro_torch.compression import transform as T
 from repro_torch.compression.zfp import (CompressedField,
                                          compressed_nbytes_batch, crop,
-                                         encode_fixed_accuracy_batch)
+                                         encode_fixed_accuracy_batch,
+                                         encode_fixed_rate_batch)
 
 
 def decode_stacked_payloads(payload, emax, padded_shape, shape,
-                            nplanes) -> torch.Tensor:
-    """One-kernel decode of a stacked batch of fixed-accuracy streams.
+                            nplanes=None) -> torch.Tensor:
+    """One-kernel decode of a stacked batch of packed ZFP streams.
 
-    payload (B, nb, wmax) int32, emax and nplanes (B, nb) int32 ->
-    (B, *shape) float32.  Each block's planes beyond its count are masked,
-    so payloads padded to a common width decode exactly.
+    payload (B, nb, wmax) int32, emax (B, nb) int32 -> (B, *shape) float32.
+    Samples narrower than wmax are zero-padded (zero words decode as zero
+    planes), so the result is exact per sample.  Without ``nplanes`` the
+    batch goes through the fixed-rate decode at ``2 * wmax`` planes, as the
+    host-streaming stores decode; with ``nplanes`` (B, nb) the
+    fixed-accuracy decode masks each block's dropped planes.
     """
     from repro_torch.kernels import ops
     b, nb, wmax = payload.shape
-    blocks = ops.zfp_decode_blocks_fa(payload.reshape(b * nb, wmax).contiguous(),
-                                      emax.reshape(b * nb).contiguous(),
-                                      nplanes.reshape(b * nb).contiguous())
+    flat_p = payload.reshape(b * nb, wmax).contiguous()
+    flat_e = emax.reshape(b * nb).contiguous()
+    if nplanes is None:
+        blocks = ops.zfp_decode_blocks(flat_p, flat_e, 2 * wmax)
+    else:
+        blocks = ops.zfp_decode_blocks_fa(flat_p, flat_e,
+                                          nplanes.reshape(b * nb).contiguous())
     return crop(T.deblockify(blocks, (b,) + tuple(padded_shape)), shape)
 
 
@@ -66,13 +75,33 @@ class FixedAccuracyCodec:
                                        cf.shape, cf.nplanes)
 
     def nbytes(self, cf: CompressedField) -> torch.Tensor:
-        return compressed_nbytes_batch(cf)
+        return compressed_nbytes_batch(cf, mode="fixed_accuracy")
 
 
-_REGISTRY = {"fixed_accuracy": FixedAccuracyCodec}
+@dataclasses.dataclass(frozen=True)
+class FixedRateCodec:
+    """Uniform bits-per-value mode (dense payload, 1-byte block headers)."""
+    bits_per_value: int = 12
+
+    @property
+    def name(self) -> str:
+        return "fixed_rate"
+
+    def encode_batch(self, xs: torch.Tensor, tolerances=None) -> CompressedField:
+        del tolerances                   # rate is fixed; no error bound
+        return encode_fixed_rate_batch(xs, self.bits_per_value)
+
+    def decode_batch(self, cf: CompressedField) -> torch.Tensor:
+        return decode_stacked_payloads(cf.payload, cf.emax, cf.padded_shape,
+                                       cf.shape, cf.nplanes)
+
+    def nbytes(self, cf: CompressedField) -> torch.Tensor:
+        return compressed_nbytes_batch(cf, mode="fixed_rate")
+
+
+_REGISTRY = {"fixed_accuracy": FixedAccuracyCodec,
+             "fixed_rate": FixedRateCodec}
 _NOT_PORTED = {
-    "fixed_rate": "ROADMAP Queue 1 item 1 and Queue 2 items 3-4 "
-                  "(fixed-rate codec and its two kernels)",
     "fixed_accuracy+residual": "ROADMAP Queue 1 item 8 "
                                "(ResidualCorrectedCodec)",
 }
@@ -84,7 +113,7 @@ def codec_names() -> list:
 
 def get_codec(name: str, **params):
     """Instantiate a codec of the port: ``get_codec("fixed_accuracy",
-    tolerance=1e-3)``."""
+    tolerance=1e-3)`` or ``get_codec("fixed_rate", bits_per_value=12)``."""
     if name in _NOT_PORTED:
         raise KeyError(f"codec {name!r} is not ported yet: {_NOT_PORTED[name]}")
     if name not in _REGISTRY:

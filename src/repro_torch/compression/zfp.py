@@ -1,14 +1,15 @@
-"""Fixed-accuracy (error-bounded) ZFP codec on tensors.
+"""Fixed-accuracy (error-bounded) and fixed-rate ZFP codec on tensors.
 
-Counterpart of the fixed-accuracy half of ``repro/compression/zfp.py``:
-per-block plane counts at a deterministic two-planes-per-int32-word layout,
-with the L-inf bound verified per block.  The batch functions route the
-per-block work through :mod:`repro_torch.kernels.ops`, which launches the
-CUDA kernel for tensors on the card and runs the plain version for tensors
-on the CPU; both give the same bits.
+Counterpart of ``repro/compression/zfp.py``: a deterministic
+two-planes-per-int32-word layout, with per-block plane counts and the L-inf
+bound verified per block in fixed-accuracy mode, and a uniform plane count
+in fixed-rate mode.  The batch functions route the per-block work through
+:mod:`repro_torch.kernels.ops`, which launches the CUDA kernel for tensors
+on the card and runs the plain version for tensors on the CPU; both give
+the same bits.
 
-The fixed-rate mode, ``FAEncodeState`` and the stats-only search
-(``fa_stats_batch``) are not ported yet (ROADMAP Queue 1, item 1).
+``FAEncodeState`` and the stats-only search (``fa_stats_batch``) are not
+ported yet (ROADMAP Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -54,6 +55,27 @@ def floor_log2(tols: torch.Tensor) -> torch.Tensor:
     return (e - 1).to(torch.int32)
 
 
+def encode_fixed_rate_batch(xs: torch.Tensor,
+                            bits_per_value: int) -> CompressedField:
+    """Batched fixed-rate encode: the top ``bits_per_value`` planes of every
+    block, ``(bits_per_value + 1) // 2`` words per block.
+
+    All N samples' blocks are flattened into one (N*nb, 16) grid and go
+    through one encode call; the payload is (N, nb, W), emax and the
+    uniform nplanes (N, nb).
+    """
+    from repro_torch.kernels import ops
+    n = xs.shape[0]
+    xp = T.pad_to_blocks(xs.to(torch.float32))
+    blocks = T.blockify(xp).contiguous()               # (N * nb, 16)
+    payload, emax = ops.zfp_encode_blocks(blocks, bits_per_value)
+    nb = blocks.shape[0] // n
+    nplanes = torch.full((n, nb), bits_per_value, dtype=torch.int32,
+                         device=xs.device)
+    return CompressedField(payload.reshape(n, nb, -1), emax.reshape(n, nb),
+                           nplanes, tuple(xs.shape[1:]), tuple(xp.shape[1:]))
+
+
 def encode_fixed_accuracy_batch(xs: torch.Tensor,
                                 tols: torch.Tensor) -> CompressedField:
     """Batched error-bounded encode: max |x - decode| <= tol per sample.
@@ -87,12 +109,25 @@ def decode_batch(cf: CompressedField) -> torch.Tensor:
 # sizes
 # ---------------------------------------------------------------------------
 
-def compressed_nbytes_batch(cf: CompressedField) -> torch.Tensor:
-    """Per-sample logical bytes of the two-level fixed-accuracy layout: a
-    2-byte header per block (emax, plane count) plus 2 bytes per kept
-    plane of 16 lanes.  (N,) int64."""
+def _header_bytes_per_block(mode: str) -> int:
+    """Per-block stream header: 1 byte emax always; fixed-accuracy adds a
+    1-byte plane count.  ``mode`` is explicit, never inferred from the data:
+    a fixed-accuracy stream whose counts happen to be uniform still ships
+    them."""
+    if mode == "fixed_accuracy":
+        return 2
+    if mode == "fixed_rate":
+        return 1
+    raise ValueError(f"unknown codec mode {mode!r}")
+
+
+def compressed_nbytes_batch(cf: CompressedField,
+                            mode: str = "fixed_accuracy") -> torch.Tensor:
+    """Per-sample logical bytes of the two-level layout: the ``mode``'s
+    header per block plus 2 bytes per kept plane of 16 lanes.  (N,) int64."""
     nb = cf.nplanes.shape[-1]
-    return 2 * nb + 2 * cf.nplanes.to(torch.int64).sum(dim=-1)
+    return (_header_bytes_per_block(mode) * nb
+            + 2 * cf.nplanes.to(torch.int64).sum(dim=-1))
 
 
 def trim_to_nplanes(cf: CompressedField) -> CompressedField:

@@ -1,4 +1,4 @@
-// Shared device arithmetic of the fixed-accuracy ZFP kernels.
+// Shared device arithmetic of the ZFP kernels (fixed-accuracy and fixed-rate).
 //
 // Same constants and block layout as repro/compression/transform.py: a 4x4
 // block is 16 lanes in row-major order; the payload holds two 16-lane bit
@@ -15,6 +15,8 @@
 // (x * f1) * f2 - y never contracts into an FMA.  Powers of two come from
 // the exponent field, never from exp2f/ldexpf.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -105,6 +107,64 @@ __device__ __forceinline__ float scale_by_pow2(float x, int e) {
   float f1 = __int_as_float((e1 + 127) << 23);
   float f2 = __int_as_float((e - e1 + 127) << 23);
   return __fmul_rn(__fmul_rn(x, f1), f2);
+}
+
+// unpack num_words (1..15) words into 16 negabinary lanes: word k holds
+// plane 29 - 2k in bits 0-15 and plane 28 - 2k in bits 16-31
+// (transform.py unpack_planes)
+__device__ __forceinline__ void unpack_words(const int32_t* p, int num_words, uint32_t u[16]) {
+#pragma unroll
+  for (int l = 0; l < 16; ++l) u[l] = 0u;
+  for (int k = 0; k < num_words; ++k) {
+    const uint32_t word = static_cast<uint32_t>(p[k]);
+    const int p_hi = kTotalPlanes - 1 - 2 * k;
+    const int p_lo = kTotalPlanes - 2 - 2 * k;   // >= 0 for k < 15
+#pragma unroll
+    for (int l = 0; l < 16; ++l) {
+      u[l] |= ((word >> l) & 1u) << p_hi;
+      u[l] |= ((word >> (l + 16)) & 1u) << p_lo;
+    }
+  }
+}
+
+// pack the top 2 * num_words planes of 16 negabinary lanes into num_words
+// words, the inverse of unpack_words (transform.py pack_planes)
+__device__ __forceinline__ void pack_words(const uint32_t u[16], int num_words, int32_t* out) {
+  for (int k = 0; k < num_words; ++k) {
+    const int p_hi = kTotalPlanes - 1 - 2 * k;
+    const int p_lo = kTotalPlanes - 2 - 2 * k;
+    uint32_t plane_hi = 0u, plane_lo = 0u;
+#pragma unroll
+    for (int l = 0; l < 16; ++l) {
+      plane_hi |= ((u[l] >> p_hi) & 1u) << l;
+      plane_lo |= ((u[l] >> p_lo) & 1u) << l;
+    }
+    out[k] = static_cast<int32_t>(plane_hi | (plane_lo << 16));
+  }
+}
+
+// Encode front end shared by both encoders: load the block with the flush
+// on load (adding 0.0f is an f32 op, so --ftz flushes subnormal inputs),
+// a bit-twiddled frexp for emax (flushed to 0 below 2^-120), quantize at
+// Q = 28 with round half to even, forward lift, negabinary.  Returns emax;
+// x receives the flushed values, u the negabinary coefficients.
+__device__ __forceinline__ int encode_front(const float* xb, float x[16], uint32_t u[16]) {
+  float maxabs = 0.0f;
+#pragma unroll
+  for (int l = 0; l < 16; ++l) {
+    x[l] = __fadd_rn(xb[l], 0.0f);
+    maxabs = fmaxf(maxabs, fabsf(x[l]));
+  }
+  // frexp exponent via the exponent field: maxabs = m 2^e, m in [0.5, 1)
+  const int e = ((__float_as_int(maxabs) >> 23) & 0xFF) - 126;
+  const int emax = (maxabs >= 0x1p-120f) ? e : 0;
+  int32_t v[16];
+#pragma unroll
+  for (int l = 0; l < 16; ++l) v[l] = static_cast<int32_t>(rintf(scale_by_pow2(x[l], kQ - emax)));
+  fwd_transform(v);
+#pragma unroll
+  for (int l = 0; l < 16; ++l) u[l] = int2nb(v[l]);
+  return emax;
 }
 
 // inverse lift + dequantize of 16 coefficients (negabinary, already masked)

@@ -25,20 +25,8 @@ __global__ void decode_fa_kernel(const int32_t* __restrict__ payload,
                                  float* __restrict__ out, long long nb, int num_words) {
   long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= nb) return;
-  const int32_t* p = payload + b * num_words;
   uint32_t u[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l) u[l] = 0u;
-  for (int k = 0; k < num_words; ++k) {
-    const uint32_t word = static_cast<uint32_t>(p[k]);
-    const int p_hi = zfp::kTotalPlanes - 1 - 2 * k;
-    const int p_lo = zfp::kTotalPlanes - 2 - 2 * k;   // >= 0 for k < 15
-#pragma unroll
-    for (int l = 0; l < 16; ++l) {
-      u[l] |= ((word >> l) & 1u) << p_hi;
-      u[l] |= ((word >> (l + 16)) & 1u) << p_lo;
-    }
-  }
+  zfp::unpack_words(payload + b * num_words, num_words, u);
   const uint32_t mask = zfp::plane_mask(nplanes[b]);
 #pragma unroll
   for (int l = 0; l < 16; ++l) u[l] &= mask;

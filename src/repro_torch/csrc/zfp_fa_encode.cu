@@ -30,31 +30,13 @@ __global__ void encode_fa_kernel(const float* __restrict__ blocks,
                                  int32_t* __restrict__ nplanes_out, long long nb) {
   long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= nb) return;
-  const float* xb = blocks + b * 16;
   float x[16];
-  float maxabs = 0.0f;
-#pragma unroll
-  for (int l = 0; l < 16; ++l) {
-    x[l] = __fadd_rn(xb[l], 0.0f);   // an f32 op, so --ftz flushes subnormal inputs
-    maxabs = fmaxf(maxabs, fabsf(x[l]));
-  }
-  const float tol = __fadd_rn(tols[b], 0.0f);
-  // frexp exponent via the exponent field: maxabs = m 2^e, m in [0.5, 1)
-  const int e = ((__float_as_int(maxabs) >> 23) & 0xFF) - 126;
-  const int emax = (maxabs >= 0x1p-120f) ? e : 0;
-
-  int32_t v[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l) v[l] = static_cast<int32_t>(rintf(zfp::scale_by_pow2(x[l], zfp::kQ - emax)));
-  zfp::fwd_transform(v);
   uint32_t u_full[16];
+  const int emax = zfp::encode_front(blocks + b * 16, x, u_full);
+  const float tol = __fadd_rn(tols[b], 0.0f);
   bool all_zero = true;
 #pragma unroll
-  for (int l = 0; l < 16; ++l) {
-    u_full[l] = zfp::int2nb(v[l]);
-    all_zero = all_zero && (u_full[l] == 0u);
-  }
-
+  for (int l = 0; l < 16; ++l) all_zero = all_zero && (u_full[l] == 0u);
   int npl = min(max(emax - log2tols[b] + zfp::kGuardBits, 0), zfp::kTotalPlanes);
   if (all_zero) npl = 0;
 #pragma unroll
@@ -72,20 +54,10 @@ __global__ void encode_fa_kernel(const float* __restrict__ blocks,
   }
 
   const uint32_t mask = zfp::plane_mask(npl);
-  int32_t* pw = payload + b * zfp::kMaxWords;
+  uint32_t u[16];
 #pragma unroll
-  for (int k = 0; k < zfp::kMaxWords; ++k) {
-    const int p_hi = zfp::kTotalPlanes - 1 - 2 * k;
-    const int p_lo = zfp::kTotalPlanes - 2 - 2 * k;
-    uint32_t plane_hi = 0u, plane_lo = 0u;
-#pragma unroll
-    for (int l = 0; l < 16; ++l) {
-      const uint32_t ul = u_full[l] & mask;
-      plane_hi |= ((ul >> p_hi) & 1u) << l;
-      plane_lo |= ((ul >> p_lo) & 1u) << l;
-    }
-    pw[k] = static_cast<int32_t>(plane_hi | (plane_lo << 16));
-  }
+  for (int l = 0; l < 16; ++l) u[l] = u_full[l] & mask;
+  zfp::pack_words(u, zfp::kMaxWords, payload + b * zfp::kMaxWords);
   emax_out[b] = emax;
   nplanes_out[b] = npl;
 }

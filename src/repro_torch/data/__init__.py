@@ -1,7 +1,12 @@
 """Stores and loaders."""
 from repro_torch.data.device_store import DeviceResidentCompressedStore
-from repro_torch.data.loader import ShardedLoader
-from repro_torch.data.store import ArrayStore, channels_last
+from repro_torch.data.loader import (PrefetchLoader, ShardAwareLoader,
+                                     ShardedLoader)
+from repro_torch.data.shards import ShardedCompressedStore
+from repro_torch.data.store import (ArrayStore, CompressedArrayStore, IoStats,
+                                    RawArrayStore, channels_last, throttle)
 
-__all__ = ["ArrayStore", "DeviceResidentCompressedStore", "ShardedLoader",
-           "channels_last"]
+__all__ = ["ArrayStore", "CompressedArrayStore", "DeviceResidentCompressedStore",
+           "IoStats", "PrefetchLoader", "RawArrayStore", "ShardAwareLoader",
+           "ShardedCompressedStore", "ShardedLoader", "channels_last",
+           "throttle"]

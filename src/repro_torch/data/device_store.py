@@ -5,20 +5,25 @@ and nplanes of the whole dataset live in device memory; a batch is a
 ``payload[idx]`` gather plus one fixed-accuracy decode launch, so no host
 bytes move per batch.  Device footprint is ``N * nb * (wmax + 2) * 4``
 bytes; ``stored_bytes`` reports the logical two-level layout so ratios
-match the host stores.  ``from_store`` (upload of a sharded on-disk store)
-waits for the shards port.
+match the host stores.  ``from_store`` uploads a sharded store (one the
+port or the JAX package wrote) and carries its ``shard_size``, so
+``make_loader`` draws the same shard-aware batch order as from the
+host-streaming store.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.compression import (CompressedField, compressed_nbytes_batch,
+from repro_torch.compression import (TOTAL_PLANES, CompressedField,
+                                     compressed_nbytes_batch,
                                      decode_stacked_payloads, get_codec,
                                      trim_to_nplanes)
+from repro_torch.data.store import on_device
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.metrics import IoStats
 
 
 class DeviceResidentCompressedStore:
@@ -26,12 +31,14 @@ class DeviceResidentCompressedStore:
 
     ``get_batch`` accepts host indices and returns decoded (B, ...) float32;
     ``decode_indices`` is the same on device indices, the call the fused
-    train step makes.
+    train step makes.  ``shard_size`` (set when built from a sharded store)
+    makes the loader shard-aware.
     """
 
     def __init__(self, payload: torch.Tensor, emax: torch.Tensor,
                  nplanes: torch.Tensor, shape, padded_shape,
-                 tolerances: np.ndarray, logical_bytes_per: np.ndarray):
+                 tolerances: np.ndarray, logical_bytes_per: np.ndarray,
+                 shard_size: Optional[int] = None):
         if payload.dtype != torch.int32 or emax.dtype != torch.int32 \
                 or nplanes.dtype != torch.int32:
             raise TypeError("resident arrays must be int32")
@@ -54,8 +61,31 @@ class DeviceResidentCompressedStore:
         self.tolerances = np.asarray(tolerances, np.float32)
         self.logical_bytes_per = np.asarray(logical_bytes_per, np.int64)
         self.logical_bytes = int(self.logical_bytes_per.sum())
+        self.shard_size = shard_size        # None: flat (non-shard-aware) order
+        self.stats = IoStats()
 
     # -- construction --------------------------------------------------------
+
+    @classmethod
+    def from_store(cls, store, device: DeviceLike = None
+                   ) -> "DeviceResidentCompressedStore":
+        """One-time upload of a ``ShardedCompressedStore`` (disk or memory)
+        to ``device`` (the card unless ``device="cpu"``).
+
+        Shard records carry no per-block plane counts (planes beyond each
+        block's count are zero by construction), so the resident
+        ``nplanes`` is ``min(2 * width, 30)`` per sample: masking with it is
+        a no-op on the stored zeros, which keeps decodes bit-exact.
+        """
+        dev = resolve_device(device)
+        payload, emax, _ = store.read_records(np.arange(store.num_samples))
+        nplanes = np.minimum(2 * store.widths, TOTAL_PLANES)[:, None] \
+            .astype(np.int32) * np.ones((1, store.nb), np.int32)
+        return cls(torch.from_numpy(payload).to(dev),
+                   torch.from_numpy(emax).to(dev),
+                   torch.from_numpy(nplanes).to(dev), store.shape,
+                   store.padded_shape, store.tolerances,
+                   store.logical_bytes_per, shard_size=store.shard_size)
 
     @classmethod
     def from_samples(cls, samples: Sequence[np.ndarray] | np.ndarray,
@@ -81,7 +111,7 @@ class DeviceResidentCompressedStore:
         nothing is re-encoded.  Payload words beyond the deepest kept plane
         are dropped (they are zero by construction)."""
         if nbytes is None:
-            nbytes = compressed_nbytes_batch(cf)
+            nbytes = compressed_nbytes_batch(cf, mode="fixed_accuracy")
         cf = trim_to_nplanes(cf)
         return cls(cf.payload, cf.emax, cf.nplanes, cf.shape, cf.padded_shape,
                    np.asarray(tolerances, np.float32),
@@ -111,6 +141,12 @@ class DeviceResidentCompressedStore:
                                        self.nplanes[idx])
 
     def get_batch(self, idx: np.ndarray) -> torch.Tensor:
-        """ArrayStore-compatible batch access from host indices."""
+        """ArrayStore-compatible batch access from host indices.  No host
+        bytes are read; only the decode time is accounted (on the current
+        stream, after the work queued there)."""
         idx_t = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
-        return self.decode_indices(idx_t.to(self.device))
+        batch, decode_s = on_device(
+            self.device, lambda: self.decode_indices(idx_t.to(self.device)),
+            side_stream=False)
+        self.stats.account(decode_seconds=decode_s)
+        return batch

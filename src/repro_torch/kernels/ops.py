@@ -44,3 +44,21 @@ def zfp_encode_blocks_fa(blocks: torch.Tensor, tols: torch.Tensor):
     if _on_cpu(blocks, tols):
         return ref.zfp_encode_blocks_fa_ref(blocks, tols, log2tols)
     return zfp_codec.zfp_encode_blocks_fa(blocks, tols, log2tols)
+
+
+def zfp_decode_blocks(payload: torch.Tensor, emax: torch.Tensor,
+                      bits_per_value: int) -> torch.Tensor:
+    """Fixed-rate decode: ((nb, W), (nb,)) int32 -> (nb, 16) f32, with
+    ``W == (bits_per_value + 1) // 2``; no per-block plane mask."""
+    zfp_codec.check_rate(payload.shape[-1], bits_per_value)
+    if _on_cpu(payload, emax):
+        return ref.zfp_decode_blocks_ref(payload, emax, bits_per_value)
+    return zfp_codec.zfp_decode_blocks(payload, emax, bits_per_value)
+
+
+def zfp_encode_blocks(blocks: torch.Tensor, bits_per_value: int):
+    """Fixed-rate encode: (nb, 16) f32 -> ((nb, W) int32 payload, (nb,)
+    int32 emax), keeping the top ``bits_per_value`` planes."""
+    if _on_cpu(blocks):
+        return ref.zfp_encode_blocks_ref(blocks, bits_per_value)
+    return zfp_codec.zfp_encode_blocks(blocks, bits_per_value)

@@ -1,7 +1,7 @@
-"""Plain PyTorch versions of the fixed-accuracy codec kernels.
+"""Plain PyTorch versions of the codec kernels.
 
-Counterparts of ``zfp_encode_blocks_fa_ref`` / ``zfp_decode_blocks_fa_ref``
-in ``repro/kernels/ref.py``, built on :mod:`repro_torch.compression.transform`.
+Counterparts of ``zfp_{encode,decode}_blocks{,_fa}_ref`` in
+``repro/kernels/ref.py``, built on :mod:`repro_torch.compression.transform`.
 The CPU tests hold them against the JAX package bit for bit, and the CUDA
 kernels in ``repro_torch/csrc`` are held against them on the card.
 """
@@ -10,6 +10,31 @@ from __future__ import annotations
 import torch
 
 from repro_torch.compression import transform as T
+
+
+def zfp_encode_blocks_ref(blocks_f: torch.Tensor, bits_per_value: int):
+    """Fixed-rate encode: (nb, 16) f32 -> ((nb, W) int32 payload, (nb,)
+    int32 emax), W = (bits_per_value + 1) // 2.  Inputs are flushed as XLA
+    flushes them."""
+    if not 1 <= bits_per_value <= T.TOTAL_PLANES:
+        raise ValueError(f"bits_per_value must be in [1, {T.TOTAL_PLANES}], "
+                         f"got {bits_per_value}")
+    x = T.flush_denormals(blocks_f)
+    emax = T.block_emax(x)
+    u = T.int2nb(T.fwd_transform_2d(T.quantize_blocks(x, emax)))
+    nplanes = torch.full((x.shape[0],), bits_per_value, dtype=torch.int32,
+                         device=x.device)
+    u = T.truncate_planes(u, nplanes)
+    return T.pack_planes(u, (bits_per_value + 1) // 2), emax
+
+
+def zfp_decode_blocks_ref(payload: torch.Tensor, emax: torch.Tensor,
+                          bits_per_value: int) -> torch.Tensor:
+    """Fixed-rate decode: ((nb, W) int32, (nb,) int32) -> (nb, 16) f32.
+    Planes beyond the stored words are simply absent, so no mask."""
+    del bits_per_value
+    u = T.unpack_planes(payload)
+    return T.dequantize_blocks(T.inv_transform_2d(T.nb2int(u)), emax)
 
 
 def zfp_encode_blocks_fa_ref(blocks_f: torch.Tensor, tols: torch.Tensor,

@@ -1,4 +1,4 @@
-"""CUDA fixed-accuracy ZFP kernels: build, load and launch.
+"""CUDA ZFP kernels (fixed-accuracy and fixed-rate): build, load and launch.
 
 The kernels live in ``repro_torch/csrc`` as CUDA C++ with a plain C
 interface.  At first use each source is compiled by its own ``nvcc`` (all
@@ -9,7 +9,8 @@ no CUDA toolkit.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
-launch returned an error, and adds one to its entry in :data:`LAUNCHES`.
+launch returned an error, and adds one to its entry in :data:`LAUNCHES`
+(under a lock: the prefetch worker launches decodes from its own thread).
 """
 from __future__ import annotations
 
@@ -24,12 +25,14 @@ from typing import Dict
 
 import torch
 
-from repro_torch.compression.transform import MAX_WORDS
+from repro_torch.compression.transform import MAX_WORDS, TOTAL_PLANES
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"zfp_fa_decode": "zfp_fa_decode.cu",
-           "zfp_fa_encode": "zfp_fa_encode.cu"}
+           "zfp_fa_encode": "zfp_fa_encode.cu",
+           "zfp_fr_decode": "zfp_fr_decode.cu",
+           "zfp_fr_encode": "zfp_fr_encode.cu"}
 HEADERS = ("zfp_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--ftz=true", "--fmad=false", "-Xptxas", "-v",
@@ -37,7 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"zfp_decode_blocks_fa": 0,
-                            "zfp_encode_blocks_fa": 0}
+                            "zfp_encode_blocks_fa": 0,
+                            "zfp_decode_blocks": 0,
+                            "zfp_encode_blocks": 0}
+_launch_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -46,8 +52,14 @@ BUILD_LOGS: Dict[str, str] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _counted(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -100,6 +112,14 @@ def build() -> Dict[str, ctypes.CDLL]:
         enc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
                                                 ctypes.c_void_p]
         enc.restype = ctypes.c_int
+        fr_dec = libs["zfp_fr_decode"].zfp_decode_blocks_launch
+        fr_dec.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                   ctypes.c_void_p]
+        fr_dec.restype = ctypes.c_int
+        fr_enc = libs["zfp_fr_encode"].zfp_encode_blocks_launch
+        fr_enc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                   ctypes.c_void_p]
+        fr_enc.restype = ctypes.c_int
         _libs.update(libs)
         return _libs
 
@@ -140,7 +160,7 @@ def zfp_decode_blocks_fa(payload: torch.Tensor, emax: torch.Tensor,
         _raise_on(fn(payload.data_ptr(), emax.data_ptr(), nplanes.data_ptr(),
                      out.data_ptr(), nb, num_words, stream),
                   "zfp_decode_blocks_fa")
-    LAUNCHES["zfp_decode_blocks_fa"] += 1
+    _counted("zfp_decode_blocks_fa")
     return out
 
 
@@ -166,5 +186,60 @@ def zfp_encode_blocks_fa(blocks: torch.Tensor, tols: torch.Tensor,
                      payload.data_ptr(), emax.data_ptr(), nplanes.data_ptr(),
                      nb, stream),
                   "zfp_encode_blocks_fa")
-    LAUNCHES["zfp_encode_blocks_fa"] += 1
+    _counted("zfp_encode_blocks_fa")
     return payload, emax, nplanes
+
+
+def check_rate(num_words: int, bits_per_value: int) -> None:
+    """A fixed-rate stream of ``bits_per_value`` planes has
+    ``(bits_per_value + 1) // 2`` words, between 1 and ``MAX_WORDS``."""
+    if num_words != (bits_per_value + 1) // 2 or not 1 <= num_words <= MAX_WORDS:
+        raise ValueError(f"a fixed-rate payload of {bits_per_value} bits per value "
+                         f"has (bits + 1) // 2 words in [1, {MAX_WORDS}], got "
+                         f"{num_words}")
+
+
+def zfp_decode_blocks(payload: torch.Tensor, emax: torch.Tensor,
+                      bits_per_value: int) -> torch.Tensor:
+    """CUDA fixed-rate decode: ((nb, W) int32, (nb,) int32) -> (nb, 16)
+    float32, with W == (bits_per_value + 1) // 2 and 1 <= W <= 15."""
+    if payload.dim() != 2:
+        raise ValueError(f"payload must be (nb, W), got {tuple(payload.shape)}")
+    nb, num_words = payload.shape
+    check_rate(num_words, bits_per_value)
+    dev = payload.device
+    _check(payload, "payload", torch.int32, (nb, num_words), dev)
+    _check(emax, "emax", torch.int32, (nb,), dev)
+    fn = build()["zfp_fr_decode"].zfp_decode_blocks_launch
+    out = torch.empty((nb, 16), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fn(payload.data_ptr(), emax.data_ptr(), out.data_ptr(), nb,
+                     num_words, stream),
+                  "zfp_decode_blocks")
+    _counted("zfp_decode_blocks")
+    return out
+
+
+def zfp_encode_blocks(blocks: torch.Tensor, bits_per_value: int):
+    """CUDA fixed-rate encode: (nb, 16) f32 -> ((nb, W) int32 payload,
+    (nb,) int32 emax), W = (bits_per_value + 1) // 2, 1 <= bits <= 30."""
+    if not 1 <= bits_per_value <= TOTAL_PLANES:
+        raise ValueError(f"bits_per_value must be in [1, {TOTAL_PLANES}], got "
+                         f"{bits_per_value}")
+    if blocks.dim() != 2:
+        raise ValueError(f"blocks must be (nb, 16), got {tuple(blocks.shape)}")
+    nb = blocks.shape[0]
+    dev = blocks.device
+    _check(blocks, "blocks", torch.float32, (nb, 16), dev)
+    fn = build()["zfp_fr_encode"].zfp_encode_blocks_launch
+    num_words = (bits_per_value + 1) // 2
+    payload = torch.empty((nb, num_words), dtype=torch.int32, device=dev)
+    emax = torch.empty((nb,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fn(blocks.data_ptr(), payload.data_ptr(), emax.data_ptr(), nb,
+                     bits_per_value, stream),
+                  "zfp_encode_blocks")
+    _counted("zfp_encode_blocks")
+    return payload, emax

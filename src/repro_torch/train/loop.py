@@ -1,15 +1,26 @@
-"""Surrogate training loop over a device-resident compressed store.
+"""Surrogate training loop over any store of the port.
 
-Counterpart of ``repro/train/loop.py`` for the paper's workflow 2 with the
-dataset resident in device memory: each step ships only the (B,) index
-vector, and gather + fixed-accuracy decode + L1 + Adam run on the device.
-Batches follow ``ShardedLoader``'s ``(seed, epoch)`` order, the same as the
-JAX package's.  Checkpointing waits for ROADMAP Queue 1 item 8 and
-telemetry for item 9.
+Counterpart of ``repro/train/loop.py``.  The ``BatchSource`` seam
+(:mod:`repro_torch.train.source`) picks the backend per store:
+
+  * host-streaming (``RawArrayStore``, ``CompressedArrayStore``,
+    ``ShardedCompressedStore``): each batch is read on the host and decoded
+    on the device, on a ``PrefetchLoader`` worker thread when
+    ``TrainConfig.prefetch > 0`` so the read overlaps the step;
+  * device-resident: each step ships only the (B,) index vector, and
+    gather + fixed-accuracy decode + L1 + Adam run on the device
+    (``prefetch`` is ignored; there is no host work to overlap).
+
+Batches follow the loaders' ``(seed, epoch)`` order (shard-aware for
+sharded stores), the same as the JAX package's.  The summed wait for
+batches goes to the ``train.fetch_wait_seconds`` counter of the metrics
+registry.  Checkpointing waits for ROADMAP Queue 1 item 8, produced-dataset
+paths for item 7, and telemetry spans for item 9.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
@@ -17,9 +28,11 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.models.surrogate import Surrogate, SurrogateConfig, init_surrogate
+from repro_torch.obs.metrics import get_registry
 from repro_torch.train.optimizer import AdamConfig, adam_init
 from repro_torch.train.source import (batch_stream, make_batch_source,
-                                      make_fused_step, make_loader)
+                                      make_fused_step, make_host_step,
+                                      make_loader)
 
 
 @dataclasses.dataclass
@@ -31,6 +44,7 @@ class TrainConfig:
     ckpt_dir: Optional[str] = None   # not ported: must stay None
     log_every: int = 50
     max_steps: Optional[int] = None  # stop after this many steps
+    prefetch: int = 2                # queue depth; 0 = synchronous fetch
 
 
 def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
@@ -41,19 +55,24 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
                     device: DeviceLike = None):
     """Train; returns (model, loss_history of (step, loss) pairs).
 
-    ``data`` is a ``DeviceResidentCompressedStore`` on ``device`` (the card
-    unless ``device="cpu"``).  ``params`` is an optional state dict, e.g.
-    from :func:`repro_torch.models.surrogate.params_from_jax`; otherwise the
+    ``data`` is an ``ArrayStore`` of the port whose batches come back on
+    ``device`` (the card unless ``device="cpu"``).  ``params`` is an
+    optional state dict, e.g. from
+    :func:`repro_torch.models.surrogate.params_from_jax`; otherwise the
     model is initialised from ``train_cfg.seed``.  Each hook is called as
     ``hook(step, model, loss)`` after every step.
     """
     if train_cfg.ckpt_dir:
         raise NotImplementedError("checkpointing is not ported yet "
                                   "(ROADMAP Queue 1 item 8)")
+    if isinstance(data, str):
+        raise NotImplementedError("produced-dataset paths (datagen."
+                                  "resolve_store) are not ported yet (ROADMAP "
+                                  "Queue 1 item 7); open the store instead")
     dev = resolve_device(device)
     source = make_batch_source(data, conditions, target_transform)
-    if not same_device(source.store.device, dev):
-        raise ValueError(f"store lives on {source.store.device}, training "
+    if not same_device(source.device, dev):
+        raise ValueError(f"store lives on {source.device}, training "
                          f"was asked to run on {dev}")
     model = init_surrogate(model_cfg, train_cfg.seed, dev)
     if params is not None:
@@ -61,19 +80,32 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     opt_cfg = AdamConfig(lr=train_cfg.lr)
     opt_state = adam_init(dict(model.named_parameters()), opt_cfg)
     loader = make_loader(data, train_cfg.batch_size, train_cfg.seed)
-    fused_step = make_fused_step(source, model, opt_cfg)
+    if source.kind == "device":
+        train_step = make_fused_step(source, model, opt_cfg)
+        prefetch = 0
+    else:
+        train_step = make_host_step(model, opt_cfg)
+        prefetch = train_cfg.prefetch
 
+    fetch_wait = get_registry().counter("train.fetch_wait_seconds")
     losses = []
     step = 0
-    for _, idx in batch_stream(loader, source.fetch, train_cfg.epochs):
-        opt_state, loss = fused_step(opt_state, idx)
-        step += 1
-        if step % train_cfg.log_every == 0:
-            losses.append((step, float(loss)))
-        for h in hooks:
-            h(step, model, loss)
-        if train_cfg.max_steps is not None and step >= train_cfg.max_steps:
-            break
+    stream = batch_stream(loader, source.fetch, train_cfg.epochs, prefetch)
+    try:
+        t_iter = time.perf_counter()
+        for _, item in stream:
+            fetch_wait.add(time.perf_counter() - t_iter)
+            opt_state, loss = train_step(opt_state, item)
+            step += 1
+            if step % train_cfg.log_every == 0:
+                losses.append((step, float(loss)))
+            for h in hooks:
+                h(step, model, loss)
+            if train_cfg.max_steps is not None and step >= train_cfg.max_steps:
+                break
+            t_iter = time.perf_counter()
+    finally:
+        stream.close()
     return model, losses
 
 

@@ -305,10 +305,9 @@ def test_device_store_get_batch_matches_jax(rng):
 
 def test_codec_registry_names_the_roadmap():
     assert isinstance(get_codec("fixed_accuracy"), type(get_codec("fixed_accuracy")))
-    for name, item in (("fixed_rate", "Queue 1 item 1"),
-                       ("fixed_accuracy+residual", "Queue 1 item 8")):
-        with pytest.raises(KeyError, match=item):
-            get_codec(name)
+    assert get_codec("fixed_rate", bits_per_value=9).name == "fixed_rate"
+    with pytest.raises(KeyError, match="Queue 1 item 8"):
+        get_codec("fixed_accuracy+residual")
     with pytest.raises(KeyError, match="unknown codec"):
         get_codec("nope")
     with pytest.raises(ValueError, match="tolerances"):

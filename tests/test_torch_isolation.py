@@ -38,6 +38,14 @@ def _imported_roots(path):
             yield node.module.split(".")[0], node
 
 
+def test_scan_covers_every_package_of_the_port():
+    scanned = {p.parent.name for p in PORT_FILES}
+    assert {"compression", "kernels", "data", "train", "models", "sim",
+            "obs", "distributed"} <= scanned
+    names = {p.name for p in PORT_FILES}
+    assert {"metrics.py", "sharding.py", "shards.py", "loader.py"} <= names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_or_repro_imports(path):
     assert path.exists(), path

@@ -1,8 +1,9 @@
-"""The port's training slice against the JAX package on the CPU.
+"""The port's training slices against the JAX package on the CPU.
 
 Same samples, same tolerances, the same initial parameters (through
 ``params_from_jax``) and the same loader seed, so both packages draw the same
-batches in the same order from device-resident stores.  The comparison is
+batches in the same order, from device-resident stores and from
+host-streaming (raw and sharded) stores.  The comparison is
 to a tolerance, not bitwise: the L1 gradient is ``sign(pred - target)``, and
 a residual within float noise of zero can flip between the two runtimes.
 """
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 from repro.data import (DeviceResidentCompressedStore as JaxStore,
+                        RawArrayStore as JaxRawStore,
+                        ShardedCompressedStore as JaxShardedStore,
                         channels_last as jax_channels_last)
 from repro.data.loader import ShardedLoader as JaxLoader
 from repro.models.surrogate import (SurrogateConfig as JaxConfig,
@@ -21,7 +24,8 @@ from repro.train.loop import (TrainConfig as JaxTrainConfig,
                               predict_fields as jax_predict_fields,
                               train_surrogate as jax_train_surrogate)
 
-from repro_torch.data import (DeviceResidentCompressedStore, ShardedLoader,
+from repro_torch.data import (DeviceResidentCompressedStore, RawArrayStore,
+                              ShardedCompressedStore, ShardedLoader,
                               channels_last)
 from repro_torch.models.surrogate import (SurrogateConfig, init_surrogate,
                                           params_from_jax)
@@ -108,6 +112,56 @@ def test_train_surrogate_matches_jax(study):
     np.testing.assert_allclose(preds, jpreds, rtol=0, atol=1e-4)
 
 
+def _assert_training_matches(model, losses, jp, jl, init_params):
+    assert [s for s, _ in losses] == [s for s, _ in jl] == list(range(1, STEPS + 1))
+    np.testing.assert_allclose([l for _, l in losses], [l for _, l in jl],
+                               rtol=LOSS_RTOL, atol=0)
+    want = params_from_jax(jax.tree.map(np.asarray, jp))
+    for name, p in model.state_dict().items():
+        diff = np.abs(p.numpy() - want[name].numpy())
+        assert diff.max() <= 2 * LR * STEPS, name
+        assert np.mean(diff > PARAM_ATOL) <= FLIP_SHARE, name
+    assert float((model.state_dict()["out.w"] - init_params["out.w"]).abs().max()) > LR
+
+
+@pytest.mark.parametrize("kind", ["raw", "sharded"])
+def test_host_streaming_train_matches_jax(study, kind):
+    """train_surrogate over on-host stores (per-batch read + fixed-rate
+    kernel decode) against JAX's, both with a prefetch worker; the port's
+    prefetch=2 and prefetch=0 runs are identical."""
+    cfg, cond, samples, tols = study
+    jcfg = JaxConfig(height=16, width=16, base_channels=8)
+    jparams = jax_init(jax.random.PRNGKey(0), jcfg)
+    if kind == "raw":
+        jstore = JaxRawStore(list(samples))
+        make = lambda: RawArrayStore(samples, device="cpu")
+    else:
+        jstore = JaxShardedStore(list(samples), tolerances=tols, shard_size=5)
+        make = lambda: ShardedCompressedStore(samples, tols, shard_size=5,
+                                              device="cpu")
+    jp, jl = jax_train_surrogate(
+        jcfg, JaxTrainConfig(epochs=2, batch_size=BATCH, lr=LR, seed=5,
+                             log_every=1, max_steps=STEPS, prefetch=2),
+        cond, jstore, params=jparams, target_transform=jax_channels_last)
+
+    runs = {}
+    for prefetch in (2, 0):
+        store = make()
+        runs[prefetch] = train_surrogate(
+            cfg, TrainConfig(epochs=2, batch_size=BATCH, lr=LR, seed=5,
+                             log_every=1, max_steps=STEPS, prefetch=prefetch),
+            cond, store, params=params_from_jax(jparams),
+            target_transform=channels_last, device="cpu")
+        # the worker may have read ahead by up to its queue depth
+        assert STEPS <= store.stats.batches <= STEPS + prefetch + 1
+        assert store.stats.bytes_read > 0
+    _assert_training_matches(*runs[2], jp, jl, params_from_jax(jparams))
+    (m2, l2), (m0, l0) = runs[2], runs[0]
+    assert l2 == l0
+    for (n, a), b in zip(m2.state_dict().items(), m0.state_dict().values()):
+        assert torch.equal(a, b), n
+
+
 def test_train_rejects_what_is_not_ported(study):
     cfg, cond, samples, tols = study
     store = DeviceResidentCompressedStore.from_samples(samples[:4], tols[:4],
@@ -115,7 +169,10 @@ def test_train_rejects_what_is_not_ported(study):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         train_surrogate(cfg, TrainConfig(ckpt_dir="ckpt"), cond, store,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        train_surrogate(cfg, TrainConfig(), cond, "produced/dataset",
+                        device="cpu")
+    with pytest.raises(TypeError, match="not an ArrayStore"):
         make_batch_source(lambda idx: samples[idx], cond)
     with pytest.raises(ValueError, match="unsupported device"):
         predict_fields(init_surrogate(cfg), cond, device="meta")
