@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (``nvcc`` under ``$CUDA_HOME`` or on
-``PATH``) and this checkout's ``src/``.  It builds the four ZFP kernels
-(fixed-accuracy and fixed-rate encode and decode) from
-``src/repro_torch/csrc`` into ``build/``, holds each kernel against its
-plain PyTorch version (run on the CPU) bit for bit, then runs two paths at
-the repo's full model width:
+``PATH``) and this checkout's ``src/``.  It builds the five kernels (the
+four ZFP kernels, fixed-accuracy and fixed-rate encode and decode, and flash
+attention) from ``src/repro_torch/csrc`` into ``build/``, all ``nvcc``
+processes started together, holds each ZFP kernel against its plain PyTorch
+version (run on the CPU) bit for bit and the attention kernel against its
+plain version on the card to a stated tolerance, then runs three paths at
+full model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
   memory): encode a synthetic study into a device-resident store and train
@@ -17,13 +19,19 @@ the repo's full model width:
   a per-sample fixed-accuracy store, a sharded store and a per-sample
   fixed-rate store to a temporary directory (removed at exit), and train
   from each, with and without the prefetch worker and, for the raw and
-  sharded stores, at the paper's emulated workspace bandwidth.
+  sharded stores, at the paper's emulated workspace bandwidth;
+* LM serving: ``internlm2-1.8b`` at full width (24 layers, bf16, random
+  weights from a seeded generator) serves 16 mixed-length requests with
+  continuous batching and again in lockstep, 8 slots, an f32 KV cache of
+  1,088 positions; the served tokens are replayed teacher-forced with the
+  kernel and with the plain attention, and their logits compared.
 
 It prints the card's name and power limit, per run the median step time,
-the summed fetch wait and the store's ``IoStats``, one ``kernels`` JSON
-line (launches on the paths, agreement, times and bounds), and as its last
-line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-without that line.  Precision: float32 with TF32 off.
+the summed fetch wait and the store's ``IoStats``, the serving rates and
+latencies, one ``kernels`` JSON line (launches on the paths, agreement,
+times, bounds and the library yardstick), and as its last line
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
+that line.  Precision: float32 with TF32 off; the LM runs in bf16.
 """
 from __future__ import annotations
 
@@ -33,8 +41,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -47,6 +57,7 @@ DEV = "cuda"
 # least the card's int32 rate, so the bound stays a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
+BF16_TENSOR_FLOPS = 989e12
 
 # main-path configuration: SurrogateConfig() = 96x32 grid, 6 fields,
 # base_channels 256 (RT_SPEC); 64 sims x 51 snapshots of synthetic data
@@ -63,6 +74,18 @@ FR_BITS = 12
 FR_CHECK_BITS = (1, 2, 7, 12, 13, 16, 29, 30)
 SHARD_SIZE = 32
 WORKSPACE_MBS = 145.65
+# LM serving path: internlm2-1.8b at full width (configs/registry.py), 16
+# requests of the seeded mixed workload, 8 slots, max_seq 1088 (the longest
+# prompt plus the longest generation)
+LM_ARCH = "internlm2-1.8b"
+LM_REQUESTS, LM_SLOTS, LM_MAX_SEQ = 16, 8, 1088
+LM_PROMPTS, LM_NEW = (256, 512, 1024), (16, 32, 64)
+# attention kernel vs plain version, as tests/test_kernels.py:158
+ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# teacher-forced logits, kernel vs plain attention, through 24 bf16 layers:
+# the two round attention outputs to bf16 differently, and the residual
+# stream carries those bf16 differences on (logits are about N(0, 1))
+LOGIT_ATOL = 0.25
 
 
 class CheckFailed(RuntimeError):
@@ -131,10 +154,36 @@ def gpu_line() -> str:
                           check=True, timeout=60).stdout.strip()
 
 
+def print_profile(prof, wall_ms: float, per: int, unit: str) -> None:
+    """The device's busy share and the kernels that take most of its time,
+    from a torch.profiler run over ``per`` units of work."""
+    from torch.autograd import DeviceType
+    # kernels only: operator rows repeat their kernels' device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        print(f"profile: {wall_ms:.3f} ms/{unit} wall; the profiler recorded no "
+              "device time (device busy share not measured)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
+    print(f"profile: {per} {unit}s, {wall_ms:.3f} ms/{unit} wall (profiler on), device "
+          f"busy {busy_ms:.3f} ms/{unit} ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{sum(e.count for e in events) / per:.0f} kernels/{unit}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        ms = e.self_device_time_total / 1e3 / per
+        print(f"  {ms:8.4f} ms/{unit} {e.count / per:6.0f}x  {100 * ms / busy_ms:5.1f}%  "
+              f"{e.key[:90]}")
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    print(f"  host: {sum(e.count for e in host) / per:.0f} operator calls/{unit}; most "
+          f"self CPU time:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"  {e.self_cpu_time_total / 1e3 / per:8.4f} ms/{unit} {e.count / per:6.0f}x  "
+              f"{e.key[:90]}")
+
+
 def profile_steps(store, cond, model, transform, steps: int = 10) -> None:
     """Trace ``steps`` fused train steps with torch.profiler and print the
     device's busy share and the kernels that take most of its time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import ShardedLoader
     from repro_torch.train.optimizer import AdamConfig, adam_init
@@ -155,21 +204,41 @@ def profile_steps(store, cond, model, transform, steps: int = 10) -> None:
             float(loss)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    # kernels only: operator rows repeat their kernels' device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not events:
-        print(f"profile: {wall_ms:.3f} ms/step wall; the profiler recorded no "
-              "device time (device busy share not measured)")
-        return
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    print(f"profile: {steps} steps, {wall_ms:.3f} ms/step wall (profiler on), device "
-          f"busy {busy_ms:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{sum(e.count for e in events) / steps:.0f} kernels/step")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        ms = e.self_device_time_total / 1e3 / steps
-        print(f"  {ms:8.4f} ms/step {e.count // steps:4d}x  {100 * ms / busy_ms:5.1f}%  "
-              f"{e.key[:90]}")
+    print_profile(prof, wall_ms, steps, "step")
+
+
+def profile_serving(engine, lm, cache, cur, pos, steps: int = 10) -> None:
+    """Trace ``steps`` full-width decode steps of the engine (8 slots at the
+    depths ``pos``), each with its argmax read back, and one prefill of the
+    longest prompt; print where the device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = engine.device
+    toks = torch.from_numpy(np.asarray(cur, np.int32)).to(dev)
+    depth = torch.from_numpy(np.asarray(pos, np.int32)).to(dev)
+    for _ in range(2):
+        engine._decode_step(cache, cur, pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, _ = lm.serve_step(engine.params, engine.cfg, cache, toks, depth)
+            torch.argmax(logits, -1).cpu()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    print("decode step:", end=" ")
+    print_profile(prof, wall_ms, steps, "step")
+    plen = LM_PROMPTS[-1]
+    prompt = np.arange(plen, dtype=np.int32)[None] % engine.cfg.vocab_size
+    engine._prefill(prompt, np.array([plen]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = engine._prefill(prompt, np.array([plen]))
+        torch.argmax(logits, -1).cpu()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"prefill of {plen} tokens:", end=" ")
+    print_profile(prof, wall_ms, 1, "prefill")
 
 
 def main() -> int:
@@ -179,7 +248,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.compression import floor_log2, transform as T
     from repro_torch.data import DeviceResidentCompressedStore, channels_last
-    from repro_torch.kernels import ref, zfp_codec
+    from repro_torch.kernels import flash_attention, ref, zfp_codec
     from repro_torch.models.surrogate import SurrogateConfig
     from repro_torch.sim.synthetic import synthetic_study
     from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
@@ -194,11 +263,26 @@ def main() -> int:
     dev = torch.device(DEV)
     t_start = time.perf_counter()
 
-    # -- 1. build ------------------------------------------------------------
+    # -- 1. build: every nvcc started together -------------------------------
     t0 = time.perf_counter()
-    zfp_codec.build()
+    errors = []
+
+    def build(module):
+        try:
+            module.build()
+        except Exception as e:          # re-raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(m,)) for m in (zfp_codec,
+                                                                   flash_attention)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for key, log in zfp_codec.BUILD_LOGS.items():
+    for key, log in {**zfp_codec.BUILD_LOGS, **flash_attention.BUILD_LOGS}.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {key}: {line.strip()}")
@@ -424,6 +508,12 @@ def main() -> int:
 
     # -- 8. where a step's device time goes (profiler on; launches not counted)
     profile_steps(store, cond, model, channels_last)
+    del store, model, samples, cond
+    torch.cuda.empty_cache()
+
+    # -- 9. LM serving path at full width: internlm2-1.8b, kernel 5 ---------------
+    print(f"LM phase starts {time.perf_counter() - t_start:.1f} s since start", flush=True)
+    attn = lm_serving_path(dev, smi)
 
     def launches(name):
         return resident_launches[name] + host_launches[name]
@@ -457,16 +547,305 @@ def main() -> int:
          "ms": fr_enc_ms, "plain_ms": fr_enc_plain_ms, "bound_ms": fr_enc_bound,
          "bound_by": fr_enc_by, "library_ms": None,
          "shape": [nb_enc, fr_enc_words]},
+        attn,
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} launched on the paths "
                                    f"({k['launches']} times)")
     print(f"card: {smi}; device-resident step median {statistics.median(step_ms):.3f} "
-          f"ms; total {time.perf_counter() - t_start:.1f} s")
+          f"ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
+          f"{attn['timings']['decode']['ms']:.4f} ms; total "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
+
+
+ATTN_CASES = [
+    # b, hq, hkv, sq, sk, d, causal, window, dtype (tests/test_kernels.py:141)
+    (2, 4, 2, 64, 64, 32, True, None, torch.float32),
+    (1, 8, 2, 1, 128, 64, True, None, torch.float32),
+    (1, 4, 4, 96, 96, 16, False, None, torch.float32),
+    (2, 2, 1, 128, 128, 32, True, 48, torch.float32),
+    (1, 4, 2, 256, 256, 64, True, None, torch.bfloat16),
+    (1, 2, 2, 80, 80, 24, True, None, torch.float32),
+]
+PREFILL_S = (256, 512, 1024)
+CHECK_KV_LENS = (1, 17, 256, 300, 513, 700, 1024, 1088)
+
+
+def attn_bound_ms(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_ms(q, k, v, mask, reps: int):
+    """One ``scaled_dot_product_attention`` call with ``enable_gqa`` and an
+    explicit boolean mask (the library yardstick, never on the port's path);
+    None where this PyTorch has no ``enable_gqa``."""
+    import torch.nn.functional as F
+    try:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    except TypeError as e:
+        print(f"SDPA yardstick not measured: {e}")
+        return None
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          enable_gqa=True), reps=reps)
+
+
+def attention_checks(dev, cfg) -> float:
+    """Kernel 5 against its plain version on the card: the kernel tests' six
+    cases, the full-width prefill shapes, and the decode shape (bf16 q
+    against the f32 cache in its (B, max_seq, Hkv, D) layout, mixed
+    kv_lens).  Returns the worst error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rn(shape, dt):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    worst = 0.0
+
+    def check(what, q, k, v, **kw):
+        nonlocal worst
+        got = fa.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_ATOL[q.dtype]
+        require(got.dtype == q.dtype and got.shape == want.shape and err <= tol,
+                f"flash_attention kernel == plain ({what}): max err {err:.3e} <= {tol}")
+        worst = max(worst, err)
+
+    for b, hq, hkv, sq, sk, d, causal, window, dt in ATTN_CASES:
+        check(f"b{b} hq{hq} hkv{hkv} sq{sq} sk{sk} d{d} causal={causal} window={window} "
+              f"{dt}", rn((b, hq, sq, d), dt), rn((b, hkv, sk, d), dt),
+              rn((b, hkv, sk, d), dt), causal=causal, window=window)
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
+    for s in PREFILL_S:
+        check(f"prefill 1x{h}x{s}x{d} over {hkv} KV heads, bf16", rn((1, h, s, d), torch.bfloat16),
+              rn((1, hkv, s, d), torch.bfloat16), rn((1, hkv, s, d), torch.bfloat16))
+    lens = torch.tensor(CHECK_KV_LENS, dtype=torch.int32, device=dev)
+    ck = rn((LM_SLOTS, LM_MAX_SEQ, hkv, d), torch.float32)
+    cv = rn((LM_SLOTS, LM_MAX_SEQ, hkv, d), torch.float32)
+    check(f"decode bf16 q ({LM_SLOTS},{h},1,{d}) against the f32 cache, kv_lens "
+          f"{list(CHECK_KV_LENS)}", rn((LM_SLOTS, h, 1, d), torch.bfloat16),
+          ck.transpose(1, 2), cv.transpose(1, 2), kv_lens=lens)
+    return worst
+
+
+def _replay(lm, params, cfg, reqs, dev):
+    """Teacher-forced logits of the served tokens through ``lm_prefill`` and
+    ``serve_step``: chunks of LM_SLOTS requests, right-padded prompts,
+    per-slot positions.  Returns per chunk ((T, B, V) logits, (T, B) mask of
+    the steps that produced a served token, (T, B) served tokens)."""
+    out = []
+    for i in range(0, len(reqs), LM_SLOTS):
+        chunk = reqs[i:i + LM_SLOTS]
+        n, plen = len(chunk), max(len(r.prompt) for r in chunk)
+        steps = max(r.max_new_tokens for r in chunk)
+        toks = np.zeros((n, plen), np.int32)
+        served = np.zeros((steps, n), np.int64)
+        valid = np.zeros((steps, n), bool)
+        for j, r in enumerate(chunk):
+            toks[j, :len(r.prompt)] = r.prompt
+            served[:len(r.output), j] = r.output
+            served[len(r.output):, j] = r.output[-1]
+            valid[:len(r.output), j] = True
+        lens = np.array([len(r.prompt) for r in chunk], np.int32)
+        logits, cache = lm.lm_prefill(params, cfg, {"tokens": torch.from_numpy(toks).to(dev)},
+                                      LM_MAX_SEQ, cache_dtype=torch.float32,
+                                      prompt_lens=torch.from_numpy(lens).to(dev))
+        all_logits = [logits]
+        for t in range(steps - 1):
+            logits, cache = lm.serve_step(params, cfg, cache,
+                                          torch.from_numpy(served[t]).to(dev),
+                                          torch.from_numpy(lens + t).to(dev))
+            all_logits.append(logits)
+        del cache
+        out.append((torch.stack(all_logits), torch.from_numpy(valid).to(dev),
+                    torch.from_numpy(served).to(dev)))
+    return out
+
+
+def lm_serving_path(dev, smi: str) -> dict:
+    """Serve the seeded workload on the full-width dense LM with continuous
+    batching and in lockstep, check the tokens and the kernel against plain
+    attention, time kernel 5; returns its ``kernels`` entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.loadgen import latency_percentiles, lm_workload
+
+    cfg = get_config(LM_ARCH)
+    worst = attention_checks(dev, cfg)
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    leaves = [params["embed"], params["final_norm"], params["lm_head"],
+              *params["layers"].values()]
+    n_params = sum(t.numel() for t in leaves)
+    print(f"lm: {cfg.name} at full width ({cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} q heads over {cfg.num_kv_heads} KV heads, head dim {cfg.hdim}, "
+          f"ff {cfg.d_ff}, vocab {cfg.vocab_size}), {n_params} parameters "
+          f"({sum(t.numel() * t.element_size() for t in leaves)} bytes bf16), init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    require(n_params == lm.param_count(cfg), f"parameter count == param_count "
+                                             f"({n_params})")
+    engine = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=dev)
+    # warm-up (cuBLAS handles, the caching allocator); not counted
+    engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
+    torch.cuda.synchronize()
+
+    # attribute each launch of kernel 5 to prefill or decode; keep the
+    # per-slot depths of every decode step
+    counts = {"prefill": 0, "decode": 0}
+    depths = []
+
+    def counted(phase, fn):
+        def wrapped(*args):
+            before = fa.LAUNCHES["flash_attention"]
+            out = fn(*args)
+            counts[phase] += fa.LAUNCHES["flash_attention"] - before
+            if phase == "decode":
+                depths.append(np.array(args[2], np.int32))
+            return out
+        return wrapped
+
+    engine._prefill = counted("prefill", engine._prefill)
+    engine._decode_step = counted("decode", engine._decode_step)
+    runs = {}
+    for mode in ("run", "run_lockstep"):
+        engine.stats = {k: type(v)() for k, v in engine.stats.items()}
+        counts.update(prefill=0, decode=0)
+        depths.clear()
+        fa.reset_launches()
+        reqs = lm_workload(cfg.vocab_size, LM_REQUESTS, prompt_lens=LM_PROMPTS,
+                           new_tokens=LM_NEW, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = getattr(engine, mode)(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pct = latency_percentiles(done)
+        st = engine.stats
+        print(f"serve {mode}: {len(done)} requests in {wall:.3f} s; decode "
+              f"{engine.tokens_per_second:.1f} tok/s ({st['tokens']} tokens, "
+              f"{st['decode_steps']} steps, {st['decode_seconds']:.3f} s, "
+              f"{1e3 * st['decode_seconds'] / max(st['decode_steps'], 1):.3f} ms/step); "
+              f"prefill {engine.prefill_tokens_per_second:.1f} tok/s "
+              f"({st['prefill_tokens']} tokens, {st['prefill_seconds']:.3f} s); latency "
+              f"p50 {pct['p50']:.4f} s p99 {pct['p99']:.4f} s mean {pct['mean']:.4f} s; "
+              f"slot utilisation {engine.slot_utilization:.4f}; flash_attention launches "
+              f"prefill {counts['prefill']} decode {counts['decode']}", flush=True)
+        require(fa.LAUNCHES["flash_attention"] == counts["prefill"] + counts["decode"],
+                f"every flash_attention launch of {mode} is in prefill or decode")
+        require(counts["prefill"] > 0 and counts["decode"] > 0,
+                f"flash_attention launched in prefill and in decode ({mode})")
+        require(len(done) == LM_REQUESTS and all(
+            r.output is not None and len(r.output) == r.max_new_tokens
+            and 0 <= r.output.min() and r.output.max() < cfg.vocab_size for r in done),
+            f"{mode}: every request returned with max_new_tokens tokens in the vocab")
+        order = {id(r): i for i, r in enumerate(reqs)}
+        runs[mode] = (sorted(done, key=lambda r: order[id(r)]), dict(counts), list(depths))
+
+    by_mode = [np.concatenate([r.output for r in runs[m][0]]) for m in runs]
+    print(f"run vs run_lockstep: {np.mean(by_mode[0] == by_mode[1]):.4f} of "
+          f"{by_mode[0].size} greedy tokens equal (bf16 prefill in other batch shapes)")
+
+    # teacher-forced replay: kernel vs plain attention on the card
+    served = runs["run"][0]
+    kernel_replay = _replay(lm, params, cfg, served, dev)
+    n_launch = fa.LAUNCHES["flash_attention"]
+
+    def plain(q, k, v, **kw):
+        return ref.flash_attention_ref(q, k, v, **kw)
+
+    with mock.patch.object(ops, "flash_attention", plain):
+        plain_replay = _replay(lm, params, cfg, served, dev)
+    require(fa.LAUNCHES["flash_attention"] == n_launch,
+            "the plain replay launched no kernel")
+    err, agree, match_k, match_p, n = 0.0, 0, 0, 0, 0
+    for (lk, valid, tok), (lp, _, _) in zip(kernel_replay, plain_replay):
+        require(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
+                "replay logits are finite")
+        err = max(err, float(((lk - lp).abs().amax(-1))[valid].max()))
+        ak, ap = lk.argmax(-1), lp.argmax(-1)
+        agree += int((ak == ap)[valid].sum())
+        match_k += int((ak == tok)[valid].sum())
+        match_p += int((ap == tok)[valid].sum())
+        n += int(valid.sum())
+    print(f"replay of {n} served tokens, teacher-forced: logits kernel vs plain attention "
+          f"max abs diff {err:.4f}; greedy agreement kernel/plain {agree / n:.4f}, "
+          f"served/kernel replay {match_k / n:.4f}, served/plain replay {match_p / n:.4f}")
+    require(err <= LOGIT_ATOL, f"teacher-forced logits with the kernel == with the plain "
+                               f"attention (max abs diff {err:.4f} <= {LOGIT_ATOL})")
+    del kernel_replay, plain_replay
+
+    # kernel 5 at the main path's shapes: prefill (one request) and the
+    # decode step at the median of the continuous-batching run
+    g = torch.Generator(device=dev).manual_seed(2)
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
+    timings = {}
+    for s in PREFILL_S:
+        q = torch.randn((1, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((1, hkv, s, d), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(torch.bfloat16)
+        mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+        t = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
+             "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5),
+             "library_ms": sdpa_ms(q, k, v, mask, reps=20)}
+        t["bound_ms"], t["bound_by"] = attn_bound_ms(
+            2 * (2 * h * s * d) + 2 * (2 * hkv * s * d), 4 * h * d * s * (s + 1) / 2)
+        timings[f"prefill_{s}"] = t
+    run_depths = runs["run"][2]
+    lens_np = run_depths[len(run_depths) // 2] + 1
+    lens = torch.from_numpy(lens_np).to(dev)
+    q = torch.randn((LM_SLOTS, h, 1, d), generator=g, device=dev).to(torch.bfloat16)
+    ck = torch.randn((LM_SLOTS, LM_MAX_SEQ, hkv, d), generator=g, device=dev)
+    cv = torch.randn((LM_SLOTS, LM_MAX_SEQ, hkv, d), generator=g, device=dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    kb, vb = kt.to(torch.bfloat16).contiguous(), vt.to(torch.bfloat16).contiguous()
+    dmask = (torch.arange(LM_MAX_SEQ, device=dev)[None] < lens[:, None])[:, None, None]
+    t = {"ms": cuda_ms(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens), reps=50),
+         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, kt, vt, kv_lens=lens),
+                             reps=20),
+         "library_ms": sdpa_ms(q, kb, vb, dmask, reps=50)}
+    keys = int(lens_np.sum())
+    t["bound_ms"], t["bound_by"] = attn_bound_ms(keys * hkv * d * 2 * 4 + 2 * (
+        2 * LM_SLOTS * h * d) + 4 * LM_SLOTS, 4 * h * d * keys)
+    t["kv_lens"] = lens_np.tolist()
+    timings["decode"] = t
+    for name, t in timings.items():
+        lib = "not measured" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"flash_attention {name}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, SDPA {lib}"
+              f"{' on a bf16 copy of the cache' if name == 'decode' else ''}; {smi}")
+    # where a serving step's time goes: decode at the first chunk's depths
+    chunk = served[:LM_SLOTS]
+    plen = max(len(r.prompt) for r in chunk)
+    toks = np.zeros((LM_SLOTS, plen), np.int32)
+    for j, r in enumerate(chunk):
+        toks[j, :len(r.prompt)] = r.prompt
+    lens_np = np.array([len(r.prompt) for r in chunk], np.int32)
+    logits, cache = engine._prefill(toks, lens_np)
+    profile_serving(engine, lm, cache, logits.argmax(-1).cpu().numpy(), lens_np)
+    del cache
+
+    launches = {m: c for m, (_, c, _) in runs.items()}
+    main = timings[f"prefill_{PREFILL_S[-1]}"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:105",
+            "launches": sum(c["prefill"] + c["decode"] for c in launches.values()),
+            "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shape": [1, h, PREFILL_S[-1], d],
+            "launches_by_run": launches, "timings": timings,
+            "logit_max_abs_diff": err, "greedy_agreement": agree / n}
 
 
 def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,

@@ -1,19 +1,22 @@
-"""Public codec kernels, dispatched on the device of their inputs.
+"""Public kernels, dispatched on the device of their inputs.
 
 A tensor on the CPU goes to the plain version (:mod:`.ref`); a tensor on
-the card goes to the CUDA kernel (:mod:`.zfp_codec`), which launches or
-raises.  There is no fallback and no switch that sends card tensors through
-plain code.
+the card goes to the CUDA kernel (:mod:`.zfp_codec`, :mod:`.flash_attention`),
+which launches or raises.  There is no fallback and no switch that sends
+card tensors through plain code.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.compression.zfp import floor_log2
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, zfp_codec
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
+def _on_cpu(*ts: torch.Tensor, kind: str = "ZFP") -> bool:
     devices = {t.device for t in ts}
     if len(devices) != 1:
         raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
@@ -22,7 +25,7 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
         return True
     if dev.type == "cuda":
         return False
-    raise ValueError(f"no ZFP kernel for device {dev}")
+    raise ValueError(f"no {kind} kernel for device {dev}")
 
 
 def zfp_decode_blocks_fa(payload: torch.Tensor, emax: torch.Tensor,
@@ -62,3 +65,19 @@ def zfp_encode_blocks(blocks: torch.Tensor, bits_per_value: int):
     if _on_cpu(blocks):
         return ref.zfp_encode_blocks_ref(blocks, bits_per_value)
     return zfp_codec.zfp_encode_blocks(blocks, bits_per_value)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA attention: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> (B, Hq, Sq, D)
+    in q's dtype.  Queries are end-aligned with the keys; ``kv_lens`` (B,)
+    int32 gives row b its own key length (keys at or past it masked)."""
+    ts = (q, k, v) + ((kv_lens,) if kv_lens is not None else ())
+    if _on_cpu(*ts, kind="attention"):
+        fa.check_args(q, k, v, window, kv_lens)     # the kernel's wrapper checks its own
+        return ref.flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                       window=window, kv_lens=kv_lens)
+    return fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window,
+                              kv_lens=kv_lens)

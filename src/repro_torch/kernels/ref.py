@@ -1,11 +1,15 @@
-"""Plain PyTorch versions of the codec kernels.
+"""Plain PyTorch versions of the kernels.
 
-Counterparts of ``zfp_{encode,decode}_blocks{,_fa}_ref`` in
-``repro/kernels/ref.py``, built on :mod:`repro_torch.compression.transform`.
-The CPU tests hold them against the JAX package bit for bit, and the CUDA
-kernels in ``repro_torch/csrc`` are held against them on the card.
+Counterparts of ``zfp_{encode,decode}_blocks{,_fa}_ref`` and
+``flash_attention_ref`` in ``repro/kernels/ref.py``; the codec ones are
+built on :mod:`repro_torch.compression.transform`.  The CPU tests hold them
+against the JAX package (the codec bit for bit, attention to a tolerance),
+and the CUDA kernels in ``repro_torch/csrc`` are held against them on the
+card.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -76,3 +80,48 @@ def zfp_decode_blocks_fa_ref(payload: torch.Tensor, emax: torch.Tensor,
     """
     u = T.truncate_planes(T.unpack_planes(payload), nplanes.to(torch.int32))
     return T.dequantize_blocks(T.inv_transform_2d(T.nb2int(u)), emax)
+
+
+# ---------------------------------------------------------------------------
+# Flash-attention oracle (GQA, causal or full, per-row key lengths)
+# ---------------------------------------------------------------------------
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, sm_scale: Optional[float] = None,
+                        window: Optional[int] = None,
+                        kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Naive reference attention.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with Hq % Hkv == 0 (GQA).
+    ``window``: optional sliding-window size (tokens attend to the previous
+    ``window`` positions, inclusive of self).  ``kv_lens`` (B,) int: row b
+    has ``kv_lens[b]`` keys; its queries are end-aligned to that length and
+    keys at or past it are masked (``None``: every row has Sk keys).
+    k and v are rounded to q's dtype first, as the serving path's
+    ``cache.astype(q.dtype)`` does.  Returns (B, Hq, Sq, D) in q.dtype;
+    accumulation in f32.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    qf = q.float().reshape(b, hkv, group, sq, d)
+    kf = k.to(q.dtype).float()
+    vf = v.to(q.dtype).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * sm_scale
+    lens = (torch.full((b,), sk, dtype=torch.int64, device=q.device)
+            if kv_lens is None else kv_lens.to(device=q.device, dtype=torch.int64))
+    # queries end-aligned with each row's keys (decode: sq << sk)
+    qpos = torch.arange(sq, device=q.device)[None, :, None] + (lens[:, None, None] - sq)
+    kpos = torch.arange(sk, device=q.device)[None, None, :]
+    mask = kpos < lens[:, None, None]                       # (B, Sq, Sk)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
+    return out.reshape(b, hq, sq, d).to(q.dtype)

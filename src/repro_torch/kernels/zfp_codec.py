@@ -15,20 +15,14 @@ launch returned an error, and adds one to its entry in :data:`LAUNCHES`
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Dict
 
 import torch
 
 from repro_torch.compression.transform import MAX_WORDS, TOTAL_PLANES
+from repro_torch.kernels import nvcc_build
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"zfp_fa_decode": "zfp_fa_decode.cu",
            "zfp_fa_encode": "zfp_fa_encode.cu",
            "zfp_fr_decode": "zfp_fr_decode.cu",
@@ -62,48 +56,13 @@ def _counted(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the ZFP kernels "
-                           "are built from source at first use")
-    return found
-
-
-def _build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SOURCES.values()) + sorted(HEADERS):
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return BUILD_ROOT / f"zfp_codec-{h.hexdigest()[:16]}"
-
-
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (if not cached) and load every kernel library; idempotent."""
     with _build_lock:
         if _libs:
             return _libs
-        out = _build_dir()
-        out.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for key, src in SOURCES.items():
-            so = out / f"lib{key}.so"
-            if so.exists():
-                continue
-            tmp = out / f"lib{key}.{os.getpid()}.tmp.so"
-            procs[key] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, so)
-        for key, (proc, tmp, so) in procs.items():
-            log, _ = proc.communicate()
-            BUILD_LOGS[key] = log
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {SOURCES[key]}:\n{log}")
-            os.replace(tmp, so)
-        libs = {key: ctypes.CDLL(str(out / f"lib{key}.so")) for key in SOURCES}
+        libs = nvcc_build.compile_and_load("zfp_codec", SOURCES, HEADERS, NVCC_FLAGS,
+                                           BUILD_LOGS)
         dec = libs["zfp_fa_decode"].zfp_decode_blocks_fa_launch
         dec.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                                 ctypes.c_void_p]

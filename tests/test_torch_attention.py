@@ -1,0 +1,174 @@
+"""The port's flash attention (plain version and dispatch) against the JAX
+package's TPU kernel (interpret mode) and its oracle.
+
+Inputs are made with numpy from a seed and given to both packages.  The
+plain version sums in another order than the kernel's online softmax, so
+values are held to the tolerances of ``tests/test_kernels.py``: f32 2e-5,
+bf16 3e-2.  The per-row key lengths (``kv_lens``) that serve the decode
+path are held against the reference LM's own ``attention`` call, built as
+``lm.py:549-557`` builds it, and against the oracle on each row's prefix.
+The CUDA kernel itself runs only on the card (``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import lm
+
+from torch_lm_reference import load as load_reference
+
+torch.set_num_threads(2)
+
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+CASES = [
+    # b, hq, hkv, sq, sk, d, causal, window, dtype
+    (2, 4, 2, 64, 64, 32, True, None, "float32"),
+    (1, 8, 2, 1, 128, 64, True, None, "float32"),      # decode shape
+    (1, 4, 4, 96, 96, 16, False, None, "float32"),     # encoder (full)
+    (2, 2, 1, 128, 128, 32, True, 48, "float32"),      # sliding window
+    (1, 4, 2, 256, 256, 64, True, None, "bfloat16"),   # bf16
+    (1, 2, 2, 80, 80, 24, True, None, "float32"),      # pad-needing shape
+    # Sq < Sk: queries end-aligned with the keys
+    (2, 4, 2, 24, 80, 32, True, None, "float32"),
+    (1, 6, 3, 7, 50, 16, False, None, "float32"),
+    (2, 4, 1, 40, 100, 32, True, 30, "float32"),
+    (1, 4, 2, 33, 160, 64, True, None, "bfloat16"),
+]
+
+
+def _inputs(seed, b, hq, hkv, sq, sk, d, dtype):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    jx = [jnp.asarray(a, dtype) for a in (q, k, v)]
+    tt = getattr(torch, dtype)
+    return jx, [torch.from_numpy(a).to(tt) for a in (q, k, v)]
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c[:6])) +
+                         f"-{'causal' if c[6] else 'full'}-w{c[7]}-{c[8]}")
+def test_plain_matches_tpu_kernel_and_oracle(case):
+    b, hq, hkv, sq, sk, d, causal, window, dtype = case
+    (jq, jk, jv), (q, k, v) = _inputs(0, b, hq, hkv, sq, sk, d, dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == (b, hq, sq, d)
+    want_kernel = jax_flash(jq, jk, jv, causal=causal, window=window, interpret=True)
+    want_oracle = jax_ref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(want_kernel), atol=ATOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(want_oracle), atol=ATOL[dtype])
+
+
+def test_plain_matches_small_block_kernel():
+    """Blocks smaller than the defaults exercise the TPU kernel's carry."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, 1, 2, 2, 64, 64, 16, "float32")
+    want = jax_flash(jq, jk, jv, causal=True, block_q=16, block_k=16, interpret=True)
+    np.testing.assert_allclose(_np(ops.flash_attention(q, k, v)), _np(want), atol=2e-5)
+    want = jax_flash(jq, jk, jv, causal=True, window=20, block_q=16, block_k=16,
+                     interpret=True)
+    np.testing.assert_allclose(_np(ops.flash_attention(q, k, v, window=20)), _np(want),
+                               atol=2e-5)
+
+
+def test_sm_scale_is_passed_through():
+    (jq, jk, jv), (q, k, v) = _inputs(2, 1, 4, 2, 16, 48, 32, "float32")
+    want = jax_flash(jq, jk, jv, causal=True, sm_scale=0.37, interpret=True)
+    np.testing.assert_allclose(_np(ops.flash_attention(q, k, v, sm_scale=0.37)),
+                               _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 9)])
+def test_kv_lens_rows_match_the_oracle_on_their_prefix(causal, window):
+    """Row b with kv_lens[b] keys == the oracle on keys[:kv_lens[b]]."""
+    b, hq, hkv, sq, sk, d = 4, 4, 2, 3, 40, 32
+    (jq, jk, jv), (q, k, v) = _inputs(3, b, hq, hkv, sq, sk, d, "float32")
+    lens = np.array([3, 17, 40, 26], np.int32)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_lens=torch.from_numpy(lens))
+    for i, n in enumerate(lens):
+        want = jax_ref.flash_attention_ref(jq[i:i + 1], jk[i:i + 1, :, :n],
+                                           jv[i:i + 1, :, :n], causal=causal,
+                                           window=window)
+        np.testing.assert_allclose(_np(got[i:i + 1]), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,s", [("float32", 1), ("float32", 3), ("bfloat16", 1)])
+def test_kv_lens_match_the_reference_decode_attention(dtype, s):
+    """The port's LM attention on the cache with kv_lens == pos + s equals
+    the reference's ``attention`` call of its cached decode (lm.py:549-557):
+    per-slot positions, keys past each slot's last position moved to 2**30,
+    the cache rounded to q's dtype."""
+    jlm = load_reference().lm
+    rng = np.random.default_rng(4)
+    b, h, hkv, d, max_seq = 4, 4, 2, 32, 48
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    ck = rng.standard_normal((b, max_seq, hkv, d)).astype(np.float32)
+    cv = rng.standard_normal((b, max_seq, hkv, d)).astype(np.float32)
+    pos = np.array([0, 5, 44, 21], np.int32)[:, None] + np.arange(s, dtype=np.int32)
+    jq = jnp.asarray(q, dtype)
+    kpos = jnp.broadcast_to(jnp.arange(max_seq, dtype=jnp.int32)[None], (b, max_seq))
+    valid = kpos <= jnp.asarray(pos)[:, -1:]
+    want = jlm.attention(jq, jnp.asarray(ck).astype(jq.dtype),
+                         jnp.asarray(cv).astype(jq.dtype), jnp.asarray(pos),
+                         jnp.where(valid, kpos, jnp.int32(2 ** 30)), causal=True,
+                         chunk=64, seq_sharded=s == 1)
+    got = lm.attention(torch.from_numpy(q).to(getattr(torch, dtype)), torch.from_numpy(ck),
+                       torch.from_numpy(cv), causal=True,
+                       kv_lens=torch.from_numpy(pos[:, -1] + 1))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, s, h, d)
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL[dtype])
+
+
+def test_dispatch_rejects_other_devices_and_bad_shapes():
+    meta = [torch.zeros(1, 2, 3, 8, device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="no attention kernel"):
+        ops.flash_attention(*meta)
+    q, k = torch.zeros(1, 3, 4, 8), torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, k, k)
+    q, k = torch.zeros(1, 2, 5, 8), torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(k, k, k, window=0)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.flash_attention(k, k, k, kv_lens=torch.ones(1, dtype=torch.int32,
+                                                       device="meta"))
+
+
+def test_cuda_wrapper_takes_only_card_tensors_and_builds_nothing():
+    x = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="must be on the card"):
+        fa.flash_attention(x, x, x)
+    assert not fa._libs
+
+
+def test_card_tensors_go_to_the_kernel_never_to_plain_code(monkeypatch):
+    """Tensors that are not on the CPU reach the kernel's wrapper; the plain
+    version is not called and no error is swallowed."""
+    calls = []
+    monkeypatch.setattr(ops, "_on_cpu", lambda *ts, kind: False)
+    monkeypatch.setattr(ref, "flash_attention_ref",
+                        lambda *a, **kw: pytest.fail("plain version called"))
+    monkeypatch.setattr(fa, "flash_attention", lambda *a, **kw: calls.append(kw) or "k")
+    x = torch.zeros(1, 2, 4, 8)
+    assert ops.flash_attention(x, x, x, window=3) == "k"
+    assert calls == [{"causal": True, "sm_scale": None, "window": 3, "kv_lens": None}]
+
+    def broken(*a, **kw):
+        raise RuntimeError("flash_attention launch failed with CUDA error 1")
+
+    monkeypatch.setattr(fa, "flash_attention", broken)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.flash_attention(x, x, x)

@@ -16,8 +16,12 @@ import torch
 
 import repro_torch
 from repro_torch.data import DeviceResidentCompressedStore, channels_last
-from repro_torch.kernels import zfp_codec
+from repro_torch.configs import reduced_config
+from repro_torch.kernels import flash_attention, zfp_codec
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.models import lm
 from repro_torch.models.surrogate import SurrogateConfig, init_surrogate
+from repro_torch.serving import ServeEngine
 from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
 
 torch.set_num_threads(2)
@@ -41,9 +45,11 @@ def _imported_roots(path):
 def test_scan_covers_every_package_of_the_port():
     scanned = {p.parent.name for p in PORT_FILES}
     assert {"compression", "kernels", "data", "train", "models", "sim",
-            "obs", "distributed"} <= scanned
+            "obs", "distributed", "configs", "serving", "launch"} <= scanned
     names = {p.name for p in PORT_FILES}
-    assert {"metrics.py", "sharding.py", "shards.py", "loader.py"} <= names
+    assert {"metrics.py", "sharding.py", "shards.py", "loader.py", "lm.py", "engine.py",
+            "scheduler.py", "loadgen.py", "trace.py", "serve.py",
+            "flash_attention.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -59,10 +65,11 @@ def test_every_port_module_imports_without_toolchain():
     importing builds nothing."""
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.kernels.zfp_codec" in names
+    assert {"repro_torch.kernels.zfp_codec", "repro_torch.kernels.flash_attention",
+            "repro_torch.launch.serve"} <= set(names)
     for name in names:
         importlib.import_module(name)
-    assert not zfp_codec._libs
+    assert not zfp_codec._libs and not flash_attention._libs
 
 
 @pytest.fixture
@@ -90,3 +97,18 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
     assert predict_fields(model, cond, device="cpu").shape == (2, 16, 16, 6)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         predict_fields(init_surrogate(cfg), cond, device="cuda")
+
+
+def test_lm_serving_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
+    cfg = reduced_config("internlm2-1.8b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_lm(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(cfg, 1, 8)
+    params = lm.init_lm(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_launcher.main(["--requests", "1"])
+    engine = ServeEngine(params, cfg, batch_slots=2, max_seq=16, device="cpu")
+    assert engine.device.type == "cpu"
