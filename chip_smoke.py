@@ -8,9 +8,11 @@ Needs one CUDA card, the CUDA toolkit (``nvcc`` under ``$CUDA_HOME`` or on
 four ZFP kernels, fixed-accuracy and fixed-rate encode and decode, and flash
 attention) from ``src/repro_torch/csrc`` into ``build/``, all ``nvcc``
 processes started together, holds each ZFP kernel against its plain PyTorch
-version (run on the CPU) bit for bit and the attention kernel against its
-plain version on the card to a stated tolerance, then runs three paths at
-full model width:
+version (run on the CPU) bit for bit and each of the attention kernel's
+three variants (the wgmma + TMA prefill, the split-KV decode and the
+scalar kernel) against its plain version on the card to a stated
+tolerance, asserting which variant ran, then runs three paths at full
+model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
   memory): encode a synthetic study into a device-resident store and train
@@ -23,13 +25,18 @@ full model width:
 * LM serving: ``internlm2-1.8b`` at full width (24 layers, bf16, random
   weights from a seeded generator) serves 16 mixed-length requests with
   continuous batching and again in lockstep, 8 slots, an f32 KV cache of
-  1,088 positions; the served tokens are replayed teacher-forced with the
-  kernel and with the plain attention, and their logits compared.
+  1,088 positions (every prefill launch must run the wgmma prefill and
+  every decode launch the split-KV decode); the served tokens are replayed
+  teacher-forced with the kernel and with the plain attention, and their
+  logits compared.
 
 It prints the card's name and power limit, per run the median step time,
 the summed fetch wait and the store's ``IoStats``, the serving rates and
-latencies, one ``kernels`` JSON line (launches on the paths, agreement,
-times, bounds and the library yardstick), and as its last line
+latencies, the attention variants' times at the main path's shapes beside
+the scalar variant's, the plain version's, each SDPA backend's and the
+bound, one ``kernels`` JSON line (launches on the paths, agreement, times,
+bounds and the library yardstick; kernel 5 also per variant), and as its
+last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line.  Precision: float32 with TF32 off; the LM runs in bf16.
 """
@@ -109,6 +116,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and the graph replayed, so no host dispatch sits between the
+    calls.  None, with the reason printed, where a call cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        print(f"  not captured in a CUDA graph: {str(e).splitlines()[0][:100]}")
+        return None
+    ms = cuda_ms(graph.replay, reps=5, warmup=1) / reps
+    del graph
+    return ms
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -571,8 +601,17 @@ ATTN_CASES = [
     (1, 4, 2, 256, 256, 64, True, None, torch.bfloat16),
     (1, 2, 2, 80, 80, 24, True, None, torch.float32),
 ]
+# the new kernels' own cases: (case as above, the variant that must run)
+VARIANT_CASES = [
+    ((2, 4, 2, 80, 80, 64, True, 48, torch.bfloat16), "prefill_wgmma"),     # window, ragged
+    ((1, 4, 2, 200, 200, 128, False, None, torch.bfloat16), "prefill_wgmma"),
+    ((2, 4, 2, 100, 300, 128, True, None, torch.bfloat16), "prefill_wgmma"),  # Sq < Sk
+    ((2, 4, 2, 130, 130, 64, True, None, torch.bfloat16), "prefill_wgmma"),
+]
 PREFILL_S = (256, 512, 1024)
 CHECK_KV_LENS = (1, 17, 256, 300, 513, 700, 1024, 1088)
+SPLIT_KV_LENS = (127, 128, 129, 1088, 1, 64, 700, 1087)   # at and around split edges
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 
 
 def attn_bound_ms(nbytes: float, flops: float):
@@ -580,25 +619,54 @@ def attn_bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_ms(q, k, v, mask, reps: int):
-    """One ``scaled_dot_product_attention`` call with ``enable_gqa`` and an
-    explicit boolean mask (the library yardstick, never on the port's path);
-    None where this PyTorch has no ``enable_gqa``."""
+def sdpa_times(q, k, v, reps: int, mask=None) -> dict:
+    """``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal``
+    without a mask, else the explicit boolean mask), pinned to each backend
+    in turn: {backend: {"ms": device ms per call (CUDA graph), "eager_ms":
+    ms per call launched from Python}, or None where it refuses the call}.
+    The library yardstick, never on the port's path."""
     import torch.nn.functional as F
-    try:
-        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
-    except TypeError as e:
-        print(f"SDPA yardstick not measured: {e}")
-        return None
-    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                          enable_gqa=True), reps=reps)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    kw = {"is_causal": True} if mask is None else {"attn_mask": mask}
+    out = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        out[name.lower()] = None
+        if backend is None:
+            print(f"  SDPA {name}: not in this PyTorch")
+            continue
+
+        def call():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+        try:
+            with sdpa_kernel(backend):
+                call()
+                torch.cuda.synchronize()
+                out[name.lower()] = {"ms": graph_ms(call, reps),
+                                     "eager_ms": cuda_ms(call, reps=reps)}
+        except (RuntimeError, TypeError) as e:     # the backend refuses these inputs
+            print(f"  SDPA {name}: not accepted ({str(e).splitlines()[0][:100]})")
+    return out
+
+
+def fastest(times: dict):
+    """(device ms, backend) of the fastest backend that accepted the call."""
+    ok = {n: t["ms"] for n, t in times.items() if t is not None and t["ms"] is not None}
+    if not ok:
+        return None, None
+    name = min(ok, key=ok.get)
+    return ok[name], name
 
 
 def attention_checks(dev, cfg) -> float:
     """Kernel 5 against its plain version on the card: the kernel tests' six
-    cases, the full-width prefill shapes, and the decode shape (bf16 q
-    against the f32 cache in its (B, max_seq, Hkv, D) layout, mixed
-    kv_lens).  Returns the worst error."""
+    cases, the new kernels' own cases (windowed, ragged, D = 64, Sq < Sk, the
+    lockstep prefill at B = 8), the full-width prefill shapes, and decode
+    (bf16 q against the f32 cache in its (B, max_seq, Hkv, D) layout: mixed
+    kv_lens, kv_lens at the split edges, GQA groups of 2, 8 and 1, a window,
+    Sq = 3), each naming the variant that ran; the scalar variant at the
+    main path's shapes too.  Returns the worst error."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(1)
@@ -608,31 +676,137 @@ def attention_checks(dev, cfg) -> float:
 
     worst = 0.0
 
-    def check(what, q, k, v, **kw):
+    def check(what, q, k, v, variant=None, scalar=False, **kw):
         nonlocal worst
-        got = fa.flash_attention(q, k, v, **kw)
+        before = dict(fa.VARIANT_LAUNCHES)
+        if scalar:
+            got = fa._launch(q, k, v, causal=kw.get("causal", True), sm_scale=None,
+                             window=kw.get("window"), kv_lens=kw.get("kv_lens"),
+                             variant="scalar")
+        else:
+            got = fa.flash_attention(q, k, v, **kw)
+        ran = [n for n in fa.VARIANTS if fa.VARIANT_LAUNCHES[n] != before[n]]
         want = ref.flash_attention_ref(q, k, v, **kw)
         err = float((got.float() - want.float()).abs().max())
         tol = ATTN_ATOL[q.dtype]
-        require(got.dtype == q.dtype and got.shape == want.shape and err <= tol,
-                f"flash_attention kernel == plain ({what}): max err {err:.3e} <= {tol}")
+        require(got.dtype == q.dtype and got.shape == want.shape and err <= tol
+                and len(ran) == 1 and (variant is None or ran[0] == variant),
+                f"flash_attention kernel == plain ({what}; {'/'.join(ran)} ran"
+                f"{'' if variant is None else f', {variant} required'}): max err {err:.3e} "
+                f"<= {tol}")
         worst = max(worst, err)
 
-    for b, hq, hkv, sq, sk, d, causal, window, dt in ATTN_CASES:
+    def case(c, variant=None):
+        b, hq, hkv, sq, sk, d, causal, window, dt = c
         check(f"b{b} hq{hq} hkv{hkv} sq{sq} sk{sk} d{d} causal={causal} window={window} "
-              f"{dt}", rn((b, hq, sq, d), dt), rn((b, hkv, sk, d), dt),
-              rn((b, hkv, sk, d), dt), causal=causal, window=window)
+              f"{dt}", rn((b, hq, sq, d), dt), rn((b, hkv, sk, d), dt), rn((b, hkv, sk, d), dt),
+              variant=variant, causal=causal, window=window)
+
+    for c in ATTN_CASES:
+        case(c)
+    for c, variant in VARIANT_CASES:
+        case(c, variant)
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
-    for s in PREFILL_S:
-        check(f"prefill 1x{h}x{s}x{d} over {hkv} KV heads, bf16", rn((1, h, s, d), torch.bfloat16),
-              rn((1, hkv, s, d), torch.bfloat16), rn((1, hkv, s, d), torch.bfloat16))
+    bf = torch.bfloat16
+    for b, s in [(1, s) for s in PREFILL_S] + [(LM_SLOTS, PREFILL_S[-1])]:
+        q, k, v = rn((b, h, s, d), bf), rn((b, hkv, s, d), bf), rn((b, hkv, s, d), bf)
+        check(f"prefill {b}x{h}x{s}x{d} over {hkv} KV heads, bf16", q, k, v, "prefill_wgmma")
+        if b == 1 and s == PREFILL_S[-1]:
+            check(f"prefill {b}x{h}x{s}x{d}, the scalar variant", q, k, v, "scalar",
+                  scalar=True)
+    n, ms = LM_SLOTS, LM_MAX_SEQ
+    ck, cv = rn((n, ms, hkv, d), torch.float32), rn((n, ms, hkv, d), torch.float32)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    for lens_t, hq, sq, window, what in [
+            (CHECK_KV_LENS, h, 1, None, "mixed kv_lens"),
+            (SPLIT_KV_LENS, h, 1, None, "kv_lens at split edges"),
+            (SPLIT_KV_LENS, 8 * hkv, 1, None, f"group 8 ({8 * hkv} q heads)"),
+            (SPLIT_KV_LENS, hkv, 1, None, "group 1"),
+            (CHECK_KV_LENS, h, 1, 200, "window 200"),
+            (SPLIT_KV_LENS, h, 3, None, "Sq 3"),
+            (SPLIT_KV_LENS, 8 * hkv, 8, 300, "group 8, Sq 8, window 300")]:
+        lens_t = tuple(max(x, sq) for x in lens_t)     # every query sees a key
+        lens = torch.tensor(lens_t, dtype=torch.int32, device=dev)
+        q = rn((n, hq, sq, d), bf)
+        check(f"decode bf16 q ({n},{hq},{sq},{d}) against the f32 cache, {what}, kv_lens "
+              f"{list(lens_t)}", q, kt, vt, "decode_splitkv", kv_lens=lens, window=window)
     lens = torch.tensor(CHECK_KV_LENS, dtype=torch.int32, device=dev)
-    ck = rn((LM_SLOTS, LM_MAX_SEQ, hkv, d), torch.float32)
-    cv = rn((LM_SLOTS, LM_MAX_SEQ, hkv, d), torch.float32)
-    check(f"decode bf16 q ({LM_SLOTS},{h},1,{d}) against the f32 cache, kv_lens "
-          f"{list(CHECK_KV_LENS)}", rn((LM_SLOTS, h, 1, d), torch.bfloat16),
-          ck.transpose(1, 2), cv.transpose(1, 2), kv_lens=lens)
+    check(f"decode bf16 q ({n},{h},1,{d}) against the f32 cache, the scalar variant",
+          rn((n, h, 1, d), bf), kt, vt, "scalar", scalar=True, kv_lens=lens)
     return worst
+
+
+def attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
+    """Kernel 5 at the main path's shapes (prefill of one request at
+    PREFILL_S tokens and of the lockstep batch, and the decode step at the
+    given depths): the variant the rule picks, the scalar variant, the
+    plain version and each SDPA
+    backend, in one call, beside the bound.  "ms" is device time per call
+    (calls replayed from a CUDA graph); "eager_ms" is per call launched from
+    Python one after another, host dispatch included."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(2)
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
+    bf = torch.bfloat16
+    timings = {}
+
+    def both(fn, reps):
+        return graph_ms(fn, reps), cuda_ms(fn, reps=reps)
+
+    def scalar(q, k, v, **kw):
+        return fa._launch(q, k, v, causal=True, sm_scale=None, window=None,
+                          kv_lens=kw.get("kv_lens"), variant="scalar")
+
+    for b, s in [(1, s) for s in PREFILL_S] + [(LM_SLOTS, PREFILL_S[-1])]:
+        q = torch.randn((b, h, s, d), generator=g, device=dev).to(bf)
+        k = torch.randn((b, hkv, s, d), generator=g, device=dev).to(bf)
+        v = torch.randn((b, hkv, s, d), generator=g, device=dev).to(bf)
+        t = {"variant": fa.select_variant(q, k, v, None, None)}
+        t["ms"], t["eager_ms"] = both(lambda: fa.flash_attention(q, k, v), 50)
+        t["scalar_ms"], t["scalar_eager_ms"] = both(lambda: scalar(q, k, v), 10)
+        t["plain_ms"], t["plain_eager_ms"] = both(lambda: ref.flash_attention_ref(q, k, v),
+                                                  3 if b > 1 else 10)
+        t["sdpa"] = sdpa_times(q, k, v, reps=50)
+        t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
+        t["bound_ms"], t["bound_by"] = attn_bound_ms(
+            2 * (2 * b * h * s * d) + 2 * (2 * b * hkv * s * d), 4 * b * h * d * s * (s + 1) / 2)
+        timings[f"prefill_{s}" if b == 1 else f"prefill_{b}x{s}"] = t
+    lens = torch.from_numpy(lens_np).to(dev)
+    q = torch.randn((LM_SLOTS, h, 1, d), generator=g, device=dev).to(bf)
+    ck = torch.randn((LM_SLOTS, LM_MAX_SEQ, hkv, d), generator=g, device=dev)
+    cv = torch.randn((LM_SLOTS, LM_MAX_SEQ, hkv, d), generator=g, device=dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    kb, vb = kt.to(bf).contiguous(), vt.to(bf).contiguous()
+    dmask = (torch.arange(LM_MAX_SEQ, device=dev)[None] < lens[:, None])[:, None, None]
+    t = {"variant": fa.select_variant(q, kt, vt, lens, None),
+         "splits": list(fa.split_plan(LM_SLOTS, hkv, LM_MAX_SEQ))}
+    t["ms"], t["eager_ms"] = both(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens), 100)
+    t["scalar_ms"], t["scalar_eager_ms"] = both(lambda: scalar(q, kt, vt, kv_lens=lens), 100)
+    t["plain_ms"], t["plain_eager_ms"] = both(
+        lambda: ref.flash_attention_ref(q, kt, vt, kv_lens=lens), 20)
+    t["sdpa"] = sdpa_times(q, kb, vb, reps=100, mask=dmask)
+    t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
+    keys = int(lens_np.sum())
+    t["bound_ms"], t["bound_by"] = attn_bound_ms(keys * hkv * d * 2 * 4 + 2 * (
+        2 * LM_SLOTS * h * d) + 4 * LM_SLOTS, 4 * h * d * keys)
+    t["kv_lens"] = lens_np.tolist()
+    timings["decode"] = t
+
+    def f(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    for name, t in timings.items():
+        sdpa = ", ".join(f"{n} refused" if x is None else
+                         f"{n} {f(x['ms'])} ({f(x['eager_ms'])} eager)"
+                         for n, x in t["sdpa"].items())
+        print(f"flash_attention {name} (ms per call on the device; eager in brackets): "
+              f"{t['variant']} {f(t['ms'])} ({f(t['eager_ms'])}), scalar "
+              f"{f(t['scalar_ms'])} ({f(t['scalar_eager_ms'])}), plain {f(t['plain_ms'])} "
+              f"({f(t['plain_eager_ms'])}), bound {t['bound_ms']:.5f} ({t['bound_by']}); "
+              f"SDPA{' on a bf16 copy of the cache' if name == 'decode' else ''}: {sdpa}; "
+              f"{smi}", flush=True)
+    return timings
 
 
 def _replay(lm, params, cfg, reqs, dev):
@@ -700,16 +874,20 @@ def lm_serving_path(dev, smi: str) -> dict:
     engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
     torch.cuda.synchronize()
 
-    # attribute each launch of kernel 5 to prefill or decode; keep the
-    # per-slot depths of every decode step
+    # attribute each launch of kernel 5 (and of each of its variants) to
+    # prefill or decode; keep the per-slot depths of every decode step
     counts = {"prefill": 0, "decode": 0}
+    variants = {phase: dict.fromkeys(fa.VARIANTS, 0) for phase in counts}
     depths = []
 
     def counted(phase, fn):
         def wrapped(*args):
             before = fa.LAUNCHES["flash_attention"]
+            before_v = dict(fa.VARIANT_LAUNCHES)
             out = fn(*args)
             counts[phase] += fa.LAUNCHES["flash_attention"] - before
+            for name in fa.VARIANTS:
+                variants[phase][name] += fa.VARIANT_LAUNCHES[name] - before_v[name]
             if phase == "decode":
                 depths.append(np.array(args[2], np.int32))
             return out
@@ -721,6 +899,8 @@ def lm_serving_path(dev, smi: str) -> dict:
     for mode in ("run", "run_lockstep"):
         engine.stats = {k: type(v)() for k, v in engine.stats.items()}
         counts.update(prefill=0, decode=0)
+        for phase in variants:
+            variants[phase] = dict.fromkeys(fa.VARIANTS, 0)
         depths.clear()
         fa.reset_launches()
         reqs = lm_workload(cfg.vocab_size, LM_REQUESTS, prompt_lens=LM_PROMPTS,
@@ -740,17 +920,24 @@ def lm_serving_path(dev, smi: str) -> dict:
               f"({st['prefill_tokens']} tokens, {st['prefill_seconds']:.3f} s); latency "
               f"p50 {pct['p50']:.4f} s p99 {pct['p99']:.4f} s mean {pct['mean']:.4f} s; "
               f"slot utilisation {engine.slot_utilization:.4f}; flash_attention launches "
-              f"prefill {counts['prefill']} decode {counts['decode']}", flush=True)
+              f"prefill {counts['prefill']} {variants['prefill']} decode {counts['decode']} "
+              f"{variants['decode']}", flush=True)
         require(fa.LAUNCHES["flash_attention"] == counts["prefill"] + counts["decode"],
                 f"every flash_attention launch of {mode} is in prefill or decode")
         require(counts["prefill"] > 0 and counts["decode"] > 0,
                 f"flash_attention launched in prefill and in decode ({mode})")
+        require(variants["prefill"]["prefill_wgmma"] == counts["prefill"],
+                f"every prefill launch of {mode} ran prefill_wgmma ({variants['prefill']})")
+        require(variants["decode"]["decode_splitkv"] == counts["decode"],
+                f"every decode launch of {mode} ran decode_splitkv ({variants['decode']})")
         require(len(done) == LM_REQUESTS and all(
             r.output is not None and len(r.output) == r.max_new_tokens
             and 0 <= r.output.min() and r.output.max() < cfg.vocab_size for r in done),
             f"{mode}: every request returned with max_new_tokens tokens in the vocab")
         order = {id(r): i for i, r in enumerate(reqs)}
-        runs[mode] = (sorted(done, key=lambda r: order[id(r)]), dict(counts), list(depths))
+        runs[mode] = (sorted(done, key=lambda r: order[id(r)]),
+                      {**counts, "variants": {ph: dict(c) for ph, c in variants.items()}},
+                      list(depths))
 
     by_mode = [np.concatenate([r.output for r in runs[m][0]]) for m in runs]
     print(f"run vs run_lockstep: {np.mean(by_mode[0] == by_mode[1]):.4f} of "
@@ -785,45 +972,10 @@ def lm_serving_path(dev, smi: str) -> dict:
                                f"attention (max abs diff {err:.4f} <= {LOGIT_ATOL})")
     del kernel_replay, plain_replay
 
-    # kernel 5 at the main path's shapes: prefill (one request) and the
-    # decode step at the median of the continuous-batching run
-    g = torch.Generator(device=dev).manual_seed(2)
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
-    timings = {}
-    for s in PREFILL_S:
-        q = torch.randn((1, h, s, d), generator=g, device=dev).to(torch.bfloat16)
-        k = torch.randn((1, hkv, s, d), generator=g, device=dev).to(torch.bfloat16)
-        v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(torch.bfloat16)
-        mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
-        t = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
-             "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5),
-             "library_ms": sdpa_ms(q, k, v, mask, reps=20)}
-        t["bound_ms"], t["bound_by"] = attn_bound_ms(
-            2 * (2 * h * s * d) + 2 * (2 * hkv * s * d), 4 * h * d * s * (s + 1) / 2)
-        timings[f"prefill_{s}"] = t
+    # kernel 5 at the main path's shapes: prefill and the decode step at the
+    # median depths of the continuous-batching run
     run_depths = runs["run"][2]
-    lens_np = run_depths[len(run_depths) // 2] + 1
-    lens = torch.from_numpy(lens_np).to(dev)
-    q = torch.randn((LM_SLOTS, h, 1, d), generator=g, device=dev).to(torch.bfloat16)
-    ck = torch.randn((LM_SLOTS, LM_MAX_SEQ, hkv, d), generator=g, device=dev)
-    cv = torch.randn((LM_SLOTS, LM_MAX_SEQ, hkv, d), generator=g, device=dev)
-    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-    kb, vb = kt.to(torch.bfloat16).contiguous(), vt.to(torch.bfloat16).contiguous()
-    dmask = (torch.arange(LM_MAX_SEQ, device=dev)[None] < lens[:, None])[:, None, None]
-    t = {"ms": cuda_ms(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens), reps=50),
-         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, kt, vt, kv_lens=lens),
-                             reps=20),
-         "library_ms": sdpa_ms(q, kb, vb, dmask, reps=50)}
-    keys = int(lens_np.sum())
-    t["bound_ms"], t["bound_by"] = attn_bound_ms(keys * hkv * d * 2 * 4 + 2 * (
-        2 * LM_SLOTS * h * d) + 4 * LM_SLOTS, 4 * h * d * keys)
-    t["kv_lens"] = lens_np.tolist()
-    timings["decode"] = t
-    for name, t in timings.items():
-        lib = "not measured" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"flash_attention {name}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, SDPA {lib}"
-              f"{' on a bf16 copy of the cache' if name == 'decode' else ''}; {smi}")
+    timings = attention_timings(dev, cfg, run_depths[len(run_depths) // 2] + 1, smi)
     # where a serving step's time goes: decode at the first chunk's depths
     chunk = served[:LM_SLOTS]
     plen = max(len(r.prompt) for r in chunk)
@@ -836,14 +988,30 @@ def lm_serving_path(dev, smi: str) -> dict:
     del cache
 
     launches = {m: c for m, (_, c, _) in runs.items()}
+    by_variant = {name: sum(c["variants"][ph][name] for c in launches.values()
+                            for ph in c["variants"]) for name in fa.VARIANTS}
     main = timings[f"prefill_{PREFILL_S[-1]}"]
+    dec = timings["decode"]
+    keep = ("ms", "eager_ms", "scalar_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_backend")
+    h, d = cfg.num_heads, cfg.hdim
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:105",
             "launches": sum(c["prefill"] + c["decode"] for c in launches.values()),
             "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shape": [1, h, PREFILL_S[-1], d],
+            "library_ms": main["library_ms"], "library_backend": main["library_backend"],
+            "shape": [1, h, PREFILL_S[-1], d],
+            "variants": {
+                "prefill_wgmma": {"launches": by_variant["prefill_wgmma"],
+                                  **{k: main[k] for k in keep},
+                                  "shape": [1, h, PREFILL_S[-1], d]},
+                "decode_splitkv": {"launches": by_variant["decode_splitkv"],
+                                   **{k: dec[k] for k in keep},
+                                   "shape": [LM_SLOTS, h, 1, d],
+                                   "kv_lens": dec["kv_lens"]},
+                "scalar": {"launches": by_variant["scalar"]}},
             "launches_by_run": launches, "timings": timings,
             "logit_max_abs_diff": err, "greedy_agreement": agree / n}
 

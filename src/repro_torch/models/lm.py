@@ -219,8 +219,15 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
             p0 = int(cache_pos)
             ck[:, p0:p0 + s] = k.to(ck.dtype)
             cv[:, p0:p0 + s] = v.to(cv.dtype)
-            # queries end-aligned with the p0 + s keys written so far
-            y = attention(q, ck[:, :p0 + s], cv[:, :p0 + s], causal=causal, window=window)
+            # queries end-aligned with the p0 + s keys written so far.  From
+            # p0 = 0 those keys are exactly the fresh k, v whenever the cache
+            # holds k's dtype without loss (bf16 k in the f32 cache): attend
+            # to them, the same values in k's own dtype and half the bytes.
+            if p0 == 0 and torch.promote_types(k.dtype, ck.dtype) == ck.dtype:
+                y = attention(q, k, v, causal=causal, window=window)
+            else:
+                y = attention(q, ck[:, :p0 + s], cv[:, :p0 + s], causal=causal,
+                              window=window)
         else:
             # per-slot depths (continuous batching): row b writes at
             # cache_pos[b] and sees its first cache_pos[b] + s keys

@@ -172,3 +172,155 @@ def test_card_tensors_go_to_the_kernel_never_to_plain_code(monkeypatch):
     monkeypatch.setattr(fa, "flash_attention", broken)
     with pytest.raises(RuntimeError, match="launch failed"):
         ops.flash_attention(x, x, x)
+
+
+# --- choosing the kernel: select_variant, the split plan, the launch ------------
+
+def _t(shape, dtype, *, pad=0, offset=0):
+    """A tensor of ``shape`` whose rows (last dim) are padded by ``pad``
+    elements and whose base pointer is ``offset`` elements past an aligned
+    allocation."""
+    *lead, d = shape
+    n = int(np.prod(lead)) * (d + pad) + offset
+    base = torch.zeros(n, dtype=getattr(torch, dtype))[offset:]
+    return base.view(*lead, d + pad)[..., :d]
+
+
+def _qkv(b, hq, hkv, sq, sk, d, qdt="bfloat16", kvdt=None, **kw):
+    kvdt = kvdt or qdt
+    return (_t((b, hq, sq, d), qdt, **kw), _t((b, hkv, sk, d), kvdt, **kw),
+            _t((b, hkv, sk, d), kvdt, **kw))
+
+
+LENS = torch.ones(2, dtype=torch.int32)
+
+VARIANT_TABLE = [
+    # (b, hq, hkv, sq, sk, d, q dtype, kv dtype, kv_lens, window, layout kw), variant
+    ((1, 16, 8, 1024, 1024, 128, "bfloat16", None, None, None, {}), "prefill_wgmma"),
+    ((2, 4, 2, 80, 80, 64, "bfloat16", None, None, 48, {}), "prefill_wgmma"),
+    ((1, 4, 2, 9, 40, 128, "bfloat16", None, None, None, {}), "prefill_wgmma"),
+    ((1, 4, 2, 64, 64, 32, "bfloat16", None, None, None, {}), "scalar"),
+    ((1, 2, 2, 80, 80, 24, "bfloat16", None, None, None, {}), "scalar"),
+    ((1, 4, 2, 64, 64, 128, "float32", None, None, None, {}), "scalar"),
+    ((2, 2, 1, 128, 128, 32, "float32", None, None, 48, {}), "scalar"),
+    ((1, 4, 2, 64, 64, 128, "bfloat16", "float32", None, None, {}), "scalar"),
+    ((2, 4, 2, 16, 64, 128, "bfloat16", None, LENS, None, {}), "scalar"),
+    ((1, 4, 2, 64, 64, 128, "bfloat16", None, None, None, {"pad": 4}), "scalar"),
+    ((1, 4, 2, 64, 64, 128, "bfloat16", None, None, None, {"offset": 1}), "scalar"),
+    ((2, 16, 8, 1, 1088, 128, "bfloat16", "float32", LENS, None, {}), "decode_splitkv"),
+    ((1, 8, 2, 1, 128, 64, "float32", None, None, None, {}), "decode_splitkv"),
+    ((2, 4, 2, 3, 40, 32, "float32", None, LENS, 9, {}), "decode_splitkv"),
+    ((2, 64, 8, 8, 300, 128, "bfloat16", "float32", LENS, None, {}), "decode_splitkv"),
+    ((2, 8, 8, 1, 129, 128, "bfloat16", "bfloat16", LENS, None, {}), "decode_splitkv"),
+    ((1, 8, 2, 1, 40, 24, "float32", None, None, None, {}), "decode_splitkv"),
+    ((1, 8, 2, 1, 40, 20, "bfloat16", None, None, None, {}), "scalar"),
+    ((2, 128, 8, 8, 64, 128, "bfloat16", "float32", LENS, None, {}), "scalar"),
+    ((1, 8, 2, 1, 64, 128, "bfloat16", "float32", None, None, {"pad": 2}), "scalar"),
+    ((1, 8, 2, 1, 64, 128, "bfloat16", "float32", None, None, {"offset": 2}), "scalar"),
+] + [((2, 16, 8, sq, 64, 128, "bfloat16", "float32", lens, None, {}), "decode_splitkv")
+     for sq in range(1, 9) for lens in (None, LENS)]
+
+
+@pytest.mark.parametrize("case,want", VARIANT_TABLE, ids=lambda c: (
+    "x".join(map(str, c[:6])) + f"-{c[6]}-{c[7]}-lens{c[8] is not None}-w{c[9]}-"
+    + "".join(f"{k}{v}" for k, v in c[10].items())) if isinstance(c, tuple) else c)
+def test_select_variant_is_a_rule_on_dtypes_shapes_strides_alignment(case, want):
+    b, hq, hkv, sq, sk, d, qdt, kvdt, lens, window, kw = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, qdt, kvdt, **kw)
+    assert fa.select_variant(q, k, v, lens, window) == want
+    # pure: the same answer again, and the inputs untouched
+    assert fa.select_variant(q, k, v, lens, window) == want
+    assert not q.any() and not k.any()
+
+
+@pytest.mark.parametrize("b,hkv", [(1, 1), (8, 8), (1, 8), (64, 8)])
+@pytest.mark.parametrize("sk", [1, 127, 128, 129, 1088])
+def test_split_plan_and_scratch_cover_every_key(b, hkv, sk):
+    splits, keys = fa.split_plan(b, hkv, sk)
+    assert keys in fa.SPLIT_KEYS and keys % fa.DECODE_TILE == 0
+    assert splits * keys >= sk and (splits - 1) * keys < max(sk, 1)
+    # as many CTAs as the card has SM pairs, unless even the shortest split
+    # cannot give them
+    assert b * hkv * splits >= fa.MIN_CTAS or keys == fa.SPLIT_KEYS[-1]
+    if (b, hkv, sk) == (8, 8, 1088):
+        assert (splits, keys) == (9, 128)          # 576 CTAs at the serving shape
+    ml, acc = fa.decode_scratch_shapes(b, 2 * hkv, 3, 64, splits)
+    assert ml == (2, b, 2 * hkv, 3, splits) and acc == (b, 2 * hkv, 3, splits, 64)
+
+
+class _FakeLib:
+    """Stands in for the built library: records each call's arguments."""
+
+    def __init__(self, ret=0):
+        self.ret, self.calls = ret, []
+
+    def flash_attention_launch(self, *args):
+        self.calls.append(args)
+        return self.ret
+
+
+def _fake(monkeypatch, ret=0):
+    lib = _FakeLib(ret)
+    monkeypatch.setattr(fa, "build", lambda: {"flash_attention": lib})
+    monkeypatch.setattr(fa, "_require_card", lambda *a: None)
+    monkeypatch.setattr(fa, "_current_stream", lambda dev: 0)
+    return lib
+
+
+# argument positions of flash_attention_launch
+_SQ, _VARIANT, _ML, _ACC, _SPLITS, _SPLIT_KEYS = 8, 17, 18, 19, 20, 21
+
+
+@pytest.mark.parametrize("case,want", [VARIANT_TABLE[0], VARIANT_TABLE[3],
+                                       VARIANT_TABLE[11], VARIANT_TABLE[13]],
+                         ids=["prefill", "scalar", "decode", "decode-sq3"])
+def test_wrapper_passes_the_chosen_variant_and_its_scratch(monkeypatch, case, want):
+    b, hq, hkv, sq, sk, d, qdt, kvdt, lens, window, kw = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, qdt, kvdt, **kw)
+    lib = _fake(monkeypatch)
+    shapes = []
+    real = fa.decode_scratch_shapes
+    monkeypatch.setattr(fa, "decode_scratch_shapes",
+                        lambda *a: shapes.append(real(*a)) or shapes[-1])
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, window=window, kv_lens=lens)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.transpose(1, 2).is_contiguous()
+    (args,) = lib.calls
+    assert args[_VARIANT] == fa._VARIANT_CODE[want] and args[_SQ] == sq
+    if want == "decode_splitkv":
+        splits, keys = fa.split_plan(b, hkv, sk)
+        assert (args[_SPLITS], args[_SPLIT_KEYS]) == (splits, keys)
+        assert shapes == [((2, b, hq, sq, splits), (b, hq, sq, splits, d))]
+        assert args[_ML] and args[_ACC] and args[_ML] != args[_ACC]
+    else:
+        assert args[_ML] is None and args[_ACC] is None and not shapes
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.VARIANT_LAUNCHES == {v_: int(v_ == want) for v_ in fa.VARIANTS}
+
+
+def test_wrapper_raises_on_a_failed_launch_and_counts_nothing(monkeypatch):
+    q, k, v = _qkv(1, 16, 8, 1024, 1024, 128)
+    lib = _fake(monkeypatch, ret=1)
+    fa.reset_launches()
+    with pytest.raises(RuntimeError, match=r"prefill_wgmma\) launch failed with CUDA error 1"):
+        fa.flash_attention(q, k, v)
+    assert len(lib.calls) == 1 and fa.LAUNCHES["flash_attention"] == 0
+    assert not any(fa.VARIANT_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("variant", ["prefill_wgmma", "decode_splitkv", "flash"])
+def test_a_variant_whose_preconditions_fail_raises(monkeypatch, variant):
+    """f32 q with 64 head dims and 16 rows of 68 elements per KV head (not
+    16-byte aligned in bf16): neither new kernel takes it, and naming one
+    raises before anything is launched."""
+    q, k, v = _qkv(1, 128, 1, 16, 64, 64, "float32", "bfloat16", pad=2)
+    lib = _fake(monkeypatch)
+    assert fa.select_variant(q, k, v, None, None) == "scalar"
+    with pytest.raises(ValueError, match="does not take|must be one of"):
+        fa._launch(q, k, v, causal=True, sm_scale=None, window=None, kv_lens=None,
+                   variant=variant)
+    assert not lib.calls
+    fa._launch(q, k, v, causal=True, sm_scale=None, window=None, kv_lens=None,
+               variant="scalar")
+    assert lib.calls[0][_VARIANT] == 0

@@ -217,6 +217,52 @@ def test_bf16_cache_prefill_matches_reference():
     np.testing.assert_allclose(_np(cache["k"]), _np(jcache["k"]), atol=1e-2)
 
 
+@pytest.mark.parametrize("param_dtype,cache_dtype,fresh", [
+    ("bfloat16", torch.float32, True),     # the serving engine's prefill
+    ("bfloat16", torch.bfloat16, True),
+    ("float32", torch.float32, True),
+    ("float32", torch.bfloat16, False),    # f32 k rounded by a bf16 cache
+])
+def test_attn_block_at_position_0_attends_to_the_fresh_kv(monkeypatch, param_dtype,
+                                                          cache_dtype, fresh):
+    """From cache_pos 0 attention gets the fresh k, v (in k's dtype) where
+    the cache holds them without loss: bit for bit the cache views' values,
+    and the same output.  Elsewhere, and at any other position, it reads the
+    cache views."""
+    cfg = dataclasses.replace(reduced_config("internlm2-1.8b"), param_dtype=param_dtype)
+    params = lm.init_lm(0, cfg, device="cpu")
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    b, s, dt = 2, 5, getattr(torch, param_dtype)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)).to(dt)
+    positions = torch.arange(s, dtype=torch.int32).expand(b, s)
+    shape = (b, MAX_SEQ, cfg.num_kv_heads, cfg.hdim)
+    ck, cv = torch.zeros(shape, dtype=cache_dtype), torch.zeros(shape, dtype=cache_dtype)
+    real, seen = lm.attention, []
+
+    def spy(q, k, v, **kw):
+        seen.append((k, v))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(lm, "attention", spy)
+    y, _ = lm.attn_block(lp, x, cfg, positions, kv_cache=(ck, cv), cache_pos=0)
+    k, v = seen[-1]
+    assert (k.data_ptr() != ck.data_ptr()) == fresh and k.shape == (b, s) + shape[2:]
+    if fresh:
+        assert k.dtype == dt and v.dtype == dt
+    for got, cache in ((k, ck), (v, cv)):
+        assert torch.equal(got.to(dt), cache[:, :s].to(dt))
+    # the output is the one attention over the cache views gives
+    monkeypatch.setattr(lm, "attention", lambda q, k, v, **kw: real(
+        q, ck[:, :k.shape[1]], cv[:, :v.shape[1]], **kw))
+    y_views, _ = lm.attn_block(lp, x, cfg, positions, kv_cache=(ck, cv), cache_pos=0)
+    assert torch.equal(y, y_views)
+    monkeypatch.setattr(lm, "attention", spy)
+    lm.attn_block(lp, x, cfg, positions + s, kv_cache=(ck, cv), cache_pos=s)
+    k, v = seen[-1]
+    assert k.data_ptr() == ck.data_ptr() and k.shape[1] == 2 * s
+
+
 @pytest.mark.parametrize("name", NOT_DENSE)
 def test_other_families_raise_naming_the_roadmap(name):
     cfg = reduced_config(name)
