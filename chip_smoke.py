@@ -2,13 +2,17 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --codec [--baseline CSRC ...]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc`` under ``$CUDA_HOME`` or on
 ``PATH``) and this checkout's ``src/``.  It builds the five kernels (the
 four ZFP kernels, fixed-accuracy and fixed-rate encode and decode, and flash
 attention) from ``src/repro_torch/csrc`` into ``build/``, all ``nvcc``
 processes started together, holds each ZFP kernel against its plain PyTorch
-version (run on the CPU) bit for bit and each of the attention kernel's
+version bit for bit (on the CPU: the main path's data, the F1 blocks, block
+counts around a warp's and a CTA's blocks, every fixed-rate width, a set
+of blocks that needs each of 0..6 correction passes; on the card: the whole
+store at per-sample tolerances) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
 tolerance, asserting which variant ran, then runs three paths at full
@@ -39,6 +43,12 @@ bounds and the library yardstick; kernel 5 also per variant), and as its
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line.  Precision: float32 with TF32 off; the LM runs in bf16.
+
+With ``--codec`` it builds, checks and times only the four ZFP kernels
+(each with its registers and spills from ``ptxas``) and ends with a
+``{"codec": ...}`` line; each ``--baseline`` names another checkout's
+``csrc`` directory whose ZFP kernels are built too and timed in turns with
+these (before and after a change, in one run on one card).
 """
 from __future__ import annotations
 
@@ -80,6 +90,9 @@ HOST_STEPS = 30
 FR_BITS = 12
 FR_CHECK_BITS = (1, 2, 7, 12, 13, 16, 29, 30)
 SHARD_SIZE = 32
+# block counts of the lane kernels' edge checks: one and two blocks, a warp's
+# worth plus one, and counts that leave a CTA (16 blocks) partly filled
+CHECK_NB = (1, 2, 3, 31, 33, 4103)
 WORKSPACE_MBS = 145.65
 # LM serving path: internlm2-1.8b at full width (configs/registry.py), 16
 # requests of the seeded mixed workload, 8 slots, max_seq 1088 (the longest
@@ -146,21 +159,26 @@ def bound_ms(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# Operations per 4x4 block, counted from the CUDA sources: unpack is 8 per
-# lane per word; a 4-point lift 16; negabinary 2 per lane; dequantize 3 per
-# lane; the error check 3 per lane; the pack 8 per lane per word.
+# Operations per 4x4 block: the function's work, not an implementation's
+# (the lane-parallel kernels repeat each lift on four lanes and add
+# shuffles; those are not counted).  Unpack: 8 per lane per word in kernel
+# 1's scalar loop, 6 in the lane kernels (two shift-and-shift-or triples); a
+# 4-point lift 16; negabinary 2 per lane; dequantize 3 per lane; an error
+# check 3 per lane; the pack 2 per lane per plane.
 def decode_ops(nb: int, words: int) -> float:
     return nb * (128 * words + 17 + 32 + 8 * 16 + 48)
 
 
-def encode_ops(nb: int) -> float:
+def encode_ops(nb: int, checks: int) -> float:
+    """Kernel 2 for ``checks`` error checks over ``nb`` blocks (the early
+    exit's count for the data at hand)."""
     front = 16 + 32 + 5 + 64 + 8 * 16 + 32 + 16 + 5
-    per_pass = 16 + 32 + 8 * 16 + 48 + 48 + 3
-    return nb * (front + 6 * per_pass + 8 * 16 * 15)
+    per_check = 16 + 32 + 8 * 16 + 48 + 48 + 3
+    return nb * (front + 2 * 16 * 30) + checks * per_check
 
 
 def fr_decode_ops(nb: int, words: int) -> float:
-    return nb * (128 * words + 32 + 8 * 16 + 48)
+    return nb * (96 * words + 32 + 8 * 16 + 48)
 
 
 def fr_encode_ops(nb: int, words: int) -> float:
@@ -176,6 +194,118 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
+
+
+def ptxas_table(logs: dict) -> list:
+    """(source, kernel, registers, spill stores, spill loads) per kernel
+    entry, from ``nvcc -Xptxas -v`` output."""
+    import re
+    rows = []
+    for key, log in logs.items():
+        name, spills = None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name is not None:
+                rows.append((key, name, int(m.group(1)), *spills))
+                name, spills = None, (0, 0)
+    return rows
+
+
+def print_ptxas(logs: dict, what: str) -> None:
+    import re
+    for key, name, regs, st, ld in ptxas_table(logs):
+        m = re.search(r"\d([a-z]+_[a-z]+_kernel)(?:ILi(\d+)E)?", name)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        print(f"  {what} {key}: {name[:60]}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+
+
+def pass_count_set(rng) -> tuple:
+    """Blocks and tolerances that need each of 0..6 correction passes of the
+    fixed-accuracy encode (the CPU tests build the same kind of set).  A
+    positive normal tolerance leaves at most two passes after the guess,
+    except for blocks below 2^-120 (coded as zero, error never falls: six);
+    a tolerance of -1 is never met, so a block at emax 28 - 2k climbs from
+    30 - 2k planes to 30 in exactly k passes.  Also blocks that start at 30
+    planes, zero and subnormal blocks, and the F1 blocks."""
+    rows, tols = [], []
+    for k in range(7):
+        emax = 28 - 2 * k if k < 6 else 10
+        v = rng.uniform(-1, 1, 16) * 2.0 ** (emax - 1)
+        v[0] = 0.75 * 2.0 ** emax
+        rows.append(v)
+        tols.append(-1.0)
+    for scale, tol in ((1.0, 1e-3), (1e-2, 1e-5), (1e3, 1e-1)):
+        rows += list(rng.standard_normal((24, 16)) * scale)
+        tols += [tol] * 24
+    tiny = rng.uniform(-1, 1, 16) * 2.0 ** -121
+    rows += [tiny, tiny, rng.standard_normal(16), np.zeros(16), np.zeros(16),
+             np.full(16, 1e-40)]
+    tols += [2.0 ** -126, 1e-30, 2.0 ** -126, 1e-3, -1.0, 1e-3]
+    for em in range(-119, -98):
+        rows.append(rng.uniform(-1, 1, 16) * 2.0 ** (em - 1))
+        tols.append(2.0 ** -126)
+    return (torch.from_numpy(np.stack(rows).astype(np.float32)),
+            torch.tensor(tols, dtype=torch.float32))
+
+
+def count_passes(blocks: torch.Tensor, tols: torch.Tensor, log2tols: torch.Tensor):
+    """Per block, the correction passes that add planes (0..6) and the error
+    checks the encode needs when each block stops at its first settled pass
+    (plain PyTorch on the blocks' device)."""
+    from repro_torch.compression import transform as T
+    x, tol = T.flush_denormals(blocks), T.flush_denormals(tols)
+    emax = T.block_emax(x)
+    u_full = T.int2nb(T.fwd_transform_2d(T.quantize_blocks(x, emax)))
+    npl = torch.clamp(emax - log2tols + 2, 0, T.TOTAL_PLANES).to(torch.int32)
+    npl = torch.where((u_full == 0).all(-1), torch.zeros_like(npl), npl)
+    passes, checks = torch.zeros_like(npl), torch.zeros_like(npl)
+    live = npl < T.TOTAL_PLANES
+    for _ in range(6):
+        checks += live.to(torch.int32)
+        dec = T.inv_transform_2d(T.nb2int(T.truncate_planes(u_full, npl)))
+        bad = live & (T.dequantize_minus(dec, emax, x).abs().amax(-1) > tol)
+        npl = torch.where(bad, torch.clamp(npl + 2, max=T.TOTAL_PLANES), npl)
+        passes += bad.to(torch.int32)
+        live = bad & (npl < T.TOTAL_PLANES)
+    return passes, checks
+
+
+def build_baseline(csrc: str, i: int = 0):
+    """The ZFP kernels of another checkout's ``csrc`` directory (the parent
+    commit's, to time before and after in one run), built with this
+    checkout's flags into ``build/``; returns (libraries, nvcc logs)."""
+    from repro_torch.kernels import nvcc_build, zfp_codec
+    csrc = Path(csrc).resolve()
+    logs = {}
+    libs = nvcc_build.compile_and_load(
+        f"zfp_codec_baseline{i}", zfp_codec.SOURCES,
+        tuple(sorted(p.name for p in csrc.glob("*.cuh"))), zfp_codec.NVCC_FLAGS, logs, csrc)
+    return zfp_codec.bind(libs), logs
+
+
+def before_after(call, args, reps: int, baseline: dict) -> dict:
+    """Times of ``call(*args)`` on this checkout's kernels ("new") and on
+    each baseline's ({csrc: libraries}), in turns (baselines, new, new,
+    baselines in reverse) so all see the same card state; each entry lists
+    its runs, each {"ms": per call with CUDA events around back-to-back
+    launches from Python, "graph_ms": per call replayed from a CUDA graph}."""
+    from repro_torch.kernels import zfp_codec
+    libs = {"new": zfp_codec.build(), **baseline}
+    order = [*baseline, "new", "new", *reversed(list(baseline))] if baseline else ["new"]
+    out = {who: [] for who in libs}
+    for who in order:
+        with mock.patch.dict(zfp_codec._libs, libs[who]):
+            out[who].append({"ms": cuda_ms(lambda: call(*args), reps=reps),
+                             "graph_ms": graph_ms(lambda: call(*args), reps)})
+    return out
 
 
 def gpu_line() -> str:
@@ -271,14 +401,23 @@ def profile_serving(engine, lm, cache, cur, pos, steps: int = 10) -> None:
     print_profile(prof, wall_ms, 1, "prefill")
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port's main paths on one card.")
+    ap.add_argument("--codec", action="store_true",
+                    help="only build the ZFP kernels, check them and time them")
+    ap.add_argument("--baseline", metavar="CSRC", action="append", default=[],
+                    help="with --codec: also time the ZFP kernels built from this "
+                         "csrc directory (another checkout's), in turns with these; "
+                         "may be given more than once")
+    args = ap.parse_args(argv)
+    codec_only = args.codec
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.compression import floor_log2, transform as T
     from repro_torch.data import DeviceResidentCompressedStore, channels_last
-    from repro_torch.kernels import flash_attention, ref, zfp_codec
+    from repro_torch.kernels import flash_attention, zfp_codec
     from repro_torch.models.surrogate import SurrogateConfig
     from repro_torch.sim.synthetic import synthetic_study
     from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
@@ -303,8 +442,20 @@ def main() -> int:
         except Exception as e:          # re-raised below, on the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=build, args=(m,)) for m in (zfp_codec,
-                                                                   flash_attention)]
+    baseline, baseline_logs = {}, {}
+
+    def build_base(i, csrc):
+        try:
+            baseline[csrc], logs = build_baseline(csrc, i)
+            baseline_logs.update({f"{csrc}: {k}": v for k, v in logs.items()})
+        except Exception as e:
+            errors.append(e)
+
+    jobs = [lambda: build(zfp_codec)]
+    if not codec_only:
+        jobs.append(lambda: build(flash_attention))
+    jobs += [lambda i=i, c=c: build_base(i, c) for i, c in enumerate(args.baseline)]
+    threads = [threading.Thread(target=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -312,7 +463,9 @@ def main() -> int:
     if errors:
         raise errors[0]
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for key, log in {**zfp_codec.BUILD_LOGS, **flash_attention.BUILD_LOGS}.items():
+    print_ptxas(zfp_codec.BUILD_LOGS, "this checkout's")
+    print_ptxas(baseline_logs, "baseline's")
+    for key, log in flash_attention.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {key}: {line.strip()}")
@@ -326,88 +479,13 @@ def main() -> int:
     del fields
     print(f"data: {samples.shape} float32, {samples.nbytes / 1e6:.1f} MB raw")
 
-    # -- 3. each kernel against its plain version on the CPU -------------------
-    rng = np.random.default_rng(0)
-    xs = torch.from_numpy(samples[:CHECK_SAMPLES])
-    main_blocks = T.blockify(T.pad_to_blocks(xs)).contiguous()
-    specials = [(rng.uniform(-1, 1, 16) * 2.0 ** (em - 1)) for em in range(-119, -98)]
-    sub = np.zeros(16)
-    sub[:3] = [2.0 ** -100, 2.0 ** -127, -3 * 2.0 ** -128]
-    specials += [sub, np.zeros(16), np.full(16, 1e-40)]
-    special_blocks = torch.from_numpy(np.stack(specials).astype(np.float32))
-    mixed_blocks = torch.cat([main_blocks[:16384], special_blocks]).contiguous()
-    cases = [
-        ("main-path data at tol 1e-3", main_blocks,
-         torch.full((main_blocks.shape[0],), TOLERANCE)),
-        ("F1 blocks, zero blocks, mixed tolerances", mixed_blocks,
-         torch.from_numpy((10.0 ** rng.uniform(-6, 0, mixed_blocks.shape[0]))
-                          .astype(np.float32))),
-        ("F1 blocks at tol 2^-126", special_blocks,
-         torch.full((special_blocks.shape[0],), 2.0 ** -126)),
-    ]
-    for what, blocks, tols in cases:
-        l2 = floor_log2(tols)
-        want = ref.zfp_encode_blocks_fa_ref(blocks, tols, l2)
-        got = zfp_codec.zfp_encode_blocks_fa(blocks.to(dev), tols.to(dev), l2.to(dev))
-        torch.cuda.synchronize()
-        got = [g.cpu() for g in got]
-        for name, g, w in zip(("payload", "emax", "nplanes"), got, want):
-            require(torch.equal(g, w), f"encode kernel == plain ({what}, "
-                                       f"{blocks.shape[0]} blocks): {name}")
-        dec_want = ref.zfp_decode_blocks_fa_ref(*want)
-        dec_got = zfp_codec.zfp_decode_blocks_fa(*(w.to(dev) for w in want)).cpu()
-        require(same_bits(dec_got, dec_want),
-                f"decode kernel == plain ({what}, 15 words)")
-        w_trim = max((int(want[2].max()) + 1) // 2, 1)
-        trimmed = want[0][:, :w_trim].contiguous()
-        dec_got = zfp_codec.zfp_decode_blocks_fa(trimmed.to(dev), want[1].to(dev),
-                                                 want[2].to(dev)).cpu()
-        require(same_bits(dec_got, dec_want),
-                f"decode kernel == plain ({what}, trimmed to {w_trim} words)")
-    deep = torch.cat([main_blocks[:4096], special_blocks]).contiguous()
-    deep_tols = torch.full((deep.shape[0],), 2.0 ** -126)
-    full_p, full_e, _ = ref.zfp_encode_blocks_fa_ref(deep, deep_tols,
-                                                     floor_log2(deep_tols))
-    npl = torch.arange(deep.shape[0], dtype=torch.int32) % 31
-    require(same_bits(zfp_codec.zfp_decode_blocks_fa(full_p.to(dev), full_e.to(dev),
-                                                     npl.to(dev)),
-                      ref.zfp_decode_blocks_fa_ref(full_p, full_e, npl)),
-            "decode kernel == plain (full-depth words, counts 0..30 mask planes)")
-
-    # fixed-rate kernels: every rate class on the main-path, F1 and zero blocks
-    fr_blocks = torch.cat([main_blocks, special_blocks]).contiguous()
-    fr_blocks_dev = fr_blocks.to(dev)
-    for bits in FR_CHECK_BITS:
-        want = ref.zfp_encode_blocks_ref(fr_blocks, bits)
-        got = zfp_codec.zfp_encode_blocks(fr_blocks_dev, bits)
-        for name, g, w in zip(("payload", "emax"), got, want):
-            require(same_bits(g, w), f"fixed-rate encode kernel == plain ({bits} bits, "
-                                     f"{fr_blocks.shape[0]} blocks): {name}")
-        require(same_bits(zfp_codec.zfp_decode_blocks(want[0].to(dev), want[1].to(dev),
-                                                      bits),
-                          ref.zfp_decode_blocks_ref(want[0], want[1], bits)),
-                f"fixed-rate decode kernel == plain ({bits} bits, "
-                f"{(bits + 1) // 2} words)")
-    # FA main-path streams at per-sample tolerances 1e-5..1e-1, padded to
-    # the widest sample's words and decoded without nplanes (the
-    # host-streaming stores' decode)
-    nb_s = main_blocks.shape[0] // CHECK_SAMPLES
-    sample_tols = torch.from_numpy(np.logspace(-5, -1, CHECK_SAMPLES).astype(np.float32))
-    block_tols = sample_tols.repeat_interleave(nb_s)
-    fa_p, fa_e, fa_n = ref.zfp_encode_blocks_fa_ref(main_blocks, block_tols,
-                                                    floor_log2(block_tols))
-    widths = [max((int(n.max()) + 1) // 2, 1) for n in fa_n.reshape(CHECK_SAMPLES, nb_s)]
-    wmax = max(widths)
-    padded = fa_p[:, :wmax].contiguous()
-    dec_want = ref.zfp_decode_blocks_fa_ref(fa_p, fa_e, fa_n)
-    require(same_bits(ref.zfp_decode_blocks_ref(padded, fa_e, 2 * wmax), dec_want),
-            f"plain fixed-rate decode of FA streams == FA decode ({wmax} words)")
-    require(same_bits(zfp_codec.zfp_decode_blocks(padded.to(dev), fa_e.to(dev), 2 * wmax),
-                      dec_want),
-            f"fixed-rate decode kernel of FA streams padded to {wmax} words (per-sample "
-            f"widths {min(widths)}..{wmax}) == plain FA decode")
-    del main_blocks, mixed_blocks, fr_blocks, fr_blocks_dev, padded
+    # -- 3. each codec kernel against its plain version --------------------------
+    codec_checks(dev, samples)
     print(f"kernel checks: {time.perf_counter() - t_start:.1f} s since start", flush=True)
+    if codec_only:
+        codec = codec_timings(dev, samples, *codec_batches(dev, samples), baseline)
+        print(json.dumps({"codec": codec, "card": smi}))
+        return 0
 
     # -- 4. device-resident path at full width -----------------------------------
     zfp_codec.reset_launches()
@@ -476,65 +554,15 @@ def main() -> int:
 
     # -- 7. times at the main-path shapes ----------------------------------------
     idx = torch.arange(BATCH, device=dev)
-    bp = store.payload[idx].reshape(-1, store.payload.shape[-1]).contiguous()
-    be = store.emax[idx].reshape(-1).contiguous()
-    bn = store.nplanes[idx].reshape(-1).contiguous()
-    nb_dec, words = bp.shape
-    dec_ms = cuda_ms(lambda: zfp_codec.zfp_decode_blocks_fa(bp, be, bn), reps=200)
-    dec_plain_ms = cuda_ms(lambda: ref.zfp_decode_blocks_fa_ref(bp, be, bn), reps=20)
-    dec_err = float((ref.zfp_decode_blocks_fa_ref(bp, be, bn)
-                     - zfp_codec.zfp_decode_blocks_fa(bp, be, bn)).abs().max())
-    require(dec_err == 0.0,
-            f"decode kernel == plain version on the card ({nb_dec} blocks)")
-    dec_bound, dec_by = bound_ms(nb_dec * (words * 4 + 8) + nb_dec * 64,
-                                 decode_ops(nb_dec, words))
-
-    # fixed-rate decode at the host-stream shape: one sharded batch
-    sp, se = (t.to(dev) for t in shard_batch)
-    nb_fr, fr_words = sp.shape
-    fr_dec_ms = cuda_ms(lambda: zfp_codec.zfp_decode_blocks(sp, se, 2 * fr_words),
-                        reps=200)
-    fr_dec_plain_ms = cuda_ms(lambda: ref.zfp_decode_blocks_ref(sp, se, 2 * fr_words),
-                              reps=20)
-    fr_dec_err = float((ref.zfp_decode_blocks_ref(sp, se, 2 * fr_words)
-                        - zfp_codec.zfp_decode_blocks(sp, se, 2 * fr_words)).abs().max())
-    require(fr_dec_err == 0.0, f"fixed-rate decode kernel == plain version on the "
-                               f"card ({nb_fr} blocks x {fr_words} words)")
-    fr_dec_bound, fr_dec_by = bound_ms(nb_fr * (fr_words * 4 + 4) + nb_fr * 64,
-                                       fr_decode_ops(nb_fr, fr_words))
-
-    xs = torch.from_numpy(samples).to(dev)
-    blocks = T.blockify(T.pad_to_blocks(xs)).contiguous()
-    del xs
-    nb_enc = blocks.shape[0]
-    tols = torch.full((nb_enc,), TOLERANCE, device=dev)
-    l2 = floor_log2(tols)
-    enc_ms = cuda_ms(lambda: zfp_codec.zfp_encode_blocks_fa(blocks, tols, l2), reps=5,
-                     warmup=1)
-    enc_plain_ms = cuda_ms(lambda: ref.zfp_encode_blocks_fa_ref(blocks, tols, l2),
-                           reps=2, warmup=1)
-    enc_err = max(float((a - b).abs().max()) for a, b in zip(
-        zfp_codec.zfp_encode_blocks_fa(blocks, tols, l2),
-        ref.zfp_encode_blocks_fa_ref(blocks, tols, l2)))
-    require(enc_err == 0.0,
-            f"encode kernel == plain version on the card ({nb_enc} blocks)")
-    enc_bound, enc_by = bound_ms(nb_enc * 72 + nb_enc * 68, encode_ops(nb_enc))
-
-    fr_enc_words = (FR_BITS + 1) // 2
-    fr_enc_ms = cuda_ms(lambda: zfp_codec.zfp_encode_blocks(blocks, FR_BITS), reps=10,
-                        warmup=1)
-    fr_enc_plain_ms = cuda_ms(lambda: ref.zfp_encode_blocks_ref(blocks, FR_BITS),
-                              reps=2, warmup=1)
-    got_fr = zfp_codec.zfp_encode_blocks(blocks, FR_BITS)
-    fr_enc_err = max(float((a - b).abs().max()) for a, b in zip(
-        got_fr, ref.zfp_encode_blocks_ref(blocks, FR_BITS)))
-    require(fr_enc_err == 0.0, f"fixed-rate encode kernel == plain version on the "
-                               f"card ({nb_enc} blocks, {FR_BITS} bits)")
-    require(same_bits(got_fr[0].reshape(N_SAMPLES, -1), fr_store_words),
+    fa_batch = (store.payload[idx].reshape(-1, store.payload.shape[-1]).contiguous(),
+                store.emax[idx].reshape(-1).contiguous(),
+                store.nplanes[idx].reshape(-1).contiguous())
+    codec = codec_timings(dev, samples, fa_batch, tuple(t.to(dev) for t in shard_batch), {})
+    blocks, _ = whole_store(dev, samples, spread=False)
+    require(same_bits(zfp_codec.zfp_encode_blocks(blocks, FR_BITS)[0].reshape(N_SAMPLES, -1),
+                      fr_store_words),
             "fixed-rate store words == the whole-store encode kernel's")
-    fr_enc_bound, fr_enc_by = bound_ms(nb_enc * 64 + nb_enc * (4 * fr_enc_words + 4),
-                                       fr_encode_ops(nb_enc, fr_enc_words))
-    del blocks, got_fr
+    del blocks
 
     # -- 8. where a step's device time goes (profiler on; launches not counted)
     profile_steps(store, cond, model, channels_last)
@@ -549,36 +577,14 @@ def main() -> int:
         return resident_launches[name] + host_launches[name]
 
     kernels = [
-        {"name": "zfp_decode_blocks_fa", "route": "cuda",
-         "source": "src/repro_torch/csrc/zfp_fa_decode.cu",
-         "replaces": "src/repro/kernels/zfp_codec.py:190",
-         "launches": launches("zfp_decode_blocks_fa"), "max_abs_err": dec_err,
-         "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
-         "bound_by": dec_by, "library_ms": None,
-         "shape": [nb_dec, words]},
-        {"name": "zfp_encode_blocks_fa", "route": "cuda",
-         "source": "src/repro_torch/csrc/zfp_fa_encode.cu",
-         "replaces": "src/repro/kernels/zfp_codec.py:313",
-         "launches": launches("zfp_encode_blocks_fa"), "max_abs_err": enc_err,
-         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
-         "bound_by": enc_by, "library_ms": None,
-         "shape": [nb_enc, 16]},
-        {"name": "zfp_decode_blocks", "route": "cuda",
-         "source": "src/repro_torch/csrc/zfp_fr_decode.cu",
-         "replaces": "src/repro/kernels/zfp_codec.py:127",
-         "launches": launches("zfp_decode_blocks"), "max_abs_err": fr_dec_err,
-         "ms": fr_dec_ms, "plain_ms": fr_dec_plain_ms, "bound_ms": fr_dec_bound,
-         "bound_by": fr_dec_by, "library_ms": None,
-         "shape": [nb_fr, fr_words]},
-        {"name": "zfp_encode_blocks", "route": "cuda",
-         "source": "src/repro_torch/csrc/zfp_fr_encode.cu",
-         "replaces": "src/repro/kernels/zfp_codec.py:346",
-         "launches": launches("zfp_encode_blocks"), "max_abs_err": fr_enc_err,
-         "ms": fr_enc_ms, "plain_ms": fr_enc_plain_ms, "bound_ms": fr_enc_bound,
-         "bound_by": fr_enc_by, "library_ms": None,
-         "shape": [nb_enc, fr_enc_words]},
-        attn,
-    ]
+        {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+         "replaces": f"src/repro/kernels/zfp_codec.py:{line}", "launches": launches(name),
+         **codec[name]}
+        for name, src, line in (("zfp_decode_blocks_fa", "zfp_fa_decode.cu", 190),
+                                ("zfp_encode_blocks_fa", "zfp_fa_encode.cu", 313),
+                                ("zfp_decode_blocks", "zfp_fr_decode.cu", 127),
+                                ("zfp_encode_blocks", "zfp_fr_encode.cu", 346))
+    ] + [attn]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} launched on the paths "
                                    f"({k['launches']} times)")
@@ -590,6 +596,296 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
+
+
+def codec_checks(dev, samples: np.ndarray) -> None:
+    """Each ZFP kernel against its plain version, bit for bit: on the CPU
+    (main-path data, the F1 blocks, mixed tolerances, every fixed-rate rate
+    class, FA streams padded to the widest sample), at block counts around
+    the warp's two blocks and the CTA's sixteen (a lane whose block is past
+    the end computes on a dummy block), at every fixed-rate width, on the
+    pass-count set, and on the card at the whole store with per-sample
+    tolerances 1e-5..1e-1."""
+    from repro_torch.compression import floor_log2, transform as T
+    from repro_torch.kernels import ref, zfp_codec
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(samples[:CHECK_SAMPLES])
+    main_blocks = T.blockify(T.pad_to_blocks(xs)).contiguous()
+    specials = [(rng.uniform(-1, 1, 16) * 2.0 ** (em - 1)) for em in range(-119, -98)]
+    sub = np.zeros(16)
+    sub[:3] = [2.0 ** -100, 2.0 ** -127, -3 * 2.0 ** -128]
+    specials += [sub, np.zeros(16), np.full(16, 1e-40)]
+    special_blocks = torch.from_numpy(np.stack(specials).astype(np.float32))
+    mixed_blocks = torch.cat([main_blocks[:16384], special_blocks]).contiguous()
+    pset_blocks, pset_tols = pass_count_set(rng)
+    passes, _ = count_passes(pset_blocks, pset_tols, floor_log2(pset_tols))
+    require(bool((torch.bincount(passes, minlength=7) > 0).all()),
+            f"the pass-count set needs each of 0..6 passes "
+            f"({torch.bincount(passes, minlength=7).tolist()} blocks)")
+    cases = [
+        ("main-path data at tol 1e-3", main_blocks,
+         torch.full((main_blocks.shape[0],), TOLERANCE)),
+        ("F1 blocks, zero blocks, mixed tolerances", mixed_blocks,
+         torch.from_numpy((10.0 ** rng.uniform(-6, 0, mixed_blocks.shape[0]))
+                          .astype(np.float32))),
+        ("F1 blocks at tol 2^-126", special_blocks,
+         torch.full((special_blocks.shape[0],), 2.0 ** -126)),
+        (f"the pass-count set ({pset_blocks.shape[0]} blocks)", pset_blocks, pset_tols),
+    ]
+    # F3: the error check as one fused multiply-add (values just above 2^-126
+    # beside one that sets emax -110..-100; values near the f32 maximum)
+    tiny = np.sign(rng.standard_normal((88, 16))) * 2.0 ** -126 * (
+        1 + 2.0 ** -rng.integers(2, 23, (88, 16)).astype(np.float64))
+    tiny[:, 0] = 1.5 * 2.0 ** (np.repeat(np.arange(-110, -99), 8) - 1)
+    big = (rng.choice([-1.0, 1.0], (64, 16)) * np.finfo(np.float32).max
+           * (1 - 2.0 ** -rng.integers(1, 24, (64, 16)).astype(np.float64)))
+    for what, b, tol in (("F3 blocks near 2^-126 at tol 2^-126", tiny, 2.0 ** -126),
+                         ("F3 blocks near the f32 maximum at tol 1.5 2^110", big,
+                          1.5 * 2.0 ** 110)):
+        cases.append((what, torch.from_numpy(b.astype(np.float32)),
+                      torch.full((len(b),), tol, dtype=torch.float32)))
+    reps = -(-max(CHECK_NB) // pset_blocks.shape[0])
+    for nb in CHECK_NB:     # the set's blocks cycled, then main-path blocks
+        blocks = torch.cat([pset_blocks.repeat(reps, 1)[:nb // 2], main_blocks[:nb - nb // 2]])
+        tols = torch.cat([pset_tols.repeat(reps)[:nb // 2],
+                          torch.full((nb - nb // 2,), TOLERANCE)])
+        cases.append((f"{nb} blocks", blocks.contiguous(), tols))
+    for what, blocks, tols in cases:
+        l2 = floor_log2(tols)
+        want = ref.zfp_encode_blocks_fa_ref(blocks, tols, l2)
+        got = zfp_codec.zfp_encode_blocks_fa(blocks.to(dev), tols.to(dev), l2.to(dev))
+        torch.cuda.synchronize()
+        got = [g.cpu() for g in got]
+        for name, g, w in zip(("payload", "emax", "nplanes"), got, want):
+            require(torch.equal(g, w), f"encode kernel == plain ({what}, "
+                                       f"{blocks.shape[0]} blocks): {name}")
+        dec_want = ref.zfp_decode_blocks_fa_ref(*want)
+        dec_got = zfp_codec.zfp_decode_blocks_fa(*(w.to(dev) for w in want)).cpu()
+        require(same_bits(dec_got, dec_want),
+                f"decode kernel == plain ({what}, 15 words)")
+        w_trim = max((int(want[2].max()) + 1) // 2, 1)
+        trimmed = want[0][:, :w_trim].contiguous()
+        dec_got = zfp_codec.zfp_decode_blocks_fa(trimmed.to(dev), want[1].to(dev),
+                                                 want[2].to(dev)).cpu()
+        require(same_bits(dec_got, dec_want),
+                f"decode kernel == plain ({what}, trimmed to {w_trim} words)")
+    deep = torch.cat([main_blocks[:4096], special_blocks]).contiguous()
+    deep_tols = torch.full((deep.shape[0],), 2.0 ** -126)
+    full_p, full_e, _ = ref.zfp_encode_blocks_fa_ref(deep, deep_tols,
+                                                     floor_log2(deep_tols))
+    npl = torch.arange(deep.shape[0], dtype=torch.int32) % 31
+    require(same_bits(zfp_codec.zfp_decode_blocks_fa(full_p.to(dev), full_e.to(dev),
+                                                     npl.to(dev)),
+                      ref.zfp_decode_blocks_fa_ref(full_p, full_e, npl)),
+            "decode kernel == plain (full-depth words, counts 0..30 mask planes)")
+
+    # fixed-rate kernels: every rate class on the main-path, F1 and zero blocks
+    fr_blocks = torch.cat([main_blocks, special_blocks]).contiguous()
+    fr_blocks_dev = fr_blocks.to(dev)
+    for bits in FR_CHECK_BITS:
+        want = ref.zfp_encode_blocks_ref(fr_blocks, bits)
+        got = zfp_codec.zfp_encode_blocks(fr_blocks_dev, bits)
+        for name, g, w in zip(("payload", "emax"), got, want):
+            require(same_bits(g, w), f"fixed-rate encode kernel == plain ({bits} bits, "
+                                     f"{fr_blocks.shape[0]} blocks): {name}")
+        require(same_bits(zfp_codec.zfp_decode_blocks(want[0].to(dev), want[1].to(dev),
+                                                      bits),
+                          ref.zfp_decode_blocks_ref(want[0], want[1], bits)),
+                f"fixed-rate decode kernel == plain ({bits} bits, "
+                f"{(bits + 1) // 2} words)")
+    # the fixed-rate decode at every width: arbitrary words (every bit in use)
+    # at 2W bits, and encoded blocks at 2W - 1 bits, at each block count
+    for words in range(1, 16):
+        bad = []
+        for nb in CHECK_NB:
+            p = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (nb, words),
+                                              dtype=np.int64).astype(np.int32))
+            e = torch.from_numpy(rng.integers(-40, 40, nb).astype(np.int32))
+            pe, ee = ref.zfp_encode_blocks_ref(main_blocks[:nb].contiguous(), 2 * words - 1)
+            for bits, pw, ew in ((2 * words, p, e), (2 * words - 1, pe, ee)):
+                if not same_bits(zfp_codec.zfp_decode_blocks(pw.to(dev), ew.to(dev), bits),
+                                 ref.zfp_decode_blocks_ref(pw, ew, bits)):
+                    bad.append((nb, bits))
+        require(not bad, f"fixed-rate decode kernel == plain at {words} words, "
+                         f"{2 * words} and {2 * words - 1} bits, {len(CHECK_NB)} block "
+                         f"counts {list(CHECK_NB)}" + (f": FAILED at {bad}" if bad else ""))
+    # FA main-path streams at per-sample tolerances 1e-5..1e-1, padded to
+    # the widest sample's words and decoded without nplanes (the
+    # host-streaming stores' decode)
+    nb_s = main_blocks.shape[0] // CHECK_SAMPLES
+    sample_tols = torch.from_numpy(np.logspace(-5, -1, CHECK_SAMPLES).astype(np.float32))
+    block_tols = sample_tols.repeat_interleave(nb_s)
+    fa_p, fa_e, fa_n = ref.zfp_encode_blocks_fa_ref(main_blocks, block_tols,
+                                                    floor_log2(block_tols))
+    widths = [max((int(n.max()) + 1) // 2, 1) for n in fa_n.reshape(CHECK_SAMPLES, nb_s)]
+    wmax = max(widths)
+    padded = fa_p[:, :wmax].contiguous()
+    dec_want = ref.zfp_decode_blocks_fa_ref(fa_p, fa_e, fa_n)
+    require(same_bits(ref.zfp_decode_blocks_ref(padded, fa_e, 2 * wmax), dec_want),
+            f"plain fixed-rate decode of FA streams == FA decode ({wmax} words)")
+    require(same_bits(zfp_codec.zfp_decode_blocks(padded.to(dev), fa_e.to(dev), 2 * wmax),
+                      dec_want),
+            f"fixed-rate decode kernel of FA streams padded to {wmax} words (per-sample "
+            f"widths {min(widths)}..{wmax}) == plain FA decode")
+
+    # the whole store at per-sample tolerances 1e-5..1e-1 (plain on the card)
+    blocks, tols = whole_store(dev, samples, spread=True)
+    l2 = floor_log2(tols)
+    got = zfp_codec.zfp_encode_blocks_fa(blocks, tols, l2)
+    want = ref.zfp_encode_blocks_fa_ref(blocks, tols, l2)
+    for name, g, w in zip(("payload", "emax", "nplanes"), got, want):
+        require(same_bits(g, w), f"encode kernel == plain on the card ({blocks.shape[0]} "
+                                 f"blocks, per-sample tolerances 1e-5..1e-1): {name}")
+
+
+def whole_store(dev, samples: np.ndarray, spread: bool):
+    """The whole study as (nb, 16) blocks on the card, with the store's
+    tolerance 1e-3 per block, or per-sample tolerances spread over
+    1e-5..1e-1 (logarithmically, as Algorithm 1 spreads them)."""
+    from repro_torch.compression import transform as T
+    xs = torch.from_numpy(samples).to(dev)
+    blocks = T.blockify(T.pad_to_blocks(xs)).contiguous()
+    per = blocks.shape[0] // samples.shape[0]
+    if spread:
+        t = torch.from_numpy(np.logspace(-5, -1, samples.shape[0]).astype(np.float32))
+        tols = t.to(dev).repeat_interleave(per)
+    else:
+        tols = torch.full((blocks.shape[0],), TOLERANCE, device=dev)
+    return blocks, tols
+
+
+def codec_timings(dev, samples: np.ndarray, fa_batch, shard_batch, baseline: dict) -> dict:
+    """The four ZFP kernels at the main paths' shapes: device ms per call
+    with CUDA events around back-to-back launches ("ms") and replayed from a
+    CUDA graph ("graph_ms"), beside the plain version and the bound; with
+    baselines' libraries ({csrc: libraries}), theirs in turns with these.  Kernel
+    2 at the three shapes its launches encode (the whole store, one
+    ENCODE_CHUNK of samples, one shard), each at the store's tolerance and
+    at per-sample tolerances 1e-5..1e-1, with the histogram of correction
+    passes its blocks need.  Returns {kernel name: entry}."""
+    from repro_torch.compression import floor_log2
+    from repro_torch.kernels import ref, zfp_codec
+    out = {}
+
+    def report(name, shape, t):
+        def f(x):
+            return "not captured" if x is None else f"{x:.5f}"
+        runs = "; ".join(f"{who} " + ", ".join(f"{f(r['ms'])} ({f(r['graph_ms'])} graph)"
+                                              for r in rs) for who, rs in t.items())
+        print(f"{name} {shape}: ms per call, events (graph): {runs}", flush=True)
+
+    def mean(rs, key):
+        vals = [r[key] for r in rs if r[key] is not None]
+        return sum(vals) / len(vals) if vals else None
+
+    def entry(t, plain_ms, bound, err, shape, **extra):
+        e = {"max_abs_err": err, "ms": mean(t["new"], "ms"),
+             "graph_ms": mean(t["new"], "graph_ms"), "plain_ms": plain_ms,
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+             "shape": list(shape), **extra}
+        others = {who: {"ms": mean(rs, "ms"), "graph_ms": mean(rs, "graph_ms")}
+                  for who, rs in t.items() if who != "new"}
+        if others:
+            e["baselines"] = others
+        return e
+
+    # kernel 1 at the device-resident step's batch
+    bp, be, bn = fa_batch
+    nb, words = bp.shape
+    t = before_after(zfp_codec.zfp_decode_blocks_fa, (bp, be, bn), 200, baseline)
+    report("zfp_decode_blocks_fa", (nb, words), t)
+    err = float((ref.zfp_decode_blocks_fa_ref(bp, be, bn)
+                 - zfp_codec.zfp_decode_blocks_fa(bp, be, bn)).abs().max())
+    require(err == 0.0, f"decode kernel == plain version on the card ({nb} blocks)")
+    out["zfp_decode_blocks_fa"] = entry(
+        t, cuda_ms(lambda: ref.zfp_decode_blocks_fa_ref(bp, be, bn), reps=20),
+        bound_ms(nb * (words * 4 + 8) + nb * 64, decode_ops(nb, words)), err, (nb, words))
+
+    # kernel 3 at one sharded batch
+    sp, se = shard_batch
+    nb, words = sp.shape
+    t = before_after(zfp_codec.zfp_decode_blocks, (sp, se, 2 * words), 200, baseline)
+    report("zfp_decode_blocks", (nb, words), t)
+    err = float((ref.zfp_decode_blocks_ref(sp, se, 2 * words)
+                 - zfp_codec.zfp_decode_blocks(sp, se, 2 * words)).abs().max())
+    require(err == 0.0, f"fixed-rate decode kernel == plain version on the card ({nb} "
+                        f"blocks x {words} words)")
+    out["zfp_decode_blocks"] = entry(
+        t, cuda_ms(lambda: ref.zfp_decode_blocks_ref(sp, se, 2 * words), reps=20),
+        bound_ms(nb * (words * 4 + 4) + nb * 64, fr_decode_ops(nb, words)), err,
+        (nb, words))
+
+    # kernel 2 at three shapes, two tolerance settings
+    shapes = {}
+    for setting, spread in (("tol 1e-3", False), ("tol 1e-5..1e-1", True)):
+        blocks, tols = whole_store(dev, samples, spread)
+        l2 = floor_log2(tols)
+        per = blocks.shape[0] // samples.shape[0]
+        passes, checks = count_passes(blocks, tols, l2)
+        hist = torch.bincount(passes, minlength=7).tolist()
+        print(f"zfp_encode_blocks_fa, {setting}: blocks needing 0..6 correction passes "
+              f"{hist}; error checks with the early exit {int(checks.sum())} "
+              f"({float(checks.float().mean()):.4f} per block; the six-pass kernel ran "
+              f"{6 * blocks.shape[0]})", flush=True)
+        for shape_name, n_samples, reps in (("whole store", samples.shape[0], 5),
+                                            ("ENCODE_CHUNK", 256, 20),
+                                            ("shard", SHARD_SIZE, 100)):
+            n = n_samples * per
+            args = (blocks[:n], tols[:n], l2[:n])
+            t = before_after(zfp_codec.zfp_encode_blocks_fa, args, reps, baseline)
+            report(f"zfp_encode_blocks_fa {setting}, {shape_name}", (n, 16), t)
+            n_checks = int(checks[:n].sum())
+            shapes[f"{shape_name}, {setting}"] = entry(
+                t, None, bound_ms(n * 140, encode_ops(n, n_checks)), None, (n, 16),
+                pass_histogram=torch.bincount(passes[:n], minlength=7).tolist(),
+                error_checks=n_checks)
+        if not spread:
+            got = zfp_codec.zfp_encode_blocks_fa(blocks, tols, l2)
+            want = ref.zfp_encode_blocks_fa_ref(blocks, tols, l2)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            require(err == 0.0, f"encode kernel == plain version on the card "
+                                f"({blocks.shape[0]} blocks)")
+            plain = cuda_ms(lambda: ref.zfp_encode_blocks_fa_ref(blocks, tols, l2),
+                            reps=2, warmup=1)
+            nb_enc = blocks.shape[0]
+            del got, want
+        del blocks, tols, l2, passes, checks
+    main = shapes["whole store, tol 1e-3"]
+    out["zfp_encode_blocks_fa"] = {
+        **main, "max_abs_err": err, "plain_ms": plain,
+        # PR 11's count: a scalar 30-plane pack and six unconditional passes
+        "bound_ms_pr11_count": bound_ms(nb_enc * 140, nb_enc * 3868)[0],
+        "shapes": shapes}
+
+    # kernel 4 at the whole store, FR_BITS
+    blocks, _ = whole_store(dev, samples, False)
+    words = (FR_BITS + 1) // 2
+    t = before_after(zfp_codec.zfp_encode_blocks, (blocks, FR_BITS), 10, baseline)
+    report("zfp_encode_blocks", (nb_enc, words), t)
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        zfp_codec.zfp_encode_blocks(blocks, FR_BITS),
+        ref.zfp_encode_blocks_ref(blocks, FR_BITS)))
+    require(err == 0.0, f"fixed-rate encode kernel == plain version on the card "
+                        f"({nb_enc} blocks, {FR_BITS} bits)")
+    out["zfp_encode_blocks"] = entry(
+        t, cuda_ms(lambda: ref.zfp_encode_blocks_ref(blocks, FR_BITS), reps=2, warmup=1),
+        bound_ms(nb_enc * 64 + nb_enc * (4 * words + 4), fr_encode_ops(nb_enc, words)), err,
+        (nb_enc, words))
+    return out
+
+
+def codec_batches(dev, samples: np.ndarray):
+    """Without the training paths: kernel 1's batch and kernel 3's, the
+    first BATCH samples at the store's tolerance trimmed to their widest
+    sample's words (as the device-resident store and a sharded store's
+    batch hold them)."""
+    from repro_torch.kernels import zfp_codec
+    from repro_torch.compression import floor_log2
+    blocks, tols = whole_store(dev, samples[:BATCH], spread=False)
+    payload, emax, npl = zfp_codec.zfp_encode_blocks_fa(blocks, tols, floor_log2(tols))
+    wmax = max((int(npl.max()) + 1) // 2, 1)
+    payload = payload[:, :wmax].contiguous()
+    return (payload, emax, npl), (payload, emax)
 
 
 ATTN_CASES = [
@@ -1037,12 +1333,17 @@ def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,
 
     def build(name, make):
         t0 = time.perf_counter()
+        before = dict(zfp_codec.LAUNCHES)
         st = make()
         torch.cuda.synchronize()
         built[name] = st
+        launched = {k: v - before[k] for k, v in zfp_codec.LAUNCHES.items() if v != before[k]}
         print(f"store {name}: build {time.perf_counter() - t0:.3f} s, ratio "
               f"{st.sample_nbytes * st.num_samples / st.stored_bytes:.3f}, "
-              f"stored {st.stored_bytes} bytes", flush=True)
+              f"stored {st.stored_bytes} bytes, launches {launched}", flush=True)
+        if name in ("fa", "sharded"):
+            require(launched.get("zfp_encode_blocks_fa", 0) > 0,
+                    f"zfp_encode_blocks_fa built the {name} store")
 
     build("raw", lambda: RawArrayStore(samples, root=os.path.join(tmp, "raw"),
                                        device=DEV))
@@ -1070,6 +1371,7 @@ def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,
         st.bandwidth_mbs = bw
         st.stats.reset()
         wait0 = wait.value
+        decodes0 = zfp_codec.LAUNCHES["zfp_decode_blocks"]
         stamps = []
         t0 = time.perf_counter()
         _, losses = train_surrogate(
@@ -1091,6 +1393,11 @@ def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,
         require(len(losses) == HOST_STEPS and all(np.isfinite(l) for _, l in losses),
                 f"{HOST_STEPS} finite losses from the {name} store (prefetch "
                 f"{prefetch})")
+        if name != "raw":
+            decodes = zfp_codec.LAUNCHES["zfp_decode_blocks"] - decodes0
+            require(decodes == io.batches, f"zfp_decode_blocks decoded every batch of the "
+                                           f"{name} store ({decodes} launches, "
+                                           f"{io.batches} batches)")
         st.bandwidth_mbs = None
         # batches built on the worker's side stream train like synchronous
         # ones (the losses differ only by cuDNN's nondeterministic backward)
@@ -1138,7 +1445,7 @@ def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -230,6 +230,37 @@ def dequantize_blocks(blocks_i: torch.Tensor, emax: torch.Tensor) -> torch.Tenso
                          (emax - Q_FIXED_POINT)[:, None])
 
 
+_F32_OVERFLOW_TIE = 2.0 ** 128 - 2.0 ** 103   # rounds to inf, anything below to max
+
+
+def dequantize_minus(blocks_i: torch.Tensor, emax: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """``flush(deci * 2^(emax - 28) - x)`` rounded once, as a fused
+    multiply-add: XLA contracts the dequantize's last multiply with the
+    encoder's error subtraction, so the scaled value is neither flushed
+    below 2^-126 nor overflowed above the f32 range before the difference.
+
+    The product is exact in f64; the f64 difference and Knuth's two-sum
+    error term give the exact difference, and a tie of the f32 rounding that
+    the f64 rounding created is broken by the error term's sign.
+    """
+    f1, f2 = pow2_factors((emax - Q_FIXED_POINT)[:, None])
+    p = (blocks_i.to(torch.float32) * f1).double() * f2.double()     # exact
+    mx = -x.double()
+    s = p + mx
+    bp = s - p
+    err = (p - (s - bp)) + (mx - bp)                   # p + mx == s + err exactly
+    r = s.float()
+    rd = r.double()
+    other = torch.nextafter(r, torch.where(s > rd, torch.inf, -torch.inf).float())
+    tie = (s != rd) & ((s - rd).abs() == (other.double() - s).abs()) & (err != 0)
+    r = torch.where(tie & ((err > 0) == (other.double() > rd)), other, r)
+    # the tie at the overflow threshold: below it the result is the largest f32
+    below = (s.abs() == _F32_OVERFLOW_TIE) & (err * s < 0)
+    r = torch.where(below, torch.sign(s).float() * torch.finfo(torch.float32).max, r)
+    return flush_denormals(r)
+
+
 def truncate_planes(u: torch.Tensor, nplanes: torch.Tensor) -> torch.Tensor:
     """Zero all bit planes below the top ``nplanes`` (ZFP-style truncation)."""
     shift = torch.clamp(TOTAL_PLANES - nplanes, 0, 31).to(torch.int32)

@@ -6,34 +6,68 @@
 // in bits 16-31), map negabinary to int, inverse lift (columns then rows)
 // and multiply by the exact 2^(emax - 28).  No plane mask: planes beyond
 // the W stored words are simply absent, and at odd bits_per_value the low
-// half of the last word is zero by construction.
+// half of the last word is zero by construction.  The FA streams of the
+// host-streaming stores, padded to the batch's widest sample, decode here
+// at 2 * wmax planes as any stream of that width.
 //
 // Bound on the H100: memory.  The kernel reads nb * (4W + 4) bytes (payload
-// and emax) and writes nb * 64 bytes, against 128 W + 208 integer and float
-// operations per block; at 3.35 TB/s the bytes dominate.
+// and emax) and writes nb * 64 bytes; per block the function's work is
+// some 100 W + 200 integer and float operations (unpack, negabinary, eight
+// 4-point lifts, dequantize), under the card's operations-per-byte balance.
 //
-// Design: the fixed-accuracy decode without its mask, on the same helpers
-// (zfp_common.cuh): one thread per 4x4 block, its 16 lanes in registers,
-// the ragged edge masked.  Not yet done: 16 threads per block with
-// __shfl_sync lifts and coalesced 16-byte stores.
+// Design (replaces one thread per block, whose scalar unpack cost 128
+// operations per word and whose loads and stores touched a sector per
+// thread): four lanes per block, eight blocks per warp (zfp_lanes.cuh).
+// Lane q builds the transposed bit rows 4r + q from the words (two loads
+// each, absent words zero), one 16 x 16 bit-matrix transpose (two stages in
+// the lane, two by shuffles) gives column q's coefficients, the column
+// lifts run in the lane, one 4 x 4 shuffle transpose turns the block to
+// rows, the row lifts run in the lane, and lane q stores row q as one
+// 16-byte write (a warp writes 512 contiguous bytes).  W is a template
+// parameter (1..15).  The ragged edge: a lane whose block is past the end
+// decodes zeros and stores nothing.
 #include <cuda_runtime.h>
 
-#include "zfp_common.cuh"
+#include "zfp_lanes.cuh"
 
 namespace {
 
-__global__ void decode_fr_kernel(const int32_t* __restrict__ payload,
-                                 const int32_t* __restrict__ emax,
-                                 float* __restrict__ out, long long nb, int num_words) {
-  long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  uint32_t u[16];
-  zfp::unpack_words(payload + b * num_words, num_words, u);
-  float v[16];
-  zfp::decode_block(u, emax[b], v);
-  float* o = out + b * 16;
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kBlocksPerCta = kThreads / 4;
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+decode_fr_kernel(const int32_t* __restrict__ payload, const int32_t* __restrict__ emax,
+                 float* __restrict__ out, long long nb) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (8 * (t >> 5) >= nb) return;                // the whole warp: no collective left
+  const int q = threadIdx.x & 3;
+  const long long b = t >> 2;
+  const bool valid = b < nb;
+  uint32_t u[4];
 #pragma unroll
-  for (int l = 0; l < 16; ++l) o[l] = v[l];
+  for (int r = 0; r < 4; ++r)
+    u[r] = valid ? zfp::lanes::row_of_words(payload + b * W, W, r, q) : 0u;
+  zfp::lanes::bit_transpose16(u, q);
+  int32_t v[4];
+  zfp::lanes::inv_transform(u, q, v);
+  const int e = (valid ? emax[b] : 0) - zfp::kQ;
+  float4 f;
+  f.x = zfp::scale_by_pow2(__int2float_rn(v[0]), e);
+  f.y = zfp::scale_by_pow2(__int2float_rn(v[1]), e);
+  f.z = zfp::scale_by_pow2(__int2float_rn(v[2]), e);
+  f.w = zfp::scale_by_pow2(__int2float_rn(v[3]), e);
+  if (valid) reinterpret_cast<float4*>(out)[b * 4 + q] = f;
+}
+
+template <int W>
+int launch(const void* payload, const void* emax, void* out, long long nb,
+           cudaStream_t stream) {
+  const long long grid = (nb + kBlocksPerCta - 1) / kBlocksPerCta;
+  decode_fr_kernel<W><<<static_cast<unsigned int>(grid), kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(payload), static_cast<const int32_t*>(emax),
+      static_cast<float*>(out), nb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -41,11 +75,23 @@ __global__ void decode_fr_kernel(const int32_t* __restrict__ payload,
 extern "C" int zfp_decode_blocks_launch(const void* payload, const void* emax, void* out,
                                         long long nb, int num_words, void* stream) {
   if (nb <= 0) return 0;
-  const int threads = 256;
-  const long long grid = (nb + threads - 1) / threads;
-  decode_fr_kernel<<<static_cast<unsigned int>(grid), threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(payload), static_cast<const int32_t*>(emax),
-      static_cast<float*>(out), nb, num_words);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (num_words) {
+    case 1: return launch<1>(payload, emax, out, nb, s);
+    case 2: return launch<2>(payload, emax, out, nb, s);
+    case 3: return launch<3>(payload, emax, out, nb, s);
+    case 4: return launch<4>(payload, emax, out, nb, s);
+    case 5: return launch<5>(payload, emax, out, nb, s);
+    case 6: return launch<6>(payload, emax, out, nb, s);
+    case 7: return launch<7>(payload, emax, out, nb, s);
+    case 8: return launch<8>(payload, emax, out, nb, s);
+    case 9: return launch<9>(payload, emax, out, nb, s);
+    case 10: return launch<10>(payload, emax, out, nb, s);
+    case 11: return launch<11>(payload, emax, out, nb, s);
+    case 12: return launch<12>(payload, emax, out, nb, s);
+    case 13: return launch<13>(payload, emax, out, nb, s);
+    case 14: return launch<14>(payload, emax, out, nb, s);
+    case 15: return launch<15>(payload, emax, out, nb, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

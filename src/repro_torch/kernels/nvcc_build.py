@@ -32,20 +32,22 @@ def nvcc() -> str:
 
 
 def build_dir(tag: str, sources: Dict[str, str], headers: Sequence[str],
-              flags: Sequence[str]) -> Path:
+              flags: Sequence[str], csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(flags).encode())
     for name in sorted(sources.values()) + sorted(headers):
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return BUILD_ROOT / f"{tag}-{h.hexdigest()[:16]}"
 
 
 def compile_and_load(tag: str, sources: Dict[str, str], headers: Sequence[str],
-                     flags: Sequence[str], logs: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    """Compile every source not yet built (one ``nvcc`` each, all started
-    together), record each compiler's output in ``logs`` and load them all.
-    Raises with the compiler's output if a build fails."""
-    out = build_dir(tag, sources, headers, flags)
+                     flags: Sequence[str], logs: Dict[str, str],
+                     csrc: Path = CSRC) -> Dict[str, ctypes.CDLL]:
+    """Compile every source of ``csrc`` (this package's by default) not yet
+    built (one ``nvcc`` each, all started together), record each compiler's
+    output in ``logs`` and load them all.  Raises with the compiler's output
+    if a build fails."""
+    out = build_dir(tag, sources, headers, flags, csrc)
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for key, src in sources.items():
@@ -54,7 +56,7 @@ def compile_and_load(tag: str, sources: Dict[str, str], headers: Sequence[str],
             continue
         tmp = out / f"lib{key}.{os.getpid()}.tmp.so"
         procs[key] = (subprocess.Popen(
-            [nvcc(), *flags, "-o", str(tmp), str(CSRC / src)],
+            [nvcc(), *flags, "-o", str(tmp), str(csrc / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, so)
     for key, (proc, tmp, so) in procs.items():
         log, _ = proc.communicate()

@@ -50,6 +50,12 @@ def zfp_encode_blocks_fa_ref(blocks_f: torch.Tensor, tols: torch.Tensor,
     nplanes).  Plane guess ``emax - log2tol + GUARD_BITS``, zero-block
     short-circuit, then ``MAX_FIX_ITERS`` bound-verification passes that add
     two planes wherever the realized L-inf error exceeds the tolerance.
+
+    The error is ``flush(deci * 2^(emax - 28) - x)`` rounded once
+    (:func:`~repro_torch.compression.transform.dequantize_minus`): XLA
+    contracts the dequantize's last multiply and the subtraction into one
+    fused multiply-add, so the scaled value is neither flushed nor
+    overflowed before the difference.
     """
     from repro_torch.compression.zfp import GUARD_BITS, MAX_FIX_ITERS
     x = T.flush_denormals(blocks_f)
@@ -62,8 +68,8 @@ def zfp_encode_blocks_fa_ref(blocks_f: torch.Tensor, tols: torch.Tensor,
 
     def block_err(npl):
         u = T.truncate_planes(u_full, npl)
-        dec = T.dequantize_blocks(T.inv_transform_2d(T.nb2int(u)), emax)
-        return T.flush_denormals(dec - x).abs().amax(dim=-1)
+        return T.dequantize_minus(T.inv_transform_2d(T.nb2int(u)), emax,
+                                  x).abs().amax(dim=-1)
 
     for _ in range(MAX_FIX_ITERS):
         bad = block_err(npl) > tols

@@ -27,7 +27,7 @@ SOURCES = {"zfp_fa_decode": "zfp_fa_decode.cu",
            "zfp_fa_encode": "zfp_fa_encode.cu",
            "zfp_fr_decode": "zfp_fr_decode.cu",
            "zfp_fr_encode": "zfp_fr_encode.cu"}
-HEADERS = ("zfp_common.cuh",)
+HEADERS = ("zfp_common.cuh", "zfp_lanes.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--ftz=true", "--fmad=false", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC")
@@ -56,30 +56,28 @@ def _counted(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+def bind(libs: Dict[str, ctypes.CDLL]) -> Dict[str, ctypes.CDLL]:
+    """Declare the C entry points' argument types (every pointer and the
+    stream as ``c_void_p``, so none is cut to 32 bits)."""
+    ptr, nb, words = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for key, fn, n_ptrs, tail in (
+            ("zfp_fa_decode", "zfp_decode_blocks_fa_launch", 4, [nb, words]),
+            ("zfp_fa_encode", "zfp_encode_blocks_fa_launch", 6, [nb]),
+            ("zfp_fr_decode", "zfp_decode_blocks_launch", 3, [nb, words]),
+            ("zfp_fr_encode", "zfp_encode_blocks_launch", 3, [nb, words])):
+        f = getattr(libs[key], fn)
+        f.argtypes = [ptr] * n_ptrs + tail + [ptr]
+        f.restype = ctypes.c_int
+    return libs
+
+
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (if not cached) and load every kernel library; idempotent."""
     with _build_lock:
         if _libs:
             return _libs
-        libs = nvcc_build.compile_and_load("zfp_codec", SOURCES, HEADERS, NVCC_FLAGS,
-                                           BUILD_LOGS)
-        dec = libs["zfp_fa_decode"].zfp_decode_blocks_fa_launch
-        dec.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                                ctypes.c_void_p]
-        dec.restype = ctypes.c_int
-        enc = libs["zfp_fa_encode"].zfp_encode_blocks_fa_launch
-        enc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
-                                                ctypes.c_void_p]
-        enc.restype = ctypes.c_int
-        fr_dec = libs["zfp_fr_decode"].zfp_decode_blocks_launch
-        fr_dec.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                                   ctypes.c_void_p]
-        fr_dec.restype = ctypes.c_int
-        fr_enc = libs["zfp_fr_encode"].zfp_encode_blocks_launch
-        fr_enc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                                   ctypes.c_void_p]
-        fr_enc.restype = ctypes.c_int
-        _libs.update(libs)
+        _libs.update(bind(nvcc_build.compile_and_load("zfp_codec", SOURCES, HEADERS,
+                                                      NVCC_FLAGS, BUILD_LOGS)))
         return _libs
 
 

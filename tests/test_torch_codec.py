@@ -20,6 +20,7 @@ from repro.compression import (decode, decode_batch as jax_decode_batch,
 from repro.compression import transform as JT
 from repro.data import DeviceResidentCompressedStore as JaxStore
 from repro.kernels import ops as jops, ref as jref
+from repro.kernels import zfp_codec as jzfp
 
 from repro_torch.compression import (compressed_nbytes_batch, decode_batch,
                                      encode_fixed_accuracy_batch, floor_log2,
@@ -29,6 +30,14 @@ from repro_torch.data import DeviceResidentCompressedStore
 from repro_torch.kernels import ops, ref, zfp_codec
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def rng():
+    """This file's own generator, fresh for every test.  The session-wide
+    one in conftest.py hands each test whatever state the files run before
+    it in the same worker left behind, so inputs changed with the order."""
+    return np.random.default_rng(0)
 
 
 def _np(x):
@@ -212,6 +221,50 @@ def test_flush_matters_for_denormal_blocks():
     assert float(deq.abs().max()) == 0.0
 
 
+def _f3_blocks(rng):
+    """Blocks whose error check depends on the fused multiply-add: values
+    just above 2^-126 beside one that sets emax -100..-110 (a dequantized
+    value below 2^-126 enters the difference unflushed), and values near the
+    f32 maximum (a dequantized value above it does not overflow)."""
+    rows = []
+    for emax in range(-110, -99):
+        b = np.sign(rng.standard_normal((8, 16))) * 2.0 ** -126 * (
+            1 + 2.0 ** -rng.integers(2, 23, (8, 16)).astype(np.float64))
+        b[:, 0] = 1.5 * 2.0 ** (emax - 1)
+        rows.append(b)
+    tiny = np.concatenate(rows).astype(np.float32)
+    big = (rng.choice([-1.0, 1.0], (64, 16)) * np.finfo(np.float32).max
+           * (1 - 2.0 ** -rng.integers(1, 24, (64, 16)).astype(np.float64))).astype(np.float32)
+    return [(tiny, np.float32(2.0 ** -126)), (big, np.float32(1.5 * 2.0 ** 110))]
+
+
+def test_encode_fa_error_is_one_fused_multiply_add(rng):
+    """F3: XLA contracts the dequantize's last multiply and the error's
+    subtraction into one FMA, so the reference neither flushes a
+    dequantized value below 2^-126 nor overflows one above the f32 range
+    before the difference.  The port matches the TPU kernel and the oracle;
+    flushing and rounding the product first (as the port did before) does
+    not."""
+    for blocks, tol in _f3_blocks(rng):
+        tols = np.full(len(blocks), tol, np.float32)
+        want = [np.asarray(a) for a in jzfp.zfp_encode_blocks_fa(
+            jnp.asarray(blocks), jnp.asarray(tols), interpret=True)]
+        _assert_encode_parity(blocks, tols, kernel=False)
+        got = _port_encode(blocks, tols)
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+        x, t = torch.from_numpy(blocks), torch.from_numpy(tols)
+        emax = T.block_emax(T.flush_denormals(x))
+        u = T.int2nb(T.fwd_transform_2d(T.quantize_blocks(T.flush_denormals(x), emax)))
+        npl = torch.clamp(emax - floor_log2(t) + 2, 0, T.TOTAL_PLANES)
+        for _ in range(6):                  # the six passes with the product flushed first
+            dec = T.dequantize_blocks(T.inv_transform_2d(T.nb2int(T.truncate_planes(u, npl))),
+                                      emax)
+            bad = T.flush_denormals(dec - T.flush_denormals(x)).abs().amax(-1) > t
+            npl = torch.where(bad, torch.clamp(npl + 2, max=T.TOTAL_PLANES), npl)
+        assert not np.array_equal(npl.numpy(), want[2])
+
+
 # ---------------------------------------------------------------------------
 # F2: floor(log2(tol)) at exact powers of two
 # ---------------------------------------------------------------------------
@@ -335,3 +388,104 @@ def test_cuda_wrappers_reject_cpu_tensors_without_building():
                                                device="meta"),
                                    torch.zeros(2, dtype=torch.int32, device="meta"),
                                    torch.zeros(2, dtype=torch.int32, device="meta")))
+
+
+# ---------------------------------------------------------------------------
+# the correction loop's exact early exit (kernel 2 stops settled blocks)
+# ---------------------------------------------------------------------------
+
+def _encode_fa_early_exit(blocks, tols):
+    """Plain fixed-accuracy encode that stops each block at its first
+    settled pass: after a pass that finds the error within ``tol``, or once
+    ``nplanes == 30``, a pass cannot change the block.  Returns payload,
+    emax, nplanes and the number of passes that added planes (0..6)."""
+    from repro_torch.compression.zfp import GUARD_BITS, MAX_FIX_ITERS
+    b, t = torch.from_numpy(blocks), torch.from_numpy(tols)
+    x, tol = T.flush_denormals(b), T.flush_denormals(t)
+    emax = T.block_emax(x)
+    u_full = T.int2nb(T.fwd_transform_2d(T.quantize_blocks(x, emax)))
+    npl = torch.clamp(emax - floor_log2(t) + GUARD_BITS, 0, T.TOTAL_PLANES).to(torch.int32)
+    npl = torch.where((u_full == 0).all(-1), torch.zeros_like(npl), npl)
+    passes = torch.zeros_like(npl)
+    live = npl < T.TOTAL_PLANES
+    for _ in range(MAX_FIX_ITERS):
+        if not bool(live.any()):
+            break
+        dec = T.inv_transform_2d(T.nb2int(T.truncate_planes(u_full, npl)))
+        bad = live & (T.dequantize_minus(dec, emax, x).abs().amax(-1) > tol)
+        npl = torch.where(bad, torch.clamp(npl + 2, max=T.TOTAL_PLANES), npl)
+        passes += bad.to(torch.int32)
+        live = bad & (npl < T.TOTAL_PLANES)
+    payload = T.pack_planes(T.truncate_planes(u_full, npl), T.MAX_WORDS)
+    return [_np(a) for a in (payload, emax, npl, passes)]
+
+
+def _pass_count_set(rng):
+    """Blocks that need each of 0..6 correction passes.
+
+    With a positive normal tolerance the guess (two guard planes) leaves at
+    most two passes, except for a block whose values all lie below 2^-120:
+    it codes as zero (emax 0), its error never falls, and it takes all six.
+    A tolerance of -1 can never be met (floor(log2) is 0 in both packages),
+    so a block at emax 28 - 2k climbs from the guess emax + 2 = 30 - 2k to
+    30 planes in exactly k passes and stops there.  Also: blocks that start
+    at 30 planes, all-zero and subnormal blocks, the F1 blocks."""
+    rows, tols = [], []
+
+    def add(block, tol):
+        rows.append(np.asarray(block, np.float32).reshape(16))
+        tols.append(tol)
+
+    for k in range(7):
+        emax = 28 - 2 * k if k < 6 else 10
+        v = rng.uniform(-1, 1, 16) * 2.0 ** (emax - 1)
+        v[0] = 0.75 * 2.0 ** emax
+        add(v, -1.0)
+    for blk in _blocks(rng, 24):                       # 0, 1 and 2 passes
+        add(blk, 1e-3)
+    for blk in _blocks(rng, 24, "smooth"):
+        add(blk, 1e-5)
+    tiny = rng.uniform(-1, 1, 16) * 2.0 ** -121        # below 2^-120: six passes
+    add(tiny, 2.0 ** -126)
+    add(tiny, 1e-30)                                    # error within tol: none
+    add(rng.standard_normal(16), 2.0 ** -126)           # guess already 30
+    add(np.zeros(16), 1e-3)
+    add(np.zeros(16), -1.0)
+    add(np.full(16, 1e-40), 1e-3)                       # subnormal: flushed to zero
+    for blk in _f1_blocks(rng):
+        add(blk, 2.0 ** -126)
+        add(blk, 1e-36)
+    return np.stack(rows), np.asarray(tols, np.float32)
+
+
+def _assert_matches_tpu_kernel(blocks, tols):
+    want = [np.asarray(a) for a in jzfp.zfp_encode_blocks_fa(
+        jnp.asarray(blocks), jnp.asarray(tols), interpret=True)]
+    got = _encode_fa_early_exit(blocks, tols)
+    for name, a, b in zip(("payload", "emax", "nplanes"), got, want):
+        assert np.array_equal(a, b), name
+    full = _port_encode(blocks, tols)                  # six unconditional passes
+    for a, b in zip(full, want):
+        assert np.array_equal(a, b)
+    return got[3]
+
+
+@pytest.mark.parametrize("tol", [1e-5, 1e-3, 1e-1, "mixed"])
+def test_early_exit_encode_matches_tpu_kernel(rng, tol):
+    blocks = np.concatenate([_blocks(rng, 150), _blocks(rng, 150, "smooth")])
+    tols = ((10.0 ** rng.uniform(-6, 0, len(blocks))) if tol == "mixed"
+            else np.full(len(blocks), tol)).astype(np.float32)
+    _assert_matches_tpu_kernel(blocks, tols)
+
+
+def test_early_exit_encode_matches_tpu_kernel_on_pass_count_set(rng):
+    _assert_matches_tpu_kernel(*_pass_count_set(rng))
+
+
+def test_pass_count_set_covers_every_pass_count(rng):
+    blocks, tols = _pass_count_set(rng)
+    passes = _encode_fa_early_exit(blocks, tols)[3]
+    assert np.array_equal(np.bincount(passes, minlength=7) > 0, np.ones(7, bool))
+    assert np.array_equal(passes[:7], np.arange(7))
+    npl = _encode_fa_early_exit(blocks, tols)[2]
+    assert (npl[:6] == 30).all() and npl[6] == 10 + 2 + 12

@@ -20,6 +20,7 @@ from repro.compression import (encode_fixed_accuracy_batch as jax_encode_fa,
 from repro.compression import get_codec as jax_get_codec
 from repro.compression.api import decode_stacked_payloads as jax_decode_stacked
 from repro.kernels import ops as jops, ref as jref
+from repro.kernels import zfp_codec as jzfp
 
 from repro_torch.compression import (FixedRateCodec, compressed_nbytes_batch,
                                      decode_stacked_payloads,
@@ -28,6 +29,14 @@ from repro_torch.compression import (FixedRateCodec, compressed_nbytes_batch,
 from repro_torch.kernels import ops, ref, zfp_codec
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def rng():
+    """This file's own generator, fresh for every test.  The session-wide
+    one in conftest.py hands each test whatever state the files run before
+    it in the same worker left behind, so inputs changed with the order."""
+    return np.random.default_rng(0)
 
 
 def _np(x):
@@ -103,6 +112,21 @@ def test_decode_fr_matches_jax(rng, bits, n_blocks):
     want = np.asarray(jref.zfp_decode_blocks_ref(jp, je, bits))
     _assert_same_bits(np.asarray(jops.zfp_decode_blocks(jp, je, bits)), want)
     _assert_same_bits(_port_decode(payload, emax, bits), want)
+
+
+@pytest.mark.parametrize("words", range(1, 16))
+def test_decode_fr_every_width_matches_tpu_kernel(rng, words):
+    """Kernel 3 at every width W = 1..15: arbitrary words at 2W bits (every
+    bit of every word in use) and encoded blocks at 2W - 1 bits (the low half
+    of the last word zero), against the TPU kernel in interpret mode."""
+    for bits, payload, emax in [
+            (2 * words,
+             rng.integers(-2 ** 31, 2 ** 31, (67, words), dtype=np.int64).astype(np.int32),
+             rng.integers(-30, 30, 67).astype(np.int32)),
+            (2 * words - 1, *_port_encode(_blocks(rng, 67), 2 * words - 1))]:
+        want = np.asarray(jzfp.zfp_decode_blocks(jnp.asarray(payload), jnp.asarray(emax),
+                                                 bits, interpret=True))
+        _assert_same_bits(_port_decode(payload, emax, bits), want)
 
 
 @pytest.mark.parametrize("bits", [1, 7, 12, 29, 30])
