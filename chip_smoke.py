@@ -11,8 +11,10 @@ attention) from ``src/repro_torch/csrc`` into ``build/``, all ``nvcc``
 processes started together, holds each ZFP kernel against its plain PyTorch
 version bit for bit (on the CPU: the main path's data, the F1 blocks, block
 counts around a warp's and a CTA's blocks, every fixed-rate width, a set
-of blocks that needs each of 0..6 correction passes; on the card: the whole
-store at per-sample tolerances) and each of the attention kernel's
+of blocks that needs each of 0..6 correction passes, blocks holding NaN and
++-inf; on the card: the whole store at per-sample tolerances; the gathered
+decode on the resident store and on small ragged stores at every width and
+plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
 tolerance, asserting which variant ran, then runs three paths at full
@@ -20,7 +22,8 @@ model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
   memory): encode a synthetic study into a device-resident store and train
-  the DCGAN surrogate with gather + decode + L1 + Adam on the card;
+  the DCGAN surrogate with the gathered decode (one launch a batch) + L1 +
+  Adam on the card;
 * the host-streaming path (workflows 1 and 2 from disk): write a raw store,
   a per-sample fixed-accuracy store, a sharded store and a per-sample
   fixed-rate store to a temporary directory (removed at exit), and train
@@ -220,7 +223,7 @@ def ptxas_table(logs: dict) -> list:
 def print_ptxas(logs: dict, what: str) -> None:
     import re
     for key, name, regs, st, ld in ptxas_table(logs):
-        m = re.search(r"\d([a-z]+_[a-z]+_kernel)(?:ILi(\d+)E)?", name)
+        m = re.search(r"\d([a-z]+(?:_[a-z]+)*_kernel)(?:ILi(\d+)E)?", name)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         print(f"  {what} {key}: {name[:60]}: {regs} registers, spill stores {st} B, "
@@ -314,9 +317,10 @@ def gpu_line() -> str:
                           check=True, timeout=60).stdout.strip()
 
 
-def print_profile(prof, wall_ms: float, per: int, unit: str) -> None:
+def print_profile(prof, wall_ms: float, per: int, unit: str):
     """The device's busy share and the kernels that take most of its time,
-    from a torch.profiler run over ``per`` units of work."""
+    from a torch.profiler run over ``per`` units of work; returns the
+    kernels per unit (None where the profiler recorded no device time)."""
     from torch.autograd import DeviceType
     # kernels only: operator rows repeat their kernels' device time
     events = [e for e in prof.key_averages()
@@ -324,7 +328,7 @@ def print_profile(prof, wall_ms: float, per: int, unit: str) -> None:
     if not events:
         print(f"profile: {wall_ms:.3f} ms/{unit} wall; the profiler recorded no "
               "device time (device busy share not measured)")
-        return
+        return None
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
     print(f"profile: {per} {unit}s, {wall_ms:.3f} ms/{unit} wall (profiler on), device "
           f"busy {busy_ms:.3f} ms/{unit} ({100 * busy_ms / wall_ms:.1f}%), "
@@ -339,11 +343,18 @@ def print_profile(prof, wall_ms: float, per: int, unit: str) -> None:
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"  {e.self_cpu_time_total / 1e3 / per:8.4f} ms/{unit} {e.count / per:6.0f}x  "
               f"{e.key[:90]}")
+    return sum(e.count for e in events) / per
+
+
+# kernels per device-resident step with the five-launch batch decode (three
+# gathers, the flat decode and the deblockify copy), profiled on the H100
+PARENT_KERNELS_PER_STEP = 921
 
 
 def profile_steps(store, cond, model, transform, steps: int = 10) -> None:
     """Trace ``steps`` fused train steps with torch.profiler and print the
-    device's busy share and the kernels that take most of its time."""
+    device's busy share, the kernels that take most of its time and the
+    kernels per step beside the parent's."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import ShardedLoader
     from repro_torch.train.optimizer import AdamConfig, adam_init
@@ -364,7 +375,25 @@ def profile_steps(store, cond, model, transform, steps: int = 10) -> None:
             float(loss)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    print_profile(prof, wall_ms, steps, "step")
+    per_step = print_profile(prof, wall_ms, steps, "step")
+    print(f"kernels per device-resident step: "
+          f"{'not measured' if per_step is None else f'{per_step:.1f}'} "
+          f"(before the gathered decode: {PARENT_KERNELS_PER_STEP})")
+
+
+def decode_indices_kernels(store, idx: torch.Tensor):
+    """The device kernels one ``store.decode_indices(idx)`` runs, from
+    torch.profiler: [(name, count)], or None where it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    store.decode_indices(idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        store.decode_indices(idx)
+        torch.cuda.synchronize()
+    events = [(e.key, e.count) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return events or None
 
 
 def profile_serving(engine, lm, cache, cur, pos, steps: int = 10) -> None:
@@ -483,7 +512,9 @@ def main(argv) -> int:
     codec_checks(dev, samples)
     print(f"kernel checks: {time.perf_counter() - t_start:.1f} s since start", flush=True)
     if codec_only:
-        codec = codec_timings(dev, samples, *codec_batches(dev, samples), baseline)
+        resident, shard_batch = codec_batches(dev, samples)
+        gather_checks(dev, resident)
+        codec = codec_timings(dev, samples, resident, shard_batch, baseline)
         print(json.dumps({"codec": codec, "card": smi}))
         return 0
 
@@ -543,6 +574,7 @@ def main(argv) -> int:
     preds = predict_fields(model, cond[:8], device=DEV)
     require(preds.shape == (8, 96, 32, 6) and bool(np.isfinite(preds).all()),
             "predict_fields gives finite (8, 96, 32, 6) fields")
+    gather_checks(dev, store)
 
     # -- 6. host-streaming path: stores on disk, decoded per batch ----------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -553,11 +585,7 @@ def main(argv) -> int:
     host_launches, fr_store_words, shard_batch = host
 
     # -- 7. times at the main-path shapes ----------------------------------------
-    idx = torch.arange(BATCH, device=dev)
-    fa_batch = (store.payload[idx].reshape(-1, store.payload.shape[-1]).contiguous(),
-                store.emax[idx].reshape(-1).contiguous(),
-                store.nplanes[idx].reshape(-1).contiguous())
-    codec = codec_timings(dev, samples, fa_batch, tuple(t.to(dev) for t in shard_batch), {})
+    codec = codec_timings(dev, samples, store, tuple(t.to(dev) for t in shard_batch), {})
     blocks, _ = whole_store(dev, samples, spread=False)
     require(same_bits(zfp_codec.zfp_encode_blocks(blocks, FR_BITS)[0].reshape(N_SAMPLES, -1),
                       fr_store_words),
@@ -598,14 +626,48 @@ def main(argv) -> int:
     return 0
 
 
+def nonfinite_blocks(rng) -> torch.Tensor:
+    """Blocks holding NaN and +-inf, eight of each kind at other positions:
+    a NaN, a +inf, a -inf in a standard-normal block; all NaN; all +inf or
+    -inf; NaN, +inf and -inf together; a NaN beside values whose fixed-point
+    image leaves int32 (a NaN block has emax 0, so |x| >= 8 saturates); an
+    inf beside tiny values; +-inf mixed; and a finite control."""
+    nan, inf = np.nan, np.inf
+    rows = []
+    for k in range(8):
+        pos = rng.permutation(16)
+        sign = (-1.0) ** k
+        for put in ({pos[0]: nan}, {pos[0]: inf}, {pos[0]: -inf}, "nan", "inf",
+                    {pos[0]: nan, pos[1]: inf, pos[2]: -inf}, "big", "tiny", "mixed", {}):
+            r = rng.standard_normal(16)
+            if put == "nan":
+                r[:] = nan
+            elif put == "inf":
+                r[:] = sign * inf
+            elif put == "big":
+                r *= 30.0
+                r[pos[0]] = nan
+            elif put == "tiny":
+                r *= 1e-30
+                r[pos[0]] = sign * inf
+            elif put == "mixed":
+                r = np.sign(r) * inf
+            else:
+                for i, v in put.items():
+                    r[i] = v
+            rows.append(r)
+    return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
 def codec_checks(dev, samples: np.ndarray) -> None:
     """Each ZFP kernel against its plain version, bit for bit: on the CPU
     (main-path data, the F1 blocks, mixed tolerances, every fixed-rate rate
-    class, FA streams padded to the widest sample), at block counts around
-    the warp's two blocks and the CTA's sixteen (a lane whose block is past
-    the end computes on a dummy block), at every fixed-rate width, on the
-    pass-count set, and on the card at the whole store with per-sample
-    tolerances 1e-5..1e-1."""
+    class, FA streams padded to the widest sample, blocks holding NaN and
+    +-inf at tol 1e-3 and 1e-7 and at 12 and 30 bits), at block counts
+    around the warp's two blocks and the CTA's sixteen (a lane whose block
+    is past the end computes on a dummy block), at every fixed-rate width,
+    on the pass-count set, and on the card at the whole store with
+    per-sample tolerances 1e-5..1e-1."""
     from repro_torch.compression import floor_log2, transform as T
     from repro_torch.kernels import ref, zfp_codec
     rng = np.random.default_rng(0)
@@ -644,6 +706,12 @@ def codec_checks(dev, samples: np.ndarray) -> None:
                           1.5 * 2.0 ** 110)):
         cases.append((what, torch.from_numpy(b.astype(np.float32)),
                       torch.full((len(b),), tol, dtype=torch.float32)))
+    # NaN and +-inf (F4, F5): 80 such blocks and 3 main-path ones (a ragged warp)
+    nonfinite = torch.cat([nonfinite_blocks(np.random.default_rng(1)),
+                           main_blocks[:3]]).contiguous()
+    for tol in (1e-3, 1e-7):
+        cases.append((f"NaN and +-inf blocks at tol {tol:g}", nonfinite,
+                      torch.full((nonfinite.shape[0],), tol)))
     reps = -(-max(CHECK_NB) // pset_blocks.shape[0])
     for nb in CHECK_NB:     # the set's blocks cycled, then main-path blocks
         blocks = torch.cat([pset_blocks.repeat(reps, 1)[:nb // 2], main_blocks[:nb - nb // 2]])
@@ -693,6 +761,16 @@ def codec_checks(dev, samples: np.ndarray) -> None:
                           ref.zfp_decode_blocks_ref(want[0], want[1], bits)),
                 f"fixed-rate decode kernel == plain ({bits} bits, "
                 f"{(bits + 1) // 2} words)")
+    for bits in (12, 30):
+        want = ref.zfp_encode_blocks_ref(nonfinite, bits)
+        got = zfp_codec.zfp_encode_blocks(nonfinite.to(dev), bits)
+        for name, g, w in zip(("payload", "emax"), got, want):
+            require(same_bits(g, w), f"fixed-rate encode kernel == plain (NaN and +-inf "
+                                     f"blocks, {bits} bits): {name}")
+        require(same_bits(zfp_codec.zfp_decode_blocks(want[0].to(dev), want[1].to(dev),
+                                                      bits),
+                          ref.zfp_decode_blocks_ref(want[0], want[1], bits)),
+                f"fixed-rate decode kernel == plain (NaN and +-inf blocks, {bits} bits)")
     # the fixed-rate decode at every width: arbitrary words (every bit in use)
     # at 2W bits, and encoded blocks at 2W - 1 bits, at each block count
     for words in range(1, 16):
@@ -754,15 +832,126 @@ def whole_store(dev, samples: np.ndarray, spread: bool):
     return blocks, tols
 
 
-def codec_timings(dev, samples: np.ndarray, fa_batch, shard_batch, baseline: dict) -> dict:
+# the gathered decode's small stores: ragged fields that are cropped, one
+# block a sample, a field without lead dims; batches whose block count is
+# no multiple of a warp's eight blocks
+GATHER_SHAPES = ((3, 10, 7), (1, 3, 2), (2, 12, 16), (10, 13))
+GATHER_BATCHES = (1, 3, 13)
+
+
+def step_batch(n_samples: int) -> torch.Tensor:
+    """A training step's batch of indices: BATCH samples, shuffled, four of
+    them repeated (the loader never repeats one; the decode must not care)."""
+    idx = np.random.default_rng(4).choice(n_samples, BATCH, replace=False)
+    idx[-4:] = idx[:4]
+    return torch.from_numpy(idx)
+
+
+def gather_checks(dev, store) -> None:
+    """Kernel 1's gathered entry against its plain version (CPU), bit for
+    bit: the full-width resident store at a step's batch (shuffled and
+    repeated indices) and at one sample; small stores of ragged shapes at
+    full depth, cut to each width 1..15 under random plane counts 0..30,
+    at batches of 1, 3 and 13 samples.  Then one ``decode_indices`` is one
+    kernel launch (launch counter and profiler)."""
+    from repro_torch.compression import encode_fixed_accuracy_batch
+    from repro_torch.kernels import ref, zfp_codec
+    rng = np.random.default_rng(3)
+    resident = [store.payload, store.emax, store.nplanes]
+    host = [a.cpu() for a in resident]
+
+    def same(arrays, idx, padded, shape, on_card=None):
+        on_card = on_card or [a.to(dev) for a in arrays]
+        got = zfp_codec.zfp_decode_blocks_fa_gather(*on_card, idx.to(dev), padded, shape)
+        want = ref.zfp_decode_blocks_fa_gather_ref(*arrays, idx, padded, shape)
+        return same_bits(got, want)
+
+    idx = step_batch(store.num_samples)
+    for what, i in ((f"a step's batch of {BATCH}, shuffled, 4 repeated", idx),
+                    ("a batch of 1", idx[:1])):
+        require(same(host, i, store.padded_shape, store.shape, resident),
+                f"gathered decode kernel == plain (resident store {tuple(store.payload.shape)}"
+                f", {what})")
+    for shape in GATHER_SHAPES:
+        n = 9
+        xs = rng.standard_normal((n,) + shape) * 10.0 ** rng.integers(
+            -3, 3, (n,) + (1,) * len(shape))
+        cf = encode_fixed_accuracy_batch(torch.from_numpy(xs.astype(np.float32)),
+                                         torch.full((n,), 2.0 ** -126))
+        bad = []
+        for words in range(1, 16):
+            npl = torch.from_numpy(rng.integers(0, 31, cf.emax.shape).astype(np.int32))
+            npl.view(-1)[:31] = torch.arange(31, dtype=torch.int32)[:npl.numel()]
+            arrays = [cf.payload[..., :words].contiguous(), cf.emax, npl]
+            for b in GATHER_BATCHES:
+                i = torch.from_numpy(rng.integers(0, n, b))
+                if not same(arrays, i, cf.padded_shape, cf.shape):
+                    bad.append((words, b))
+        nb = cf.emax.shape[1]
+        require(not bad, f"gathered decode kernel == plain (shape {shape} padded to "
+                         f"{cf.padded_shape}, {nb} blocks a sample, widths 1..15, plane "
+                         f"counts 0..30, batches {list(GATHER_BATCHES)})"
+                         + (f": FAILED at (words, batch) {bad}" if bad else ""))
+    before = zfp_codec.LAUNCHES["zfp_decode_blocks_fa"]
+    store.decode_indices(idx.to(dev))
+    require(zfp_codec.LAUNCHES["zfp_decode_blocks_fa"] - before == 1,
+            "decode_indices launches kernel 1 once")
+    kernels = decode_indices_kernels(store, idx.to(dev))
+    if kernels is None:
+        print("decode_indices kernels: the profiler recorded no device time (not measured)")
+    else:
+        require(len(kernels) == 1 and kernels[0][1] == 1
+                and "decode_fa_gather_kernel" in kernels[0][0],
+                f"decode_indices is one kernel on the card (profiler: {kernels})")
+
+
+def gathered_or_composed(payload, emax, nplanes, idx, padded_shape, shape):
+    """The batch decode of a resident store with the kernels that are bound:
+    the gathered kernel where the library has it, else (an older checkout's
+    library) the composition that checkout ran: three torch gathers, the
+    flat decode, the deblockify copy and the crop."""
+    from repro_torch.kernels import zfp_codec
+    if zfp_codec.has_gather(zfp_codec._libs):
+        return zfp_codec.zfp_decode_blocks_fa_gather(payload, emax, nplanes, idx,
+                                                     padded_shape, shape)
+    return composed_decode(payload, emax, nplanes, idx, padded_shape, shape)
+
+
+def composed_decode(payload, emax, nplanes, idx, padded_shape, shape):
+    """Five launches: the parent's decode_indices on the bound flat kernel."""
+    from repro_torch.compression import transform as T
+    from repro_torch.compression.zfp import crop
+    from repro_torch.kernels import zfp_codec
+    b, (_, nb, w) = idx.shape[0], payload.shape
+    blocks = zfp_codec.zfp_decode_blocks_fa(payload[idx].reshape(b * nb, w),
+                                            emax[idx].reshape(b * nb),
+                                            nplanes[idx].reshape(b * nb))
+    return crop(T.deblockify(blocks, (b,) + tuple(padded_shape)), shape)
+
+
+def in_turns(calls: dict, reps: int) -> dict:
+    """Each call timed as before_after times one (events "ms", graph
+    "graph_ms"), in turns: first, second, second, first."""
+    names = list(calls)
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        out[n].append({"ms": cuda_ms(calls[n], reps=reps), "graph_ms": graph_ms(calls[n], reps)})
+    return out
+
+
+def codec_timings(dev, samples: np.ndarray, store, shard_batch, baseline: dict) -> dict:
     """The four ZFP kernels at the main paths' shapes: device ms per call
     with CUDA events around back-to-back launches ("ms") and replayed from a
     CUDA graph ("graph_ms"), beside the plain version and the bound; with
-    baselines' libraries ({csrc: libraries}), theirs in turns with these.  Kernel
-    2 at the three shapes its launches encode (the whole store, one
-    ENCODE_CHUNK of samples, one shard), each at the store's tolerance and
-    at per-sample tolerances 1e-5..1e-1, with the histogram of correction
-    passes its blocks need.  Returns {kernel name: entry}."""
+    baselines' libraries ({csrc: libraries}), theirs in turns with these.
+    Kernel 1 at a device-resident step's batch of ``store``, flat (on the
+    gathered copy) and gathered (beside the five-launch composition it
+    replaces; a baseline without the gathered entry runs that composition on
+    its flat kernel).  Kernel 2 at the three shapes its launches encode (the
+    whole store, one ENCODE_CHUNK of samples, one shard), each at the
+    store's tolerance and at per-sample tolerances 1e-5..1e-1, with the
+    histogram of correction passes its blocks need.  Returns {kernel name:
+    entry}."""
     from repro_torch.compression import floor_log2
     from repro_torch.kernels import ref, zfp_codec
     out = {}
@@ -789,17 +978,42 @@ def codec_timings(dev, samples: np.ndarray, fa_batch, shard_batch, baseline: dic
             e["baselines"] = others
         return e
 
-    # kernel 1 at the device-resident step's batch
-    bp, be, bn = fa_batch
-    nb, words = bp.shape
+    # kernel 1 at the device-resident step's batch: flat on the gathered
+    # copy, and gathered from the resident store
+    idx = step_batch(store.num_samples).to(dev)
+    words = store.payload.shape[-1]
+    bp = store.payload[idx].reshape(-1, words).contiguous()
+    be, bn = store.emax[idx].reshape(-1).contiguous(), store.nplanes[idx].reshape(-1).contiguous()
+    nb = bp.shape[0]
     t = before_after(zfp_codec.zfp_decode_blocks_fa, (bp, be, bn), 200, baseline)
     report("zfp_decode_blocks_fa", (nb, words), t)
     err = float((ref.zfp_decode_blocks_fa_ref(bp, be, bn)
                  - zfp_codec.zfp_decode_blocks_fa(bp, be, bn)).abs().max())
     require(err == 0.0, f"decode kernel == plain version on the card ({nb} blocks)")
+    bound = bound_ms(nb * (words * 4 + 8) + nb * 64, decode_ops(nb, words))
     out["zfp_decode_blocks_fa"] = entry(
         t, cuda_ms(lambda: ref.zfp_decode_blocks_fa_ref(bp, be, bn), reps=20),
-        bound_ms(nb * (words * 4 + 8) + nb * 64, decode_ops(nb, words)), err, (nb, words))
+        bound, err, (nb, words))
+    args = (store.payload, store.emax, store.nplanes, idx, store.padded_shape, store.shape)
+    tg = before_after(gathered_or_composed, args, 200, baseline)
+    report("zfp_decode_blocks_fa gathered (baselines: their composition)",
+           (BATCH, *store.shape), tg)
+    tc = in_turns({"composed": lambda: composed_decode(*args),
+                   "gathered": lambda: zfp_codec.zfp_decode_blocks_fa_gather(*args)}, 200)
+    report("zfp_decode_blocks_fa gathered beside the composition on this flat kernel",
+           (BATCH, *store.shape), tc)
+    got = zfp_codec.zfp_decode_blocks_fa_gather(*args)
+    err_g = float((ref.zfp_decode_blocks_fa_gather_ref(*args) - got).abs().max())
+    require(err_g == 0.0 and same_bits(got, composed_decode(*args)),
+            f"gathered decode kernel == plain version and == the composition on the "
+            f"card ({BATCH} samples, {nb} blocks)")
+    gathered = entry(tg, cuda_ms(lambda: ref.zfp_decode_blocks_fa_gather_ref(*args), reps=20),
+                     bound_ms(nb * (words * 4 + 8) + nb * 64 + 8 * BATCH,
+                              decode_ops(nb, words)),
+                     err_g, (BATCH, *store.shape))
+    gathered["in_turns"] = {who: {"ms": mean(rs, "ms"), "graph_ms": mean(rs, "graph_ms")}
+                            for who, rs in tc.items()}
+    out["zfp_decode_blocks_fa"]["gathered"] = gathered
 
     # kernel 3 at one sharded batch
     sp, se = shard_batch
@@ -875,17 +1089,16 @@ def codec_timings(dev, samples: np.ndarray, fa_batch, shard_batch, baseline: dic
 
 
 def codec_batches(dev, samples: np.ndarray):
-    """Without the training paths: kernel 1's batch and kernel 3's, the
-    first BATCH samples at the store's tolerance trimmed to their widest
-    sample's words (as the device-resident store and a sharded store's
-    batch hold them)."""
-    from repro_torch.kernels import zfp_codec
-    from repro_torch.compression import floor_log2
-    blocks, tols = whole_store(dev, samples[:BATCH], spread=False)
-    payload, emax, npl = zfp_codec.zfp_encode_blocks_fa(blocks, tols, floor_log2(tols))
-    wmax = max((int(npl.max()) + 1) // 2, 1)
-    payload = payload[:, :wmax].contiguous()
-    return (payload, emax, npl), (payload, emax)
+    """Without the training paths: the device-resident store of the whole
+    study at the store's tolerance (kernel 1's input) and kernel 3's batch,
+    a step's batch of it flattened (as a sharded store's batch holds it)."""
+    from repro_torch.data import DeviceResidentCompressedStore
+    store = DeviceResidentCompressedStore.from_samples(
+        samples, np.full(samples.shape[0], TOLERANCE, np.float32), device=dev)
+    idx = step_batch(store.num_samples).to(dev)
+    words = store.payload.shape[-1]
+    return store, (store.payload[idx].reshape(-1, words).contiguous(),
+                   store.emax[idx].reshape(-1).contiguous())
 
 
 ATTN_CASES = [

@@ -16,6 +16,11 @@ Two runtime differences from XLA are handled here explicitly:
   ``torch.set_flush_denormal`` is deliberately not used.
 * Powers of two are built in the exponent field (:func:`pow2_factors`),
   never with ``exp2``/``ldexp``, so every scale multiply is exact.
+
+Non-finite inputs follow the TPU kernels the CUDA kernels replace: a NaN
+propagates through each block maximum, the float-to-int conversion
+saturates as XLA's does (NaN to 0, +inf to INT_MAX, -inf to INT_MIN), and
+the block exponent comes from the exponent field (129 for an inf block).
 """
 from __future__ import annotations
 
@@ -188,12 +193,14 @@ def unpack_planes(payload: torch.Tensor) -> torch.Tensor:
 def block_emax(blocks_f: torch.Tensor) -> torch.Tensor:
     """frexp-style exponent of max |value| per block: max|x| = m 2^emax.
 
-    Blocks whose max magnitude is below 2^-120 flush to zero (emax = 0).
+    Read from the exponent field, as the Pallas and CUDA kernels read it:
+    equal to ``frexp`` for finite values, 129 for a block holding +-inf
+    (``jnp.frexp`` gives 0 there).  Blocks whose max magnitude is below
+    2^-120, or NaN, flush to zero (emax = 0).
     """
     maxabs = flush_denormals(blocks_f).abs().amax(dim=-1)
-    _, e = torch.frexp(maxabs)
-    return torch.where(maxabs >= FLUSH_EMAX_BELOW, e.to(torch.int32),
-                       torch.zeros_like(e, dtype=torch.int32))
+    e = ((maxabs.view(torch.int32) >> 23) & 0xFF) - 126
+    return torch.where(maxabs >= FLUSH_EMAX_BELOW, e, torch.zeros_like(e))
 
 
 def pow2_factors(e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -215,14 +222,25 @@ def scale_by_pow2(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return flush_denormals((x * f1) * f2)
 
 
+def to_int32_saturating(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 as XLA's convert and CUDA's ``cvt`` do it: NaN to 0,
+    values at or above 2^31 to INT_MAX, below -2^31 to INT_MIN.  A plain
+    ``.to(torch.int32)`` leaves those cases undefined (INT_MIN on the CPU)."""
+    high, low = x >= 2.0 ** 31, x < -2.0 ** 31
+    safe = torch.where(high | low | torch.isnan(x), 0.0, x).to(torch.int32)
+    safe = torch.where(high, torch.iinfo(torch.int32).max, safe)
+    return torch.where(low, torch.iinfo(torch.int32).min, safe)
+
+
 def quantize_blocks(blocks_f: torch.Tensor, emax: torch.Tensor) -> torch.Tensor:
     """float (nb,16) -> fixed-point int32 with per-block scale 2^(Q-emax).
 
-    ``torch.round`` rounds half to even, as ``jnp.round`` does.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does; the
+    conversion saturates (:func:`to_int32_saturating`).
     """
     scaled = scale_by_pow2(flush_denormals(blocks_f),
                            (Q_FIXED_POINT - emax)[:, None])
-    return torch.round(scaled).to(torch.int32)
+    return to_int32_saturating(torch.round(scaled))
 
 
 def dequantize_blocks(blocks_i: torch.Tensor, emax: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,11 @@
 // to sign-preserving zero exactly as XLA does, and with --fmad=false so
 // (x * f1) * f2 - y never contracts into an FMA.  Powers of two come from
 // the exponent field, never from exp2f/ldexpf.
+//
+// Non-finite values.  Every maximum propagates NaN (max_nan), as jnp.max
+// does; fmaxf would drop it.  Float-to-int conversions use
+// __float2int_rn (cvt.rni.s32.f32: round half to even, saturating, NaN to
+// 0), as XLA's convert saturates; a static_cast is undefined there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,6 +33,13 @@ constexpr int kMaxWords = 15;      // MAX_WORDS
 constexpr int kGuardBits = 2;      // GUARD_BITS
 constexpr int kMaxFixIters = 6;    // MAX_FIX_ITERS
 constexpr uint32_t kNeg = 0xAAAAAAAAu;
+
+// max(a, b) that returns NaN when either is NaN (PTX max.NaN, sm_80+)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __device__ __forceinline__ int32_t add(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -71,14 +83,6 @@ __device__ __forceinline__ void fwd_lift4(int32_t& x, int32_t& y, int32_t& z, in
   y = sub(y, w >> 1);
 }
 
-// inverse 2D lift in place: columns (lanes c, c+4, c+8, c+12), then rows
-__device__ __forceinline__ void inv_transform(int32_t v[16]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) inv_lift4(v[c], v[c + 4], v[c + 8], v[c + 12]);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) inv_lift4(v[4 * r], v[4 * r + 1], v[4 * r + 2], v[4 * r + 3]);
-}
-
 // forward 2D lift in place: rows, then columns
 __device__ __forceinline__ void fwd_transform(int32_t v[16]) {
 #pragma unroll
@@ -109,26 +113,9 @@ __device__ __forceinline__ float scale_by_pow2(float x, int e) {
   return __fmul_rn(__fmul_rn(x, f1), f2);
 }
 
-// unpack num_words (1..15) words into 16 negabinary lanes: word k holds
-// plane 29 - 2k in bits 0-15 and plane 28 - 2k in bits 16-31
-// (transform.py unpack_planes)
-__device__ __forceinline__ void unpack_words(const int32_t* p, int num_words, uint32_t u[16]) {
-#pragma unroll
-  for (int l = 0; l < 16; ++l) u[l] = 0u;
-  for (int k = 0; k < num_words; ++k) {
-    const uint32_t word = static_cast<uint32_t>(p[k]);
-    const int p_hi = kTotalPlanes - 1 - 2 * k;
-    const int p_lo = kTotalPlanes - 2 - 2 * k;   // >= 0 for k < 15
-#pragma unroll
-    for (int l = 0; l < 16; ++l) {
-      u[l] |= ((word >> l) & 1u) << p_hi;
-      u[l] |= ((word >> (l + 16)) & 1u) << p_lo;
-    }
-  }
-}
-
 // pack the top 2 * num_words planes of 16 negabinary lanes into num_words
-// words, the inverse of unpack_words (transform.py pack_planes)
+// words (transform.py pack_planes; word k holds plane 29 - 2k in bits
+// 0-15 and plane 28 - 2k in bits 16-31)
 __device__ __forceinline__ void pack_words(const uint32_t u[16], int num_words, int32_t* out) {
   for (int k = 0; k < num_words; ++k) {
     const int p_hi = kTotalPlanes - 1 - 2 * k;
@@ -145,36 +132,27 @@ __device__ __forceinline__ void pack_words(const uint32_t u[16], int num_words, 
 
 // Encode front end shared by both encoders: load the block with the flush
 // on load (adding 0.0f is an f32 op, so --ftz flushes subnormal inputs),
-// a bit-twiddled frexp for emax (flushed to 0 below 2^-120), quantize at
-// Q = 28 with round half to even, forward lift, negabinary.  Returns emax;
-// x receives the flushed values, u the negabinary coefficients.
+// a bit-twiddled frexp for emax (flushed to 0 below 2^-120 and for a NaN
+// block; 129 for an inf block), quantize at Q = 28 with round half to
+// even, saturating, forward lift, negabinary.  Returns emax; x receives the
+// flushed values, u the negabinary coefficients.
 __device__ __forceinline__ int encode_front(const float* xb, float x[16], uint32_t u[16]) {
   float maxabs = 0.0f;
 #pragma unroll
   for (int l = 0; l < 16; ++l) {
     x[l] = __fadd_rn(xb[l], 0.0f);
-    maxabs = fmaxf(maxabs, fabsf(x[l]));
+    maxabs = max_nan(maxabs, fabsf(x[l]));
   }
   // frexp exponent via the exponent field: maxabs = m 2^e, m in [0.5, 1)
   const int e = ((__float_as_int(maxabs) >> 23) & 0xFF) - 126;
   const int emax = (maxabs >= 0x1p-120f) ? e : 0;
   int32_t v[16];
 #pragma unroll
-  for (int l = 0; l < 16; ++l) v[l] = static_cast<int32_t>(rintf(scale_by_pow2(x[l], kQ - emax)));
+  for (int l = 0; l < 16; ++l) v[l] = __float2int_rn(scale_by_pow2(x[l], kQ - emax));
   fwd_transform(v);
 #pragma unroll
   for (int l = 0; l < 16; ++l) u[l] = int2nb(v[l]);
   return emax;
-}
-
-// inverse lift + dequantize of 16 coefficients (negabinary, already masked)
-__device__ __forceinline__ void decode_block(const uint32_t u[16], int emax, float out[16]) {
-  int32_t v[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l) v[l] = nb2int(u[l]);
-  inv_transform(v);
-#pragma unroll
-  for (int l = 0; l < 16; ++l) out[l] = scale_by_pow2(__int2float_rn(v[l]), emax - kQ);
 }
 
 }  // namespace zfp

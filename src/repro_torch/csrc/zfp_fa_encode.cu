@@ -87,8 +87,10 @@ encode_fa_kernel(const float* __restrict__ blocks, const float* __restrict__ tol
     float err = 0.0f;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      err = fmaxf(err, fabsf(__fmaf_rn(__fmul_rn(__int2float_rn(deci[c]), f1), f2, -x[c])));
+      err = zfp::max_nan(err, fabsf(__fmaf_rn(__fmul_rn(__int2float_rn(deci[c]), f1), f2,
+                                              -x[c])));
     err = group_max(err);                        // every lane: a full-mask shuffle
+    // a NaN error (a NaN in the block) is never > tol: the block settles
     const bool bad = live && err > tol;
     if (bad) npl = min(npl + 2, zfp::kTotalPlanes);
     live = bad && npl < zfp::kTotalPlanes;

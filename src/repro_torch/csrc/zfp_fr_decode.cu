@@ -76,22 +76,7 @@ extern "C" int zfp_decode_blocks_launch(const void* payload, const void* emax, v
                                         long long nb, int num_words, void* stream) {
   if (nb <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (num_words) {
-    case 1: return launch<1>(payload, emax, out, nb, s);
-    case 2: return launch<2>(payload, emax, out, nb, s);
-    case 3: return launch<3>(payload, emax, out, nb, s);
-    case 4: return launch<4>(payload, emax, out, nb, s);
-    case 5: return launch<5>(payload, emax, out, nb, s);
-    case 6: return launch<6>(payload, emax, out, nb, s);
-    case 7: return launch<7>(payload, emax, out, nb, s);
-    case 8: return launch<8>(payload, emax, out, nb, s);
-    case 9: return launch<9>(payload, emax, out, nb, s);
-    case 10: return launch<10>(payload, emax, out, nb, s);
-    case 11: return launch<11>(payload, emax, out, nb, s);
-    case 12: return launch<12>(payload, emax, out, nb, s);
-    case 13: return launch<13>(payload, emax, out, nb, s);
-    case 14: return launch<14>(payload, emax, out, nb, s);
-    case 15: return launch<15>(payload, emax, out, nb, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define ZFP_FR(W) launch<W>(payload, emax, out, nb, s)
+  ZFP_DISPATCH_WORDS(num_words, ZFP_FR)
+#undef ZFP_FR
 }

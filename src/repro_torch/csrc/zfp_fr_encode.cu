@@ -13,10 +13,11 @@
 // pack), well under the card's operations-per-byte balance.
 //
 // Design: the front end is the fixed-accuracy encode's (zfp_common.cuh
-// encode_front: flush on load, exponent-field powers of two, rintf, uint32
-// adds and shifts); no error check, so no floor(log2 tol) enters.  One
-// thread per 4x4 block, the ragged edge masked, output (nb, W), never the
-// full 15 words.  Not yet done: spreading a block over 16 threads.
+// encode_front: flush on load, exponent-field powers of two, NaN-propagating
+// maxima, saturating __float2int_rn, uint32 adds and shifts); no error
+// check, so no floor(log2 tol) enters.  One thread per 4x4 block, the
+// ragged edge masked, output (nb, W), never the full 15 words.  Not yet
+// done: spreading a block over 16 threads.
 #include <cuda_runtime.h>
 
 #include "zfp_common.cuh"

@@ -1,5 +1,5 @@
-// Lane-parallel device code of the redesigned ZFP kernels (fixed-rate decode
-// and fixed-accuracy encode): four lanes per 4x4 block, eight blocks per
+// Lane-parallel device code of the redesigned ZFP kernels (both decodes and
+// the fixed-accuracy encode): four lanes per 4x4 block, eight blocks per
 // warp.
 //
 // Layouts.  In the row layout lane q of a block's group of four holds row q
@@ -52,10 +52,10 @@ __device__ __forceinline__ void transpose4(int32_t v[4], int q) {
   }
 }
 
-// max over a group's four lanes (a max is exact in any order)
+// max over a group's four lanes (a max is exact in any order; NaN wins)
 __device__ __forceinline__ float group_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+  v = max_nan(v, __shfl_xor_sync(kFull, v, 1));
+  return max_nan(v, __shfl_xor_sync(kFull, v, 2));
 }
 
 // one stage of the bit transpose on rows a (row i) and b (row i + s) of one
@@ -90,8 +90,9 @@ __device__ __forceinline__ void bit_transpose16(uint32_t u[4], int q) {
 }
 
 // the encoders' front end for one lane: flush on load, emax from the
-// block's max |x| (0 below 2^-120), quantize at Q = 28 with round half to
-// even, forward lift (rows, then columns), negabinary.  x holds row q on
+// block's max |x| (0 below 2^-120 and for NaN, 129 for inf), quantize at
+// Q = 28 with round half to even, saturating, forward lift (rows, then
+// columns), negabinary.  x holds row q on
 // entry and its flushed values on return; u receives column q's
 // negabinary coefficients (rows 4r + q of the bit matrix).  Returns emax.
 __device__ __forceinline__ int encode_front(float x[4], int q, uint32_t u[4]) {
@@ -99,15 +100,14 @@ __device__ __forceinline__ int encode_front(float x[4], int q, uint32_t u[4]) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     x[c] = __fadd_rn(x[c], 0.0f);
-    m = fmaxf(m, fabsf(x[c]));
+    m = max_nan(m, fabsf(x[c]));
   }
   const float maxabs = group_max(m);
   const int e = ((__float_as_int(maxabs) >> 23) & 0xFF) - 126;
   const int emax = (maxabs >= 0x1p-120f) ? e : 0;
   int32_t v[4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
-    v[c] = static_cast<int32_t>(rintf(scale_by_pow2(x[c], kQ - emax)));
+  for (int c = 0; c < 4; ++c) v[c] = __float2int_rn(scale_by_pow2(x[c], kQ - emax));
   fwd_lift4(v[0], v[1], v[2], v[3]);
   transpose4(v, q);
   fwd_lift4(v[0], v[1], v[2], v[3]);
@@ -159,3 +159,25 @@ __device__ __forceinline__ uint32_t row_of_words(const int32_t* __restrict__ p, 
 
 }  // namespace lanes
 }  // namespace zfp
+
+// return CALL(W) for the payload width num_words, a template parameter
+// 1..15 of the lane kernels; cudaErrorInvalidValue for any other width
+#define ZFP_DISPATCH_WORDS(num_words, CALL)                  \
+  switch (num_words) {                                       \
+    case 1: return CALL(1);                                  \
+    case 2: return CALL(2);                                  \
+    case 3: return CALL(3);                                  \
+    case 4: return CALL(4);                                  \
+    case 5: return CALL(5);                                  \
+    case 6: return CALL(6);                                  \
+    case 7: return CALL(7);                                  \
+    case 8: return CALL(8);                                  \
+    case 9: return CALL(9);                                  \
+    case 10: return CALL(10);                                \
+    case 11: return CALL(11);                                \
+    case 12: return CALL(12);                                \
+    case 13: return CALL(13);                                \
+    case 14: return CALL(14);                                \
+    case 15: return CALL(15);                                \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }

@@ -1,9 +1,10 @@
 """Device-resident compressed training data: upload once, decode in-step.
 
 Counterpart of ``repro/data/device_store.py``.  The packed payload, emax
-and nplanes of the whole dataset live in device memory; a batch is a
-``payload[idx]`` gather plus one fixed-accuracy decode launch, so no host
-bytes move per batch.  Device footprint is ``N * nb * (wmax + 2) * 4``
+and nplanes of the whole dataset live in device memory; a batch is one
+launch of the gathered fixed-accuracy decode, which reads the samples'
+blocks where they lie and writes the batch in field layout, so no host
+bytes move per batch and no gathered copy is made.  Device footprint is ``N * nb * (wmax + 2) * 4``
 bytes; ``stored_bytes`` reports the logical two-level layout so ratios
 match the host stores.  ``from_store`` uploads a sharded store (one the
 port or the JAX package wrote) and carries its ``shard_size``, so
@@ -18,11 +19,11 @@ import numpy as np
 import torch
 
 from repro_torch.compression import (TOTAL_PLANES, CompressedField,
-                                     compressed_nbytes_batch,
-                                     decode_stacked_payloads, get_codec,
+                                     compressed_nbytes_batch, get_codec,
                                      trim_to_nplanes)
 from repro_torch.data.store import on_device
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.obs.metrics import IoStats
 
 
@@ -135,10 +136,11 @@ class DeviceResidentCompressedStore:
 
     def decode_indices(self, idx: torch.Tensor) -> torch.Tensor:
         """Gather + decode a batch of sample indices already on the store's
-        device -> (B, ...) float32."""
-        return decode_stacked_payloads(self.payload[idx], self.emax[idx],
-                                       self.padded_shape, self.shape,
-                                       self.nplanes[idx])
+        device -> (B, ...) float32: one kernel launch on the card.  An index
+        outside [0, num_samples) raises (on the card: a device-side fault)."""
+        return ops.zfp_decode_blocks_fa_gather(
+            self.payload, self.emax, self.nplanes, idx.to(torch.int64),
+            self.padded_shape, self.shape)
 
     def get_batch(self, idx: np.ndarray) -> torch.Tensor:
         """ArrayStore-compatible batch access from host indices.  No host

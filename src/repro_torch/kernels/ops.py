@@ -36,6 +36,21 @@ def zfp_decode_blocks_fa(payload: torch.Tensor, emax: torch.Tensor,
     return zfp_codec.zfp_decode_blocks_fa(payload, emax, nplanes)
 
 
+def zfp_decode_blocks_fa_gather(payload: torch.Tensor, emax: torch.Tensor,
+                                nplanes: torch.Tensor, idx: torch.Tensor,
+                                padded_shape, shape) -> torch.Tensor:
+    """Gathered fixed-accuracy decode: the samples ``idx`` (B,) int64 of a
+    resident store (payload (N, nb, W), emax and nplanes (N, nb) int32) ->
+    (B, *shape) f32, deblockified from ``padded_shape`` and cropped; on
+    the card one kernel launch."""
+    zfp_codec.check_field(payload.shape[1], padded_shape, shape)
+    if _on_cpu(payload, emax, nplanes, idx):
+        return ref.zfp_decode_blocks_fa_gather_ref(payload, emax, nplanes, idx,
+                                                   padded_shape, shape)
+    return zfp_codec.zfp_decode_blocks_fa_gather(payload, emax, nplanes, idx,
+                                                 padded_shape, shape)
+
+
 def zfp_encode_blocks_fa(blocks: torch.Tensor, tols: torch.Tensor):
     """Fixed-accuracy encode with per-block L-inf tolerances.
 

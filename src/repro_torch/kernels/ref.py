@@ -88,6 +88,26 @@ def zfp_decode_blocks_fa_ref(payload: torch.Tensor, emax: torch.Tensor,
     return T.dequantize_blocks(T.inv_transform_2d(T.nb2int(u)), emax)
 
 
+def zfp_decode_blocks_fa_gather_ref(payload: torch.Tensor, emax: torch.Tensor,
+                                    nplanes: torch.Tensor, idx: torch.Tensor,
+                                    padded_shape, shape) -> torch.Tensor:
+    """Gathered fixed-accuracy decode of a device-resident store's batch:
+    payload (N, nb, W), emax and nplanes (N, nb) int32, idx (B,) int ->
+    (B, *shape) f32 (contiguous).  The gathers, the flat decode, deblockify
+    and the crop, as the JAX package's ``_gather_decode`` composes them.
+    Raises ``IndexError`` for an index outside [0, N)."""
+    from repro_torch.compression.zfp import crop
+    n, nb, num_words = payload.shape
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+        raise IndexError(f"sample index out of range [0, {n}): "
+                         f"{idx.min().item()}..{idx.max().item()}")
+    b = idx.shape[0]
+    blocks = zfp_decode_blocks_fa_ref(payload[idx].reshape(b * nb, num_words),
+                                      emax[idx].reshape(b * nb),
+                                      nplanes[idx].reshape(b * nb))
+    return crop(T.deblockify(blocks, (b,) + tuple(padded_shape)), shape).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Flash-attention oracle (GQA, causal or full, per-row key lengths)
 # ---------------------------------------------------------------------------

@@ -11,6 +11,9 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
 launch returned an error, and adds one to its entry in :data:`LAUNCHES`
 (under a lock: the prefetch worker launches decodes from its own thread).
+The fixed-accuracy decode has two entries, flat and gathered (the
+device-resident store's batch decode); both count as
+``"zfp_decode_blocks_fa"``.
 """
 from __future__ import annotations
 
@@ -56,15 +59,28 @@ def _counted(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+GATHER_ENTRY = "zfp_decode_blocks_fa_gather_launch"
+
+
+def has_gather(libs: Dict[str, ctypes.CDLL]) -> bool:
+    """Whether these libraries have the gathered decode (an older
+    checkout's, built as a baseline, may not)."""
+    return hasattr(libs["zfp_fa_decode"], GATHER_ENTRY)
+
+
 def bind(libs: Dict[str, ctypes.CDLL]) -> Dict[str, ctypes.CDLL]:
     """Declare the C entry points' argument types (every pointer and the
-    stream as ``c_void_p``, so none is cut to 32 bits)."""
+    stream as ``c_void_p``, so none is cut to 32 bits).  The gathered
+    decode is bound only where the library has it."""
     ptr, nb, words = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for key, fn, n_ptrs, tail in (
-            ("zfp_fa_decode", "zfp_decode_blocks_fa_launch", 4, [nb, words]),
-            ("zfp_fa_encode", "zfp_encode_blocks_fa_launch", 6, [nb]),
-            ("zfp_fr_decode", "zfp_decode_blocks_launch", 3, [nb, words]),
-            ("zfp_fr_encode", "zfp_encode_blocks_launch", 3, [nb, words])):
+    entries = [("zfp_fa_decode", "zfp_decode_blocks_fa_launch", 4, [nb, words]),
+               ("zfp_fa_encode", "zfp_encode_blocks_fa_launch", 6, [nb]),
+               ("zfp_fr_decode", "zfp_decode_blocks_launch", 3, [nb, words]),
+               ("zfp_fr_encode", "zfp_encode_blocks_launch", 3, [nb, words])]
+    if has_gather(libs):
+        # n_samples, batch, then nb, W, lead, H, W, padded H, padded W
+        entries.append(("zfp_fa_decode", GATHER_ENTRY, 5, [nb, nb] + [words] * 7))
+    for key, fn, n_ptrs, tail in entries:
         f = getattr(libs[key], fn)
         f.argtypes = [ptr] * n_ptrs + tail + [ptr]
         f.restype = ctypes.c_int
@@ -117,6 +133,62 @@ def zfp_decode_blocks_fa(payload: torch.Tensor, emax: torch.Tensor,
         _raise_on(fn(payload.data_ptr(), emax.data_ptr(), nplanes.data_ptr(),
                      out.data_ptr(), nb, num_words, stream),
                   "zfp_decode_blocks_fa")
+    _counted("zfp_decode_blocks_fa")
+    return out
+
+
+def check_field(nb: int, padded_shape, shape) -> tuple:
+    """(lead, H, W, padded H, padded W) of a sample of ``shape`` stored
+    padded to ``padded_shape`` in ``nb`` 4x4 blocks; raises where they do
+    not fit together."""
+    padded_shape, shape = tuple(padded_shape), tuple(shape)
+    if len(shape) < 2 or len(padded_shape) != len(shape) \
+            or padded_shape[:-2] != shape[:-2]:
+        raise ValueError(f"shape {shape} and padded shape {padded_shape} must share "
+                         f"their leading dims")
+    (h, w), (ph, pw) = shape[-2:], padded_shape[-2:]
+    lead = 1
+    for d in shape[:-2]:
+        lead *= d
+    if ph % 4 or pw % 4 or not (0 < h <= ph and 0 < w <= pw) \
+            or lead * (ph // 4) * (pw // 4) != nb:
+        raise ValueError(f"{nb} blocks do not tile shape {shape} padded to "
+                         f"{padded_shape}")
+    return lead, h, w, ph, pw
+
+
+def zfp_decode_blocks_fa_gather(payload: torch.Tensor, emax: torch.Tensor,
+                                nplanes: torch.Tensor, idx: torch.Tensor,
+                                padded_shape, shape) -> torch.Tensor:
+    """CUDA gathered fixed-accuracy decode of a device-resident store's
+    batch, in one launch: payload (N, nb, W) int32, emax and nplanes (N, nb)
+    int32, idx (B,) int64 on the same card -> (B, *shape) float32, the
+    samples ``idx`` decoded, deblockified from ``padded_shape`` and
+    cropped.  An index outside [0, N) faults on the device (no host sync
+    checks it here)."""
+    if payload.dim() != 3 or not 1 <= payload.shape[2] <= MAX_WORDS:
+        raise ValueError(f"payload must be (N, nb, W) with 1 <= W <= {MAX_WORDS},"
+                         f" got {tuple(payload.shape)}")
+    n, nb, num_words = payload.shape
+    dev = payload.device
+    _check(payload, "payload", torch.int32, (n, nb, num_words), dev)
+    _check(emax, "emax", torch.int32, (n, nb), dev)
+    _check(nplanes, "nplanes", torch.int32, (n, nb), dev)
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be (B,), got {tuple(idx.shape)}")
+    _check(idx, "idx", torch.int64, (idx.shape[0],), dev)
+    lead, h, w, ph, pw = check_field(nb, padded_shape, shape)
+    batch = idx.shape[0]
+    if batch * nb >= 2 ** 31:
+        raise ValueError(f"a batch of {batch} x {nb} blocks exceeds 2^31 blocks")
+    fn = getattr(build()["zfp_fa_decode"], GATHER_ENTRY)
+    out = torch.empty((batch,) + tuple(shape), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fn(payload.data_ptr(), emax.data_ptr(), nplanes.data_ptr(),
+                     idx.data_ptr(), out.data_ptr(), n, batch, nb, num_words, lead,
+                     h, w, ph, pw, stream),
+                  "zfp_decode_blocks_fa (gathered)")
     _counted("zfp_decode_blocks_fa")
     return out
 
