@@ -17,13 +17,25 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs three paths at full
+tolerance, asserting which variant ran, then runs four paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
   memory): encode a synthetic study into a device-resident store and train
   the DCGAN surrogate with the gathered decode (one launch a batch) + L1 +
   Adam on the card;
+* the certification path (the paper's steps 5-7): a 4-seed ensemble on
+  stacked parameters (one vmapped step, one gathered decode a step for all
+  members) held to its members run one by one, and a member trained on
+  another member's batches shown to fail the same limits; one step's
+  gather from the shared store and from the sweep's stacked candidate
+  stores held bit for bit to the plain decode and to each member's own
+  store; Algorithm 1 on every sample,
+  fused (plain PyTorch stats) against unfused (kernels 2 and 1) bit for
+  bit and against the CPU; ``certify_tolerance`` with device-resident
+  candidate stores at six tolerance multiples (the band, the verdicts, the
+  stores' bounds, the artifact read back); and the ensemble on one shared
+  and on two per-member host-streaming sharded stores;
 * the host-streaming path (workflows 1 and 2 from disk): write a raw store,
   a per-sample fixed-accuracy store, a sharded store and a per-sample
   fixed-rate store to a temporary directory (removed at exit), and train
@@ -38,8 +50,12 @@ model width:
   logits compared.
 
 It prints the card's name and power limit, per run the median step time,
-the summed fetch wait and the store's ``IoStats``, the serving rates and
-latencies, the attention variants' times at the main path's shapes beside
+the summed fetch wait and the store's ``IoStats``, the ensemble's and the
+sweep's step medians beside the single model's, the kernels per ensemble
+step and its device busy share, Algorithm 1's seconds and iterations, the
+candidate stores' build times and the certification's summary and verdict,
+the serving rates and latencies, the attention variants' times at the main
+path's shapes beside
 the scalar variant's, the plain version's, each SDPA backend's and the
 bound, one ``kernels`` JSON line (launches on the paths, agreement, times,
 bounds and the library yardstick; kernel 5 also per variant), and as its
@@ -97,6 +113,26 @@ SHARD_SIZE = 32
 # worth plus one, and counts that leave a CTA (16 blocks) partly filled
 CHECK_NB = (1, 2, 3, 31, 33, 4103)
 WORKSPACE_MBS = 145.65
+# certification path (main path steps 5-7) on the same model and samples:
+# four seeds, 10 ensemble steps against the members run one by one, then
+# certify_tolerance at the JAX package's default multiples for two epochs
+# (102 steps) with the first 256 samples as its eval set
+ENS_SEEDS = (0, 1, 2, 3)
+ENS_STEPS = 10
+CERT_MULTIPLES = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0)
+CERT_EPOCHS = 2
+EVAL_SAMPLES = 256
+# ensemble vs its members run one by one (the vmapped convolutions are
+# grouped, so cuDNN runs other algorithms; an L1 gradient sign that float
+# noise flips moves an element by 2 LR a step): logged losses to
+# ENS_LOSS_RTOL; final params by the quantile criterion of
+# tests/test_ensemble.py:43-58 and, per parameter tensor, by the distance to
+# the run alone over the run alone's own movement from its initial values
+# (ENS_PARAM_REL).  A planted fault, a member trained on another member's
+# batches, must exceed both ENS_LOSS_RTOL and ENS_PARAM_REL.
+ENS_LOSS_RTOL = 1e-4
+ENS_PARAM_REL = 0.1
+ENS_PARAM_MAX, ENS_PARAM_Q99, ENS_PARAM_MEDIAN = 2e-2, 1e-3, 1e-4
 # LM serving path: internlm2-1.8b at full width (configs/registry.py), 16
 # requests of the seeded mixed workload, 8 slots, max_seq 1088 (the longest
 # prompt plus the longest generation)
@@ -379,6 +415,82 @@ def profile_steps(store, cond, model, transform, steps: int = 10) -> None:
     print(f"kernels per device-resident step: "
           f"{'not measured' if per_step is None else f'{per_step:.1f}'} "
           f"(before the gathered decode: {PARENT_KERNELS_PER_STEP})")
+    return per_step
+
+
+def profile_ensemble_steps(data, cond, cfg, steps: int = 10):
+    """Trace ``steps`` fused ensemble steps on device-resident data: one
+    store shared by the ``ENS_SEEDS`` members, or a list of per-member
+    stores (the sweep's stacked payload); print the device's busy share and
+    where its time goes, and return the kernels per step (None where not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.ensemble import init_ensemble
+    from repro_torch.data import EnsembleLoader, ShardedLoader, channels_last
+    from repro_torch.models.surrogate import init_surrogate
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+    from repro_torch.train.source import make_ensemble_source, make_fused_ensemble_step
+    stores = data if isinstance(data, list) else [data] * len(ENS_SEEDS)
+    seeds = list(range(len(stores)))
+    source = make_ensemble_source(data, cond, channels_last)
+    opt_cfg = AdamConfig(lr=LR)
+    step = make_fused_ensemble_step(source, init_surrogate(cfg, 0, source.device), opt_cfg)
+    params = init_ensemble(cfg, seeds, source.device)
+    opt = adam_init(params, opt_cfg)
+    loader = EnsembleLoader([ShardedLoader(st.num_samples, BATCH, seed=s)
+                             for st, s in zip(stores, seeds)])
+    idxs = [source.fetch(i) for i, _ in zip(loader, range(steps + 2))]
+    for idx in idxs[:2]:
+        params, opt, loss = step(params, opt, idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for idx in idxs[2:]:
+            params, opt, loss = step(params, opt, idx)
+            loss.cpu()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    what = "the sweep's candidate stores" if isinstance(data, list) else "one shared store"
+    print(f"ensemble step ({len(stores)} members, {what}):", end=" ")
+    return print_profile(prof, wall_ms, steps, "step")
+
+
+def profile_member_loop(store, cond, cfg, steps: int = 10):
+    """The sequential alternative to the ensemble step: the ``ENS_SEEDS``
+    members as single models, one fused step each, back to back (one host
+    sync at the end of the four).  Traces ``steps`` such rounds; returns
+    the kernels per round (None where not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import ShardedLoader, channels_last
+    from repro_torch.models.surrogate import init_surrogate
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+    from repro_torch.train.source import make_batch_source, make_fused_step
+    source = make_batch_source(store, cond, channels_last)
+    opt_cfg = AdamConfig(lr=LR)
+    members = []
+    for s in ENS_SEEDS:
+        model = init_surrogate(cfg, s, store.device)
+        idxs = [source.fetch(i) for i in
+                ShardedLoader(store.num_samples, BATCH, seed=s).take(steps + 2)]
+        members.append([make_fused_step(source, model, opt_cfg),
+                        adam_init(dict(model.named_parameters()), opt_cfg), idxs])
+
+    def round_(i):
+        for m in members:
+            m[1], loss = m[0](m[1], m[2][i])
+        return loss
+
+    for i in range(2):
+        round_(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, steps + 2):
+            round_(i).cpu()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    print(f"{len(ENS_SEEDS)} single models one after another:", end=" ")
+    return print_profile(prof, wall_ms, steps, "round")
 
 
 def decode_indices_kernels(store, idx: torch.Tensor):
@@ -576,7 +688,13 @@ def main(argv) -> int:
             "predict_fields gives finite (8, 96, 32, 6) fields")
     gather_checks(dev, store)
 
-    # -- 6. host-streaming path: stores on disk, decoded per batch ----------------
+    # -- 6. certification path: seed ensemble, Algorithm 1, certify_tolerance ----
+    print(f"certification phase starts {time.perf_counter() - t_start:.1f} s since start",
+          flush=True)
+    cert = certification_path(dev, samples, cond, cfg_full, store,
+                              statistics.median(step_ms))
+
+    # -- 7. host-streaming path: stores on disk, decoded per batch ----------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
         host = host_streaming_path(tmp.name, samples, cond, cfg_full, store)
@@ -584,7 +702,7 @@ def main(argv) -> int:
         tmp.cleanup()
     host_launches, fr_store_words, shard_batch = host
 
-    # -- 7. times at the main-path shapes ----------------------------------------
+    # -- 8. times at the main-path shapes ----------------------------------------
     codec = codec_timings(dev, samples, store, tuple(t.to(dev) for t in shard_batch), {})
     blocks, _ = whole_store(dev, samples, spread=False)
     require(same_bits(zfp_codec.zfp_encode_blocks(blocks, FR_BITS)[0].reshape(N_SAMPLES, -1),
@@ -592,17 +710,25 @@ def main(argv) -> int:
             "fixed-rate store words == the whole-store encode kernel's")
     del blocks
 
-    # -- 8. where a step's device time goes (profiler on; launches not counted)
-    profile_steps(store, cond, model, channels_last)
+    # -- 9. where a step's device time goes (profiler on; launches not counted)
+    single_kernels = profile_steps(store, cond, model, channels_last)
+    ens_kernels = profile_ensemble_steps(store, cond, cfg_full)
+    sweep_kernels = profile_ensemble_steps(cert.pop("sweep_stores"), cond, cfg_full)
+    loop_kernels = profile_member_loop(store, cond, cfg_full)
+    fmt = lambda k: "not measured" if k is None else f"{k:.1f}"
+    print(f"kernels per step: single model {fmt(single_kernels)}, ensemble of "
+          f"{len(ENS_SEEDS)} {fmt(ens_kernels)}, sweep of {len(CERT_MULTIPLES)} "
+          f"{fmt(sweep_kernels)}, {len(ENS_SEEDS)} single models one after another "
+          f"{fmt(loop_kernels)}")
     del store, model, samples, cond
     torch.cuda.empty_cache()
 
-    # -- 9. LM serving path at full width: internlm2-1.8b, kernel 5 ---------------
+    # -- 10. LM serving path at full width: internlm2-1.8b, kernel 5 --------------
     print(f"LM phase starts {time.perf_counter() - t_start:.1f} s since start", flush=True)
     attn = lm_serving_path(dev, smi)
 
     def launches(name):
-        return resident_launches[name] + host_launches[name]
+        return resident_launches[name] + cert["launches"][name] + host_launches[name]
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
@@ -617,7 +743,9 @@ def main(argv) -> int:
         require(k["launches"] > 0, f"{k['name']} launched on the paths "
                                    f"({k['launches']} times)")
     print(f"card: {smi}; device-resident step median {statistics.median(step_ms):.3f} "
-          f"ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
+          f"ms; ensemble step median ({len(ENS_SEEDS)} members) {cert['ensemble_ms']:.3f} "
+          f"ms, sweep step median ({len(CERT_MULTIPLES)} candidates) "
+          f"{cert['sweep_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
           f"{attn['timings']['decode']['ms']:.4f} ms; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -1523,6 +1651,343 @@ def lm_serving_path(dev, smi: str) -> dict:
                 "scalar": {"launches": by_variant["scalar"]}},
             "launches_by_run": launches, "timings": timings,
             "logit_max_abs_diff": err, "greedy_agreement": agree / n}
+
+
+def _as_bits(a: np.ndarray) -> np.ndarray:
+    a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def deciding_l1_near_e(sample: np.ndarray, e: float, dev, max_ulp: int = 2) -> list:
+    """Where the card's and the CPU's searches of one sample end apart: the
+    tolerances t0 * 2^k (k = -8..8) both searches can reach, the L1 each
+    device gives there, and every k where the two decide ``l1 <= e``
+    differently.  Returns those [(k, l1 on the card, l1 on the CPU)] and
+    fails unless there is one and each of its L1s lies within ``max_ulp``
+    ulp of ``e``."""
+    from repro_torch.compression import FixedAccuracyCodec
+    from repro_torch.core.tolerance import C_D
+    codec = FixedAccuracyCodec()
+    e32 = np.float32(e)
+    t0 = (np.float32(16.0) * e32) * (np.float32(1.0) / np.float32(C_D[2]))
+    ts = np.array([t0 * np.float32(2.0 ** k) for k in range(-8, 9)], np.float32)
+    xs = np.repeat(sample[None], len(ts), axis=0)
+    l1 = {}
+    for where in (dev, torch.device("cpu")):
+        x = torch.from_numpy(xs).to(where)
+        l1[where.type], _ = codec.stats(codec.precompute(x), torch.from_numpy(ts).to(where))
+    card, cpu = l1[dev.type].cpu().numpy(), l1["cpu"].numpy()
+    flips = [(k, float(a), float(b)) for k, a, b in zip(range(-8, 9), card, cpu)
+             if (a <= e32) != (b <= e32)]
+    ulp = float(np.spacing(e32))
+    require(bool(flips) and all(abs(a - e32) <= max_ulp * ulp and abs(b - e32) <= max_ulp * ulp
+                                for _, a, b in flips),
+            f"the card's and the CPU's searches part where an L1 lies within {max_ulp} ulp "
+            f"of e ({flips})")
+    return flips
+
+
+def ensemble_gather_check(data, cond, idx_np: np.ndarray, what: str) -> None:
+    """One ensemble step's gather on the card: ``DeviceEnsembleSource.gather``
+    of (M, B) indices from one shared store or per-member stores (padded and
+    stacked), bit for bit against the plain gathered decode (CPU) of the
+    same arrays at the same offset indices, and against each member's store
+    decoding its own row of indices."""
+    from repro_torch.kernels import ref
+    from repro_torch.train.source import make_ensemble_source
+    source = make_ensemble_source(data, cond)
+    idx = source.fetch(idx_np)
+    _, got = source.gather(idx)
+    st = source.store
+    flat = (idx if source.offsets is None else idx + source.offsets).reshape(-1)
+    rows = [a[flat].cpu() for a in (st.payload, st.emax, st.nplanes)]
+    want = ref.zfp_decode_blocks_fa_gather_ref(*rows, torch.arange(flat.numel()),
+                                               st.padded_shape, st.shape)
+    stores = data if isinstance(data, list) else [data] * idx.shape[0]
+    own = [same_bits(got[m], s.decode_indices(idx[m])) for m, s in enumerate(stores)]
+    require(same_bits(got.reshape(want.shape), want) and all(own),
+            f"{what}: one step's gather of {tuple(idx.shape)} indices from "
+            f"{tuple(st.payload.shape)} words == the plain gathered decode of the same "
+            f"arrays and each member's own store decode, bit for bit (per member {own})")
+
+
+def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
+                       single_ms: float) -> dict:
+    """Main path steps 5-7 at full width: the seed ensemble against its
+    members run one by one, Algorithm 1 fused against unfused on all
+    samples (and against the CPU on ``CHECK_SAMPLES``), ``certify_tolerance``
+    with device-resident candidate stores, and the ensemble on host-streaming
+    sharded stores.  Returns {"launches": kernel launches on these paths,
+    "ensemble_ms", "sweep_ms": step medians}.  Launches made by the checks
+    (the runs one by one, the CPU comparisons, the stores' bound checks)
+    are not counted."""
+    import dataclasses
+    from repro_torch.core import ensemble as ens_mod
+    from repro_torch.core import find_tolerance_batch
+    from repro_torch.core.ensemble import BandArtifact, certify_tolerance, train_ensemble
+    from repro_torch.data import (DeviceResidentCompressedStore, EnsembleLoader,
+                                  ShardAwareLoader, ShardedCompressedStore, channels_last)
+    from repro_torch.kernels import zfp_codec
+    from repro_torch.models.surrogate import init_surrogate
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.train.loop import TrainConfig, train_surrogate
+    from repro_torch.train.source import make_loader
+
+    launches = {k: 0 for k in zfp_codec.LAUNCHES}
+
+    def counted(fn):
+        """Run one piece of the path with the counts set to 0 just before
+        it; add what it launched to the phase's counts."""
+        zfp_codec.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(zfp_codec.LAUNCHES)
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    hist = get_registry().histogram("ensemble.step_seconds")
+    n = len(samples)
+    seeds = list(ENS_SEEDS)
+
+    # (1) the ensemble equals its members run one by one
+    tc = TrainConfig(epochs=1, batch_size=BATCH, lr=LR, log_every=1, max_steps=ENS_STEPS)
+
+    def loader():
+        return EnsembleLoader([make_loader(store, BATCH, seed=s) for s in seeds])
+
+    hist.reset()
+    ens, got = counted(lambda: train_ensemble(cfg, tc, cond, store, seeds,
+                                              target_transform=channels_last,
+                                              loader=loader(), device=DEV))
+    ens_ms = 1e3 * hist.percentile(50)
+    print(f"seed ensemble ({len(seeds)} members, device-resident): {ens.steps} steps "
+          f"{ens.seconds:.3f} s, step median {ens_ms:.3f} ms (steps 2..{ens.steps}; "
+          f"single model, phase 4: {single_ms:.3f} ms); launches {got}", flush=True)
+    require(ens.steps == ENS_STEPS and all(np.isfinite(l).all() for _, l in ens.losses),
+            f"{ENS_STEPS} ensemble steps with finite losses")
+    require(got["zfp_decode_blocks_fa"] == ENS_STEPS,
+            f"zfp_decode_blocks_fa launched once per ensemble step for all "
+            f"{len(seeds)} members ({got['zfp_decode_blocks_fa']} launches, "
+            f"{ENS_STEPS} steps)")
+    ensemble_gather_check(store, cond, next(iter(loader())),
+                          f"{len(seeds)} members on one shared resident store")
+
+    def apart(got_p, got_l, want, want_l, init):
+        """How far a run is from the member run alone: the worst relative
+        difference of the logged losses; the largest ||got - want|| /
+        ||want - init|| over the parameter tensors the run alone moved; the
+        max, 99th percentile and median of |got - want| over all of them."""
+        loss = float(np.abs(np.asarray(got_l) / np.asarray(want_l) - 1).max())
+        rel = max(float((got_p[k] - want[k]).norm() / (want[k] - init[k]).norm())
+                  for k in want if bool((want[k] != init[k]).any()))
+        d = torch.cat([(got_p[k] - want[k]).abs().flatten() for k in want]).cpu().numpy()
+        return loss, rel, float(d.max()), float(np.quantile(d, 0.99)), float(np.median(d))
+
+    members, others = loader(), loader()
+    for m, s in enumerate(seeds):
+        def alone(member_loader):
+            model, losses = train_surrogate(cfg, dataclasses.replace(tc, seed=s), cond,
+                                            store, target_transform=channels_last,
+                                            loader=member_loader, device=DEV)
+            return model.state_dict(), [l for _, l in losses]
+
+        want, want_l = alone(members.loaders[m])
+        init = init_surrogate(cfg, s, dev).state_dict()
+        loss, rel, mx, q99, med = apart(ens.member_params(m), [l[m] for _, l in ens.losses],
+                                        want, want_l, init)
+        # planted fault: member m's seed trained on the next member's batches
+        f_loss, f_rel, f_mx, f_q99, f_med = apart(
+            *alone(others.loaders[(m + 1) % len(seeds)]), want, want_l, init)
+        print(f"member {m} (seed {s}) against its run alone: losses worst rel {loss:.3e}, "
+              f"params rel {rel:.3e}, max {mx:.3e}, 99th {q99:.3e}, median {med:.3e}; "
+              f"planted fault (member {(m + 1) % len(seeds)}'s batches): losses {f_loss:.3e}, "
+              f"params rel {f_rel:.3e}, max {f_mx:.3e}, 99th {f_q99:.3e}, median "
+              f"{f_med:.3e}", flush=True)
+        require(loss <= ENS_LOSS_RTOL and rel < ENS_PARAM_REL and mx < ENS_PARAM_MAX
+                and q99 < ENS_PARAM_Q99 and med < ENS_PARAM_MEDIAN,
+                f"ensemble member {m} (seed {s}) == its run alone: losses worst rel "
+                f"{loss:.2e} <= {ENS_LOSS_RTOL}; params rel {rel:.2e} < {ENS_PARAM_REL}, "
+                f"max {mx:.2e} < {ENS_PARAM_MAX}, 99th {q99:.2e} < {ENS_PARAM_Q99}, "
+                f"median {med:.2e} < {ENS_PARAM_MEDIAN}")
+        require(f_loss > ENS_LOSS_RTOL and f_rel > ENS_PARAM_REL,
+                f"a member fed another member's batches fails both limits: losses "
+                f"{f_loss:.2e} > {ENS_LOSS_RTOL}, params rel {f_rel:.2e} > {ENS_PARAM_REL}")
+
+    # (2) Algorithm 1 on every sample: fused (plain PyTorch stats) == unfused
+    # (kernels 2 + 1), bit for bit; the card against the CPU on CHECK_SAMPLES
+    e = float(np.mean(ens.losses[-1][1]))
+    es = np.full(n, e, np.float32)
+    t0 = time.perf_counter()
+    fused, got_f = counted(lambda: find_tolerance_batch(samples, es, device=DEV))
+    fused_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    unfused, got_u = counted(lambda: find_tolerance_batch(samples, es, fused=False,
+                                                          device=DEV))
+    unfused_s = time.perf_counter() - t0
+    print(f"Algorithm 1 on {n} samples at e = {e:.7f}: fused {fused_s:.3f} s (launches "
+          f"{got_f}), unfused {unfused_s:.3f} s (launches {got_u}); max iterations "
+          f"{int(fused.iterations.max())}, iteration counts "
+          f"{ {int(k): int(v) for k, v in zip(*np.unique(fused.iterations, return_counts=True))} }, "
+          f"median tolerance {float(np.median(fused.tolerance)):.6g}, median ratio "
+          f"{float(np.median(fused.ratio)):.4f}", flush=True)
+    for field in ("tolerance", "compression_l1", "ratio", "iterations"):
+        require(np.array_equal(_as_bits(getattr(fused, field)),
+                               _as_bits(getattr(unfused, field))),
+                f"Algorithm 1 fused == unfused bit for bit: {field} of {n} samples")
+    require(got_u["zfp_encode_blocks_fa"] > 0 and got_u["zfp_decode_blocks_fa"] > 0,
+            "the unfused search ran kernels 2 and 1")
+    cpu = find_tolerance_batch(samples[:CHECK_SAMPLES], es[:CHECK_SAMPLES], device="cpu")
+    apart = [i for i in range(CHECK_SAMPLES)
+             if fused.tolerance[i] != cpu.tolerance[i]
+             or fused.iterations[i] != cpu.iterations[i]]
+    for i in apart:
+        deciding_l1_near_e(samples[i], e, dev)
+    keep = np.setdiff1d(np.arange(CHECK_SAMPLES), apart)
+    require(all(np.array_equal(_as_bits(getattr(fused, f)[:CHECK_SAMPLES][keep]),
+                               _as_bits(getattr(cpu, f)[keep]))
+                for f in ("tolerance", "compression_l1", "ratio", "iterations")),
+            f"Algorithm 1 on the card == the CPU plain path on {CHECK_SAMPLES} samples "
+            f"(bit for bit; {len(apart)} apart, each where an L1 lies within 2 ulp of e)")
+
+    # (3) certification end to end: device-resident candidate stores
+    fields_cl = np.ascontiguousarray(samples.transpose(0, 2, 3, 1))
+    builds, runs = [], []
+    from_samples = DeviceResidentCompressedStore.from_samples
+    real_train = ens_mod.train_ensemble
+
+    def recording_build(*a, **k):
+        t0 = time.perf_counter()
+        st = from_samples(*a, **k)
+        torch.cuda.synchronize()
+        builds.append((st, time.perf_counter() - t0))
+        return st
+
+    def timed_train(*a, **k):
+        hist.reset()
+        res = real_train(*a, **k)
+        runs.append((res.num_members, res.steps, 1e3 * hist.percentile(50)))
+        return res
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cert_")
+    tracer = obs_trace.configure(run="certify")
+    try:
+        with mock.patch.object(DeviceResidentCompressedStore, "from_samples",
+                               staticmethod(recording_build)), \
+                mock.patch.object(ens_mod, "train_ensemble", timed_train):
+            t0 = time.perf_counter()
+            res, got_c = counted(lambda: certify_tolerance(
+                cfg, TrainConfig(epochs=CERT_EPOCHS, batch_size=BATCH, lr=LR,
+                                 log_every=1),
+                cond, fields_cl, eval_conditions=cond[:EVAL_SAMPLES],
+                eval_targets=fields_cl[:EVAL_SAMPLES], seeds=seeds,
+                multiples=CERT_MULTIPLES, shard_size=SHARD_SIZE, device_resident=True,
+                artifact_dir=tmp.name, device=DEV))
+            cert_s = time.perf_counter() - t0
+        spans = {ev["name"]: ev for ev in tracer.events() if ev["ph"] == "X"}
+        back = BandArtifact.load(tmp.name)
+        require(back.seeds == seeds and set(back.trajectories) == set(res.band.trajectories)
+                and all(np.array_equal(back.trajectories[k], v)
+                        for k, v in res.band.trajectories.items()),
+                "BandArtifact.load reads back the saved band")
+        require(os.path.exists(os.path.join(tmp.name, "certification.json")),
+                "certification.json written")
+    finally:
+        obs_trace.shutdown(write=False)
+        tmp.cleanup()
+    summary = res.summary()
+    print(f"certify_tolerance: {cert_s:.3f} s; spans (s): " + ", ".join(
+        f"{k} {spans[k]['dur']:.3f}" for k in ("certify.seed_ensemble", "certify.algorithm1",
+                                              "certify.build_stores", "certify.lossy_sweep")
+        if k in spans) + f"; Algorithm 1 max iterations "
+          f"{spans['tolerance.search_batch']['args'].get('max_iterations')}; launches {got_c}")
+    require(len(runs) == 2, f"certification trained two ensembles ({len(runs)})")
+    (n_raw, steps_raw, raw_ms), (n_sweep, steps_sweep, sweep_ms) = runs
+    print(f"step medians: seed ensemble ({n_raw} members, raw store) {raw_ms:.3f} ms over "
+          f"{steps_raw} steps, lossy sweep ({n_sweep} candidates, one stacked resident "
+          f"payload) {sweep_ms:.3f} ms over {steps_sweep} steps; single model (phase 4) "
+          f"{single_ms:.3f} ms")
+    stores = [st for st, _ in builds]
+    wmax = max(int(st.payload.shape[-1]) for st in stores)
+    stacked = len(stores) * n * stores[0].nb * (wmax + 2) * 4
+    print("candidate stores: " + "; ".join(
+        f"x{m:g} build {sec:.3f} s, width {st.payload.shape[-1]}, ratio {st.ratio:.4f}"
+        for m, (st, sec) in zip(CERT_MULTIPLES, builds)) +
+        f"; stacked sweep payload resident {stacked} bytes ({stacked / 1e6:.1f} MB)")
+    print("certification summary: " + json.dumps(summary))
+    mb = res.max_benign
+    print(f"certification verdict: model L1 e = {res.model_l1_error:.7f}; max benign "
+          f"multiple {None if mb is None else mb.multiple}, ratio "
+          f"{None if mb is None else round(mb.ratio, 4)}; per candidate " + ", ".join(
+              f"x{c.multiple:g} {'benign' if c.benign else 'degraded'}"
+              for c in res.candidates), flush=True)
+    # the ratio grows with the multiple until every block keeps zero planes
+    # (headers only: 2 bytes a block)
+    ratios = [c.ratio for c in res.candidates]
+    headers_only = samples[0].nbytes / (2 * stores[0].nb)
+    require([c.multiple for c in res.candidates] == list(CERT_MULTIPLES)
+            and all(b > a or a >= headers_only for a, b in zip(ratios, ratios[1:])),
+            f"the ratio grows with the multiple ({[round(r, 4) for r in ratios]}; "
+            f"headers only {headers_only:g})")
+    require(steps_raw == steps_sweep == CERT_EPOCHS * (n // BATCH),
+            f"seed ensemble and sweep ran {CERT_EPOCHS} epochs ({steps_raw}, "
+            f"{steps_sweep} steps)")
+    require(got_c["zfp_encode_blocks_fa"] >= len(CERT_MULTIPLES)
+            and got_c["zfp_decode_blocks_fa"] >= steps_sweep,
+            "certification encoded every candidate store (kernel 2) and decoded every "
+            "sweep step (kernel 1)")
+    for m, st in zip(CERT_MULTIPLES, stores):
+        require(np.array_equal(st.tolerances, res.base_tolerances * np.float32(m)),
+                f"x{m:g} store holds the base tolerances times {m:g}")
+        within, worst = True, 0.0
+        for i in range(0, n, 256):
+            idx = torch.arange(i, min(i + 256, n), device=dev)
+            err = (st.decode_indices(idx) - torch.from_numpy(samples[i:i + 256]).to(dev))
+            err = err.abs().amax(dim=(1, 2, 3)).cpu().numpy()
+            within &= bool((err <= st.tolerances[i:i + 256]).all())
+            worst = max(worst, float((err / st.tolerances[i:i + 256]).max()))
+        require(within, f"x{m:g} store decodes within its per-sample L-inf "
+                        f"tolerances (worst error / tolerance {worst:.4f})")
+    sweep_idx = next(iter(EnsembleLoader([
+        ShardAwareLoader(n, BATCH, SHARD_SIZE, seed=seeds[0]) for _ in stores])))
+    ensemble_gather_check(stores, cond, sweep_idx,
+                          f"the sweep's {len(stores)} candidate stores, stacked")
+    sweep_stores = stores
+    del builds, res
+
+    # (4) the ensemble on host-streaming sharded stores (kernel 3 per batch)
+    tc_host = dataclasses.replace(tc, prefetch=2)
+
+    def sharded(tol):
+        return ShardedCompressedStore(samples, np.full(n, tol, np.float32),
+                                      shard_size=SHARD_SIZE, device=DEV)
+
+    def host_run(tols, member_seeds):
+        """Build a store per tolerance, then train: one store shared by all
+        members, or one store per member."""
+        stores = [sharded(t) for t in tols]
+        data = stores[0] if len(stores) == 1 else stores
+        return stores, train_ensemble(cfg, tc_host, cond, data, member_seeds,
+                                      target_transform=channels_last, device=DEV)
+
+    for what, tols, member_seeds in (
+            ("one shared sharded store (union fetch)", (TOLERANCE,), seeds),
+            ("two per-member sharded stores", (TOLERANCE, 10 * TOLERANCE), [0, 0])):
+        hist.reset()
+        (stores, run), got_h = counted(lambda: host_run(tols, member_seeds))
+        batches = sum(st.stats.batches for st in stores)
+        print(f"host ensemble, {what}: {run.steps} steps, step median "
+              f"{1e3 * hist.percentile(50):.3f} ms, {batches} batches read, launches "
+              f"{got_h}", flush=True)
+        require(run.steps == ENS_STEPS and all(np.isfinite(l).all() for _, l in run.losses),
+                f"{ENS_STEPS} finite ensemble steps from {what}")
+        require(got_h["zfp_decode_blocks"] == batches >= ENS_STEPS * len(stores),
+                f"zfp_decode_blocks decoded every batch from {what} "
+                f"({got_h['zfp_decode_blocks']} launches, {batches} batches)")
+    print(f"certification path: launches {launches}")
+    return {"launches": launches, "ensemble_ms": ens_ms, "sweep_ms": sweep_ms,
+            "sweep_stores": sweep_stores}
 
 
 def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,

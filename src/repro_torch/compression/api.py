@@ -21,7 +21,8 @@ from repro_torch.compression import transform as T
 from repro_torch.compression.zfp import (CompressedField,
                                          compressed_nbytes_batch, crop,
                                          encode_fixed_accuracy_batch,
-                                         encode_fixed_rate_batch)
+                                         encode_fixed_rate_batch,
+                                         fa_precompute_batch, fa_stats_batch)
 
 
 def decode_stacked_payloads(payload, emax, padded_shape, shape,
@@ -76,6 +77,12 @@ class FixedAccuracyCodec:
 
     def nbytes(self, cf: CompressedField) -> torch.Tensor:
         return compressed_nbytes_batch(cf, mode="fixed_accuracy")
+
+    # stats-only roundtrip for Algorithm 1's search: the tolerance-
+    # independent encode state once, then (L1, nbytes) per candidate
+    # tolerance with no packing (plain PyTorch on either device)
+    precompute = staticmethod(fa_precompute_batch)
+    stats = staticmethod(fa_stats_batch)
 
 
 @dataclasses.dataclass(frozen=True)

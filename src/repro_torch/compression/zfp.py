@@ -8,8 +8,9 @@ in fixed-rate mode.  The batch functions route the per-block work through
 on the card and runs the plain version for tensors on the CPU; both give
 the same bits.
 
-``FAEncodeState`` and the stats-only search (``fa_stats_batch``) are not
-ported yet (ROADMAP Queue 1, item 6).
+The stats-only roundtrip of Algorithm 1's search (``FAEncodeState``,
+``fa_precompute_batch``, ``fa_plane_counts``, ``fa_stats_batch``) is plain
+PyTorch on either device, as it is plain jnp in the JAX package.
 """
 from __future__ import annotations
 
@@ -53,6 +54,36 @@ def floor_log2(tols: torch.Tensor) -> torch.Tensor:
     """
     _, e = torch.frexp(tols.to(torch.float32))
     return (e - 1).to(torch.int32)
+
+
+def fixed_accuracy_planes(x: torch.Tensor, u_full: torch.Tensor,
+                          emax: torch.Tensor, tols: torch.Tensor,
+                          log2tols: torch.Tensor) -> torch.Tensor:
+    """Per-block plane counts of the fixed-accuracy encode, (nb,) int32.
+
+    ``x`` (nb, 16) flushed block values, ``u_full`` their full-precision
+    negabinary coefficients, ``emax`` (nb,), ``tols`` (nb,) flushed
+    tolerances and ``log2tols`` (nb,) ``floor(log2(tol))``.  The guess
+    ``emax - log2tol + GUARD_BITS`` (zero for an all-zero block), then up to
+    ``MAX_FIX_ITERS`` bound-verification passes that add two planes wherever
+    the realized L-inf error exceeds the tolerance.  A pass where no block
+    fails changes nothing, and neither would the passes after it, so the
+    loop stops there.  The error is
+    :func:`~repro_torch.compression.transform.dequantize_minus`, one fused
+    multiply-add as XLA forms it.
+    """
+    npl = torch.clamp(emax - log2tols.to(torch.int32) + GUARD_BITS, 0,
+                      T.TOTAL_PLANES).to(torch.int32)
+    npl = torch.where((u_full == 0).all(dim=-1), torch.zeros_like(npl), npl)
+    for _ in range(MAX_FIX_ITERS):
+        u = T.truncate_planes(u_full, npl)
+        err = T.dequantize_minus(T.inv_transform_2d(T.nb2int(u)), emax,
+                                 x).abs().amax(dim=-1)
+        bad = err > tols
+        if not bool(bad.any()):
+            break
+        npl = torch.where(bad, torch.clamp(npl + 2, max=T.TOTAL_PLANES), npl)
+    return npl
 
 
 def encode_fixed_rate_batch(xs: torch.Tensor,
@@ -103,6 +134,83 @@ def decode_batch(cf: CompressedField) -> torch.Tensor:
     from repro_torch.compression.api import decode_stacked_payloads
     return decode_stacked_payloads(cf.payload, cf.emax, cf.padded_shape,
                                    cf.shape, cf.nplanes)
+
+
+# ---------------------------------------------------------------------------
+# stats-only fixed-accuracy roundtrip (Algorithm 1's inner loop)
+# ---------------------------------------------------------------------------
+# The tolerance search (core/tolerance.py) evaluates many tolerances on the
+# SAME sample stack.  What does not depend on the tolerance -- flush,
+# quantize, forward lift, negabinary -- is computed once into FAEncodeState;
+# each search round then only re-derives the per-block plane counts and
+# reduces the truncated decode to per-sample L1 and logical bytes.  No
+# payload is packed or unpacked: the numbers equal the encode -> decode
+# roundtrip's bit for bit (packing at full width is exact).
+
+
+@dataclasses.dataclass
+class FAEncodeState:
+    """Tolerance-independent encode state of an (N, ...) sample stack.
+
+    xs     : (N, ...) float32 samples (unpadded)
+    blocks : (N*nb, 16) float32 padded block values, flushed as the
+             encoder flushes them
+    u_full : (N*nb, 16) int32 full-precision negabinary coefficients
+    emax   : (N*nb,) int32 per-block exponents
+    padded_shape : one sample's shape after padding
+    """
+    xs: torch.Tensor
+    blocks: torch.Tensor
+    u_full: torch.Tensor
+    emax: torch.Tensor
+    padded_shape: Tuple[int, ...]
+
+
+def fa_precompute_batch(xs: torch.Tensor) -> FAEncodeState:
+    """The tolerance-independent half of the fixed-accuracy encode."""
+    xs = xs.to(torch.float32)
+    xp = T.pad_to_blocks(xs)
+    blocks = T.flush_denormals(T.blockify(xp))           # (N * nb, 16)
+    emax = T.block_emax(blocks)
+    u_full = T.int2nb(T.fwd_transform_2d(T.quantize_blocks(blocks, emax)))
+    return FAEncodeState(xs, blocks, u_full, emax, tuple(xp.shape[1:]))
+
+
+def fa_plane_counts(state: FAEncodeState, tols: torch.Tensor) -> torch.Tensor:
+    """(N,) tolerances -> (N, nb) per-block plane counts, the encoder's
+    (:func:`fixed_accuracy_planes` on the same blocks)."""
+    n = state.xs.shape[0]
+    nb = state.emax.shape[0] // n
+    tols_b = torch.as_tensor(tols, dtype=torch.float32,
+                             device=state.xs.device).repeat_interleave(nb)
+    npl = fixed_accuracy_planes(state.blocks, state.u_full, state.emax,
+                                T.flush_denormals(tols_b), floor_log2(tols_b))
+    return npl.reshape(n, nb)
+
+
+def sample_l1(xd: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Per-sample mean |xd - xs| over every axis but the first, (N,) f32.
+
+    The f32 terms are summed in f64 and the mean rounded once to f32, so
+    the result does not depend on the order a device reduces in: the card
+    and the CPU give the same bits.  The fused and unfused searches both
+    reduce through this function."""
+    return (xd - xs).abs().double().mean(dim=tuple(range(1, xs.dim()))).float()
+
+
+def fa_stats_batch(state: FAEncodeState, tols: torch.Tensor):
+    """Stats-only roundtrip: per-sample ``(l1, nbytes)`` at tolerances
+    ``tols``, equal bit for bit to ``sample_l1(decode(encode(xs, tols)),
+    xs)`` and ``nbytes(encode(xs, tols))``."""
+    n = state.xs.shape[0]
+    npl = fa_plane_counts(state, tols)                   # (N, nb)
+    u = T.truncate_planes(state.u_full, npl.reshape(-1))
+    dec = T.dequantize_blocks(T.inv_transform_2d(T.nb2int(u)), state.emax)
+    xd = crop(T.deblockify(dec, (n,) + tuple(state.padded_shape)),
+              state.xs.shape[1:])
+    nbytes = (_header_bytes_per_block("fixed_accuracy") * npl.shape[1]
+              + 2 * npl.to(torch.int64).sum(dim=-1))
+    return sample_l1(xd, state.xs), nbytes
 
 
 # ---------------------------------------------------------------------------

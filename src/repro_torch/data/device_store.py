@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.compression import (TOTAL_PLANES, CompressedField,
+                                     FixedAccuracyCodec,
                                      compressed_nbytes_batch, get_codec,
                                      trim_to_nplanes)
 from repro_torch.data.store import on_device
@@ -91,22 +92,33 @@ class DeviceResidentCompressedStore:
     @classmethod
     def from_samples(cls, samples: Sequence[np.ndarray] | np.ndarray,
                      tolerances: Sequence[float] | np.ndarray,
+                     shard_size: Optional[int] = None, codec=None,
                      device: DeviceLike = None
                      ) -> "DeviceResidentCompressedStore":
         """Encode channels-first samples (N, C, H, W) on ``device`` (the card
         unless ``device="cpu"``) at per-sample L-inf ``tolerances``, keeping
-        true per-block plane counts."""
+        true per-block plane counts.  ``codec`` defaults to the
+        fixed-accuracy codec and must be one: the store's per-sample
+        tolerances and plane counts mean nothing under another.
+        ``shard_size`` makes the loader shard-aware, so batches come in the
+        order a sharded store of that shard size gives."""
+        if codec is None:
+            codec = get_codec("fixed_accuracy")
+        if not isinstance(codec, FixedAccuracyCodec):
+            raise ValueError("a device-resident store holds fixed-accuracy "
+                             f"payloads; got {type(codec).__name__}")
         dev = resolve_device(device)
         xs = torch.from_numpy(np.stack([np.asarray(s, np.float32)
                                         for s in samples])).to(dev)
         tols = np.asarray(tolerances, np.float32)
-        codec = get_codec("fixed_accuracy")
         cf = codec.encode_batch(xs, torch.from_numpy(tols).to(dev))
         del xs
-        return cls.from_compressed(cf, tols, nbytes=codec.nbytes(cf))
+        return cls.from_compressed(cf, tols, nbytes=codec.nbytes(cf),
+                                   shard_size=shard_size)
 
     @classmethod
-    def from_compressed(cls, cf: CompressedField, tolerances, nbytes=None
+    def from_compressed(cls, cf: CompressedField, tolerances, nbytes=None,
+                        shard_size: Optional[int] = None
                         ) -> "DeviceResidentCompressedStore":
         """Wrap a batched ``CompressedField`` where its tensors already live;
         nothing is re-encoded.  Payload words beyond the deepest kept plane
@@ -116,7 +128,8 @@ class DeviceResidentCompressedStore:
         cf = trim_to_nplanes(cf)
         return cls(cf.payload, cf.emax, cf.nplanes, cf.shape, cf.padded_shape,
                    np.asarray(tolerances, np.float32),
-                   np.asarray(torch.as_tensor(nbytes).cpu(), np.int64))
+                   np.asarray(torch.as_tensor(nbytes).cpu(), np.int64),
+                   shard_size=shard_size)
 
     # -- store protocol ------------------------------------------------------
 

@@ -1,16 +1,15 @@
 """Deterministic, resumable batch order and a prefetching worker.
 
-Copies of ``ShardedLoader``, ``ShardAwareLoader`` and ``PrefetchLoader``
-from ``repro/data/loader.py``: every epoch's order comes from
-``np.random.default_rng((seed, epoch))`` alone, drawn in the same order, so
-the port draws the identical batches in the identical order.
-``EnsembleLoader`` waits for ROADMAP Queue 1 item 6.
+Copies of ``ShardedLoader``, ``ShardAwareLoader``, ``EnsembleLoader`` and
+``PrefetchLoader`` from ``repro/data/loader.py``: every epoch's order comes
+from ``np.random.default_rng((seed, epoch))`` alone, drawn in the same
+order, so the port draws the identical batches in the identical order.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -134,6 +133,58 @@ class ShardAwareLoader(ShardedLoader):
             rng.shuffle(idx)
             chunks.append(idx)
         return np.concatenate(chunks) if chunks else np.empty(0, np.int64)
+
+
+class EnsembleLoader:
+    """N per-seed loaders advanced in lockstep: one draw yields (N, B) indices.
+
+    Member m's index stream is the one its own loader feeds an independent
+    ``train_surrogate`` run (``loader=``), which is what the ensemble
+    trainer is held to.  All members must agree on steps per epoch:
+    ``zip`` would otherwise cut every member's epoch to the shortest.
+    """
+
+    def __init__(self, loaders: Sequence):
+        if not loaders:
+            raise ValueError("EnsembleLoader needs at least one member loader")
+        spes = {ld.steps_per_epoch for ld in loaders}
+        if len(spes) != 1:
+            raise ValueError(f"members disagree on steps/epoch: {sorted(spes)}")
+        self.loaders = list(loaders)
+
+    @property
+    def num_members(self) -> int:
+        return len(self.loaders)
+
+    @property
+    def seeds(self) -> list:
+        return [ld.seed for ld in self.loaders]
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return self.loaders[0].steps_per_epoch
+
+    # -- state: members run in lockstep, so (epoch, step) are shared ---------
+    def state(self) -> dict:
+        lead = self.loaders[0].state()
+        return {"epoch": lead["epoch"], "step_in_epoch": lead["step_in_epoch"],
+                "seeds": list(self.seeds)}
+
+    def restore(self, state: dict) -> None:
+        if len(state["seeds"]) != len(self.loaders):
+            raise ValueError(f"state carries {len(state['seeds'])} seeds for "
+                             f"{len(self.loaders)} members")
+        for ld, seed in zip(self.loaders, state["seeds"]):
+            ld.restore({"epoch": state["epoch"],
+                        "step_in_epoch": state["step_in_epoch"], "seed": seed})
+
+    def iter_epochs(self, max_epochs: Optional[int] = None) -> Iterator[np.ndarray]:
+        its = [ld.iter_epochs(max_epochs) for ld in self.loaders]
+        for batches in zip(*its):
+            yield np.stack(batches)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return self.iter_epochs(None)
 
 
 class PrefetchLoader:

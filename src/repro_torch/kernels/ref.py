@@ -57,23 +57,12 @@ def zfp_encode_blocks_fa_ref(blocks_f: torch.Tensor, tols: torch.Tensor,
     fused multiply-add, so the scaled value is neither flushed nor
     overflowed before the difference.
     """
-    from repro_torch.compression.zfp import GUARD_BITS, MAX_FIX_ITERS
+    from repro_torch.compression.zfp import fixed_accuracy_planes
     x = T.flush_denormals(blocks_f)
     tols = T.flush_denormals(tols.to(torch.float32))
     emax = T.block_emax(x)
     u_full = T.int2nb(T.fwd_transform_2d(T.quantize_blocks(x, emax)))
-    npl = torch.clamp(emax - log2tols.to(torch.int32) + GUARD_BITS, 0,
-                      T.TOTAL_PLANES).to(torch.int32)
-    npl = torch.where((u_full == 0).all(dim=-1), torch.zeros_like(npl), npl)
-
-    def block_err(npl):
-        u = T.truncate_planes(u_full, npl)
-        return T.dequantize_minus(T.inv_transform_2d(T.nb2int(u)), emax,
-                                  x).abs().amax(dim=-1)
-
-    for _ in range(MAX_FIX_ITERS):
-        bad = block_err(npl) > tols
-        npl = torch.where(bad, torch.clamp(npl + 2, max=T.TOTAL_PLANES), npl)
+    npl = fixed_accuracy_planes(x, u_full, emax, tols, log2tols)
     payload = T.pack_planes(T.truncate_planes(u_full, npl), T.MAX_WORDS)
     return payload, emax, npl
 

@@ -4,15 +4,21 @@ Counterpart of ``repro/models/surrogate.py``: condition vector -> dense ->
 (C, H/16, W/16) -> four upsampling stages (each convT + conv) -> output
 conv.  The module runs NCHW inside; :meth:`Surrogate.forward` returns the
 JAX package's (B, H, W, fields) layout.
+
+A seed ensemble keeps its members' parameters stacked, ``{name: (N,
+...)}`` (:func:`stack_params`), and runs them through one module skeleton
+with :func:`functional_forward` (``torch.func.functional_call``), the form
+``torch.func.vmap`` maps over the member axis.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 from torch import nn as tnn
+from torch.func import functional_call
 
 from repro_torch.models import nn
 
@@ -100,6 +106,32 @@ def apply_surrogate(model: Surrogate, cond: torch.Tensor) -> torch.Tensor:
 def l1_loss(model: Surrogate, cond, target) -> torch.Tensor:
     """Paper Eq. 1, mean-reduced; ``target`` is (B, H, W, fields)."""
     return (model(cond) - target).abs().mean()
+
+
+def functional_forward(model: Surrogate, params: Mapping[str, torch.Tensor],
+                       cond: torch.Tensor) -> torch.Tensor:
+    """``model``'s forward with the parameters ``params`` (a state dict)
+    in place of its own: cond (B, cond_dim) -> (B, H, W, fields)."""
+    return functional_call(model, dict(params), (cond,))
+
+
+def functional_l1_loss(model: Surrogate, params: Mapping[str, torch.Tensor],
+                       cond, target) -> torch.Tensor:
+    """:func:`l1_loss` with the parameters ``params``."""
+    return (functional_forward(model, params, cond) - target).abs().mean()
+
+
+def stack_params(members: Sequence[Mapping[str, torch.Tensor]]
+                 ) -> Dict[str, torch.Tensor]:
+    """Member state dicts -> one stacked state dict ``{name: (N, ...)}``."""
+    return {k: torch.stack([torch.as_tensor(m[k]) for m in members])
+            for k in members[0]}
+
+
+def member_params(stacked: Mapping[str, torch.Tensor], m: int
+                  ) -> Dict[str, torch.Tensor]:
+    """Member ``m``'s state dict out of a stacked one."""
+    return {k: v[m] for k, v in stacked.items()}
 
 
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -26,6 +26,7 @@ from typing import Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.data.loader import ShardedLoader
 from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.models.surrogate import Surrogate, SurrogateConfig, init_surrogate
 from repro_torch.obs.metrics import get_registry
@@ -52,6 +53,7 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
                     params: Optional[Mapping[str, torch.Tensor]] = None,
                     hooks: Sequence[Callable] = (),
                     target_transform: Optional[Callable] = None,
+                    loader: Optional[ShardedLoader] = None,
                     device: DeviceLike = None):
     """Train; returns (model, loss_history of (step, loss) pairs).
 
@@ -60,7 +62,10 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     optional state dict, e.g. from
     :func:`repro_torch.models.surrogate.params_from_jax`; otherwise the
     model is initialised from ``train_cfg.seed``.  Each hook is called as
-    ``hook(step, model, loss)`` after every step.
+    ``hook(step, model, loss)`` after every step.  ``loader`` overrides the
+    one built from the store and ``train_cfg.seed``, e.g. one member loader
+    of an ensemble's ``EnsembleLoader``, so that a single run draws that
+    member's batches.
     """
     if train_cfg.ckpt_dir:
         raise NotImplementedError("checkpointing is not ported yet "
@@ -79,7 +84,8 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
         model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
     opt_cfg = AdamConfig(lr=train_cfg.lr)
     opt_state = adam_init(dict(model.named_parameters()), opt_cfg)
-    loader = make_loader(data, train_cfg.batch_size, train_cfg.seed)
+    if loader is None:
+        loader = make_loader(data, train_cfg.batch_size, train_cfg.seed)
     if source.kind == "device":
         train_step = make_fused_step(source, model, opt_cfg)
         prefetch = 0

@@ -38,18 +38,31 @@ def adam_init(params: Tensors, cfg: AdamConfig) -> AdamState:
                      v={k: torch.zeros_like(p) for k, p in params.items()})
 
 
-def global_norm(tensors: Tensors) -> torch.Tensor:
+def global_norm(tensors: Tensors, stacked: bool = False) -> torch.Tensor:
+    """The L2 norm over all tensors, ``()``; with ``stacked``, one norm per
+    member of tensors stacked on a leading member axis, ``(N,)`` (each over
+    dims 1..), never one over the stack."""
+    if stacked:
+        return torch.sqrt(sum(x.float().square().flatten(1).sum(dim=1)
+                              for x in tensors.values()))
     return torch.sqrt(sum(x.float().square().sum() for x in tensors.values()))
 
 
 @torch.no_grad()
 def adam_update(grads: Tensors, state: AdamState, params: Tensors,
-                cfg: AdamConfig, lr_scale: float = 1.0):
-    """Returns (new_params, new_state); inputs are left unchanged."""
+                cfg: AdamConfig, lr_scale: float = 1.0, stacked: bool = False):
+    """Returns (new_params, new_state); inputs are left unchanged.
+
+    ``stacked``: every tensor carries a leading member axis ``(N, ...)``
+    (the seed ensemble).  The moment updates are elementwise, so one update
+    of the stack is N member updates; only ``grad_clip`` differs, and
+    clips each member by its own global norm."""
     if cfg.grad_clip is not None:
-        gn = global_norm(grads)
+        gn = global_norm(grads, stacked)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
-        grads = {k: g * scale for k, g in grads.items()}
+        grads = {k: g * (scale.reshape((-1,) + (1,) * (g.dim() - 1))
+                         if stacked else scale)
+                 for k, g in grads.items()}
     step = state.step + 1
     b1, b2 = cfg.b1, cfg.b2
     m = {k: b1 * state.m[k] + (1 - b1) * g for k, g in grads.items()}

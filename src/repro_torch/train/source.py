@@ -12,11 +12,18 @@ backends, picked per store by :func:`make_batch_source`:
     upload and gather -> decode -> L1 -> backward -> Adam run in the step.
 
 Both steps share one update (:func:`make_update`), so they cannot drift.
-The ensemble sources wait for ROADMAP Queue 1 item 6.
+
+The seed ensemble has the same two backends (:func:`make_ensemble_source`)
+and one update for all members (:func:`make_ensemble_update`):
+``torch.func.vmap`` of ``grad_and_value`` of the L1 loss over the stacked
+parameters, then Adam on the stacks.  The gather + decode of every
+member's batch runs outside the vmap (a kernel reached through ``ctypes``
+cannot run inside it), as one launch of the gathered decode for all
+members.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +31,8 @@ import torch
 from repro_torch.data.device_store import DeviceResidentCompressedStore
 from repro_torch.data.loader import PrefetchLoader, ShardAwareLoader, ShardedLoader
 from repro_torch.data.store import ArrayStore, on_device, upload
-from repro_torch.models.surrogate import Surrogate, l1_loss
+from repro_torch.device import same_device
+from repro_torch.models.surrogate import Surrogate, functional_l1_loss, l1_loss
 from repro_torch.train.optimizer import AdamConfig, AdamState, adam_update
 
 
@@ -183,10 +191,183 @@ def make_host_step(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
 
     def step(opt_state: AdamState, item):
         cond, target = item
-        if target.is_cuda:
-            stream = torch.cuda.current_stream(target.device)
-            cond.record_stream(stream)
-            target.record_stream(stream)
+        _record_on_current_stream(cond, target)
         return update(opt_state, cond, target)
+
+    return step
+
+
+def _record_on_current_stream(*ts: torch.Tensor) -> None:
+    """A batch built on another stream (possibly another thread's): keep
+    its memory from reuse until this thread's stream is done with it."""
+    for t in ts:
+        if t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
+
+
+# ---------------------------------------------------------------------------
+# ensemble sources
+# ---------------------------------------------------------------------------
+
+def _common_device(stores) -> torch.device:
+    dev = stores[0].device
+    if not all(same_device(s.device, dev) for s in stores):
+        raise ValueError("ensemble stores must live on one device; got "
+                         f"{sorted({str(s.device) for s in stores})}")
+    return dev
+
+
+class HostEnsembleSource:
+    """Union fetch (one shared store) or per-member fetch, on the host.
+
+    For a shared store each step fetches the union of the members' index
+    batches once (``np.unique``: one read and one decode) and scatters it
+    back per member, so the data path stays one ``get_batch`` a step
+    whatever the member count.  Per-member stores (one lossy store per
+    tolerance candidate) are read once per member.  ``fetch`` returns
+    ``(cond (N, B, cond_dim), target (N, B, ...))`` on the stores' device.
+    """
+    kind = "host"
+
+    def __init__(self, sources: Sequence, conditions, target_transform=None,
+                 per_member: bool = False):
+        self.device = _common_device(list(sources))
+        self.conditions = np.asarray(conditions, np.float32)
+        self.per_member = per_member
+        self._getters = [make_getter(s, target_transform) for s in sources]
+
+    def fetch(self, idx_stack: np.ndarray):
+        idx_stack = np.asarray(idx_stack)
+        cond, _ = on_device(self.device, lambda: upload(
+            self.device, self.conditions[idx_stack])[0])
+        if self.per_member:
+            parts = [g(idx_stack[m]) for m, g in enumerate(self._getters)]
+            target, _ = on_device(self.device, lambda: torch.stack(parts))
+            return cond, target
+        uniq, inv = np.unique(idx_stack, return_inverse=True)
+        batch = self._getters[0](uniq)
+        target, _ = on_device(self.device, lambda: batch[upload(
+            self.device, inv.reshape(idx_stack.shape))[0]])
+        return cond, target
+
+
+class DeviceEnsembleSource:
+    """All members' batches from resident payloads, in one gathered decode.
+
+    Shared store: every member gathers its own indices from the same
+    resident arrays, flattened to one ``(N * B,)`` index vector.  Per-member
+    stores (one lossy store per tolerance candidate): their payloads are
+    padded to a common width and stacked ``(M, S, nb, W)`` once, viewed as
+    one store of ``M * S`` samples, and member ``m``'s indices are offset by
+    ``m * S``.  Either way one launch decodes the whole step's data.
+    """
+    kind = "device"
+
+    def __init__(self, stores, conditions, target_transform=None,
+                 per_member: bool = False):
+        stores = list(stores) if per_member else [stores]
+        self.device = _common_device(stores)
+        geometry = {(s.shape, s.padded_shape, s.nb, s.num_samples) for s in stores}
+        if len(geometry) != 1:
+            raise ValueError("per-member device stores must agree on sample "
+                             f"geometry; got {sorted(map(str, geometry))}")
+        self.transform = target_transform
+        self.conditions = torch.as_tensor(np.asarray(conditions, np.float32)
+                                          ).to(self.device)
+        if per_member:
+            wmax = max(int(s.payload.shape[-1]) for s in stores)
+            m, n, nb = len(stores), stores[0].num_samples, stores[0].nb
+            payload = torch.stack([torch.nn.functional.pad(
+                s.payload, (0, wmax - s.payload.shape[-1])) for s in stores])
+            self.store = DeviceResidentCompressedStore(
+                payload.reshape(m * n, nb, wmax),
+                torch.stack([s.emax for s in stores]).reshape(m * n, nb),
+                torch.stack([s.nplanes for s in stores]).reshape(m * n, nb),
+                stores[0].shape, stores[0].padded_shape,
+                np.concatenate([s.tolerances for s in stores]),
+                np.concatenate([s.logical_bytes_per for s in stores]))
+            self.offsets = torch.arange(m, device=self.device)[:, None] * n
+        else:
+            self.store = stores[0]
+            self.offsets = None
+
+    def fetch(self, idx_stack: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(idx_stack), dtype=torch.int64
+                               ).to(self.device)
+
+    def gather(self, idx: torch.Tensor):
+        """(conditions (N, B, cond_dim), decoded targets (N, B, ...)) of one
+        step's (N, B) device indices; one decode launch for all members."""
+        flat = idx if self.offsets is None else idx + self.offsets
+        tgt = self.store.decode_indices(flat.reshape(-1))
+        if self.transform is not None:
+            tgt = self.transform(tgt)
+        return self.conditions[idx], tgt.reshape(idx.shape + tgt.shape[1:])
+
+
+def make_ensemble_source(data, conditions, target_transform=None):
+    """Ensemble source of one shared store or a per-member sequence of
+    stores; device-resident when every store is, and mixing the two
+    raises."""
+    per_member = isinstance(data, (list, tuple))
+    stores = list(data) if per_member else [data]
+    if all(isinstance(s, DeviceResidentCompressedStore) for s in stores):
+        return DeviceEnsembleSource(data, conditions, target_transform,
+                                    per_member=per_member)
+    if any(isinstance(s, DeviceResidentCompressedStore) for s in stores):
+        raise ValueError("cannot mix device-resident and host-streaming "
+                         "stores in one ensemble")
+    for s in stores:
+        if not isinstance(s, ArrayStore):
+            raise TypeError(f"{type(s).__name__} is not an ArrayStore of the port")
+    return HostEnsembleSource(stores, conditions, target_transform,
+                              per_member=per_member)
+
+
+# ---------------------------------------------------------------------------
+# ensemble steps
+# ---------------------------------------------------------------------------
+
+def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
+    """``update(params, opt_state, cond, target) -> (params, opt_state,
+    loss)`` for stacked parameters ``{name: (N, ...)}``, cond (N, B,
+    cond_dim), target (N, B, H, W, F): ``vmap(grad_and_value(L1))`` over
+    the member axis through ``model``'s skeleton (its own weights are not
+    used), then one Adam update of the stacks.  Returns the (N,) losses."""
+    def member_loss(p, cond, target):
+        return functional_l1_loss(model, p, cond, target)
+
+    grad_and_loss = torch.func.vmap(torch.func.grad_and_value(member_loss))
+
+    def update(params, opt_state: AdamState, cond, target):
+        grads, loss = grad_and_loss(params, cond, target)
+        params, opt_state = adam_update(grads, opt_state, params, opt_cfg,
+                                        stacked=True)
+        return params, opt_state, loss.detach()
+
+    return update
+
+
+def make_fused_ensemble_step(source: DeviceEnsembleSource, model: Surrogate,
+                             opt_cfg: AdamConfig) -> Callable:
+    """One step of every member on the device: the gathered decode of all
+    members' batches, then the vmapped update.
+    ``step(params, opt_state, idx (N, B)) -> (params, opt_state, loss)``."""
+    update = make_ensemble_update(model, opt_cfg)
+
+    def step(params, opt_state, idx: torch.Tensor):
+        return update(params, opt_state, *source.gather(idx))
+
+    return step
+
+
+def make_host_ensemble_step(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
+    """One step of every member on a fetched ``(cond, target)`` stack."""
+    update = make_ensemble_update(model, opt_cfg)
+
+    def step(params, opt_state, item):
+        cond, target = item
+        _record_on_current_stream(cond, target)
+        return update(params, opt_state, cond, target)
 
     return step

@@ -17,6 +17,8 @@ import torch
 import repro_torch
 from repro_torch.data import DeviceResidentCompressedStore, channels_last
 from repro_torch.configs import reduced_config
+from repro_torch.core import find_tolerance, find_tolerance_batch
+from repro_torch.core.ensemble import certify_tolerance, init_ensemble, train_ensemble
 from repro_torch.kernels import flash_attention, zfp_codec
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import lm
@@ -45,11 +47,13 @@ def _imported_roots(path):
 def test_scan_covers_every_package_of_the_port():
     scanned = {p.parent.name for p in PORT_FILES}
     assert {"compression", "kernels", "data", "train", "models", "sim",
-            "obs", "distributed", "configs", "serving", "launch"} <= scanned
+            "obs", "distributed", "configs", "serving", "launch", "core",
+            "metrics"} <= scanned
     names = {p.name for p in PORT_FILES}
     assert {"metrics.py", "sharding.py", "shards.py", "loader.py", "lm.py", "engine.py",
             "scheduler.py", "loadgen.py", "trace.py", "serve.py",
-            "flash_attention.py"} <= names
+            "flash_attention.py", "ensemble.py", "tolerance.py", "variability.py",
+            "image.py", "physics.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -112,3 +116,26 @@ def test_lm_serving_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
         serve_launcher.main(["--requests", "1"])
     engine = ServeEngine(params, cfg, batch_slots=2, max_seq=16, device="cpu")
     assert engine.device.type == "cpu"
+
+
+def test_certification_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
+    samples = np.zeros((2, 6, 16, 16), np.float32)
+    cfg = SurrogateConfig(height=16, width=16, base_channels=8)
+    cond = np.zeros((2, cfg.cond_dim), np.float32)
+    fields = samples.transpose(0, 2, 3, 1)
+    for call in (lambda: find_tolerance(samples[0], 0.1),
+                 lambda: find_tolerance_batch(samples, [0.1, 0.1]),
+                 lambda: init_ensemble(cfg, (0, 1)),
+                 lambda: certify_tolerance(cfg, TrainConfig(batch_size=2), cond, fields,
+                                           eval_conditions=cond, eval_targets=fields)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    store = DeviceResidentCompressedStore.from_samples(samples, [1e-3, 1e-3],
+                                                       device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_ensemble(cfg, TrainConfig(batch_size=2, max_steps=1), cond, store, (0, 1),
+                       target_transform=channels_last)
+    res = train_ensemble(cfg, TrainConfig(batch_size=2, max_steps=1, log_every=1), cond,
+                         store, (0, 1), target_transform=channels_last, device="cpu")
+    assert res.steps == 1 and res.losses[0][1].shape == (2,)
+    assert find_tolerance_batch(samples, [0.1, 0.1], device="cpu").tolerance.shape == (2,)
