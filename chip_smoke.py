@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs four paths at full
+tolerance, asserting which variant ran, then runs five paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -36,6 +36,19 @@ model width:
   candidate stores at six tolerance multiples (the band, the verdicts, the
   stores' bounds, the artifact read back); and the ensemble on one shared
   and on two per-member host-streaming sharded stores;
+* the datagen path (simulate, encode on the card, sharded store): the
+  spectral solver on the card held to the same solver on the CPU (at the
+  solver tests' grids and at RT_SPEC's and PCHIP_SPEC's full grids, with
+  mass drift and kinetic energy checked), two runs and the CUDA graph
+  against the eager run bit for bit, its kernels per RK3 step profiled;
+  ``produce`` of RT_SPEC x 32 and PCHIP_SPEC x 4 members at tol 1e-3 in
+  shards of 32 (kernel 2, one launch a chunk) held byte for byte to an
+  in-memory ``ShardedCompressedStore`` of the same fields, every decoded
+  sample within its tolerance; sequential production and a run stopped
+  after 3 shards and resumed, each byte for byte against the overlapped
+  run; a fixed-rate plan (kernel 4) held to the plain encoder; 30 training
+  steps from the produced path (kernel 3) and ``certify_tolerance`` from
+  it (kernels 3, 2 and 1);
 * the host-streaming path (workflows 1 and 2 from disk): write a raw store,
   a per-sample fixed-accuracy store, a sharded store and a per-sample
   fixed-rate store to a temporary directory (removed at exit), and train
@@ -54,6 +67,9 @@ the summed fetch wait and the store's ``IoStats``, the ensemble's and the
 sweep's step medians beside the single model's, the kernels per ensemble
 step and its device busy share, Algorithm 1's seconds and iterations, the
 candidate stores' build times and the certification's summary and verdict,
+the solver's time per member (CUDA graph and eager) and kernels per RK3
+step, the produced stores' ratios, the producer's samples per second
+(overlapped and sequential) and the certification from the produced path,
 the serving rates and latencies, the attention variants' times at the main
 path's shapes beside
 the scalar variant's, the plain version's, each SDPA backend's and the
@@ -71,6 +87,7 @@ these (before and after a change, in one run on one card).
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -133,6 +150,21 @@ EVAL_SAMPLES = 256
 ENS_LOSS_RTOL = 1e-4
 ENS_PARAM_REL = 0.1
 ENS_PARAM_MAX, ENS_PARAM_Q99, ENS_PARAM_MEDIAN = 2e-2, 1e-3, 1e-4
+# datagen path (Queue 1 item 7): the solver on the card against the CPU at
+# tests/test_solver.py's grids and parameters (SOLVER_SMALL_RTOL of each
+# field's largest magnitude) and at RT_SPEC's and PCHIP_SPEC's full grids
+# (SOLVER_FULL_RTOL: the instability amplifies rounding); the kinetic-energy
+# bound is tests/test_solver.py's 100 at 32x16 cells, per cell.  Production
+# of RT_SPEC x 32 and PCHIP_SPEC x 4 at TOLERANCE in shards of SHARD_SIZE;
+# kill (after 3 shards) and resume, and sequential production, on RT_SPEC x
+# 4; a fixed-rate plan of RT_SPEC x 2 at FR_BITS
+SOLVER_GRIDS = (("16x8/40", dict(ny=16, nx=8, nsteps=40, nsnaps=5)),
+                ("32x16/300", dict(ny=32, nx=16, nsteps=300, nsnaps=11)))
+SOLVER_SMALL_RTOL, SOLVER_FULL_RTOL = 1e-5, 1e-3
+KE_BOUND_PER_CELL = 100.0 / (32 * 16)
+DG_RT_MEMBERS, DG_PCHIP_MEMBERS = 32, 4
+DG_RESUME_MEMBERS, DG_RESUME_SHARDS = 4, 3
+DG_FR_MEMBERS = 2
 # LM serving path: internlm2-1.8b at full width (configs/registry.py), 16
 # requests of the seeded mixed workload, 8 slots, max_seq 1088 (the longest
 # prompt plus the longest generation)
@@ -694,7 +726,16 @@ def main(argv) -> int:
     cert = certification_path(dev, samples, cond, cfg_full, store,
                               statistics.median(step_ms))
 
-    # -- 7. host-streaming path: stores on disk, decoded per batch ----------------
+    # -- 7. datagen path: solver, produce, train and certify from the path ------
+    print(f"datagen phase starts {time.perf_counter() - t_start:.1f} s since start",
+          flush=True)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_datagen_")
+    try:
+        datagen = datagen_path(dev, tmp.name, cfg_full)
+    finally:
+        tmp.cleanup()
+
+    # -- 8. host-streaming path: stores on disk, decoded per batch ----------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
         host = host_streaming_path(tmp.name, samples, cond, cfg_full, store)
@@ -702,7 +743,7 @@ def main(argv) -> int:
         tmp.cleanup()
     host_launches, fr_store_words, shard_batch = host
 
-    # -- 8. times at the main-path shapes ----------------------------------------
+    # -- 9. times at the main-path shapes ----------------------------------------
     codec = codec_timings(dev, samples, store, tuple(t.to(dev) for t in shard_batch), {})
     blocks, _ = whole_store(dev, samples, spread=False)
     require(same_bits(zfp_codec.zfp_encode_blocks(blocks, FR_BITS)[0].reshape(N_SAMPLES, -1),
@@ -710,7 +751,7 @@ def main(argv) -> int:
             "fixed-rate store words == the whole-store encode kernel's")
     del blocks
 
-    # -- 9. where a step's device time goes (profiler on; launches not counted)
+    # -- 10. where a step's device time goes (profiler on; launches not counted)
     single_kernels = profile_steps(store, cond, model, channels_last)
     ens_kernels = profile_ensemble_steps(store, cond, cfg_full)
     sweep_kernels = profile_ensemble_steps(cert.pop("sweep_stores"), cond, cfg_full)
@@ -723,12 +764,13 @@ def main(argv) -> int:
     del store, model, samples, cond
     torch.cuda.empty_cache()
 
-    # -- 10. LM serving path at full width: internlm2-1.8b, kernel 5 --------------
+    # -- 11. LM serving path at full width: internlm2-1.8b, kernel 5 --------------
     print(f"LM phase starts {time.perf_counter() - t_start:.1f} s since start", flush=True)
     attn = lm_serving_path(dev, smi)
 
     def launches(name):
-        return resident_launches[name] + cert["launches"][name] + host_launches[name]
+        return (resident_launches[name] + cert["launches"][name]
+                + datagen["launches"][name] + host_launches[name])
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
@@ -746,7 +788,9 @@ def main(argv) -> int:
           f"ms; ensemble step median ({len(ENS_SEEDS)} members) {cert['ensemble_ms']:.3f} "
           f"ms, sweep step median ({len(CERT_MULTIPLES)} candidates) "
           f"{cert['sweep_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
-          f"{attn['timings']['decode']['ms']:.4f} ms; total "
+          f"{attn['timings']['decode']['ms']:.4f} ms; RT_SPEC member on the card "
+          f"{datagen['solver']['rt']['graph_s'][1]:.3f} s, produced ratios at {TOLERANCE} "
+          f"rt {datagen['ratios']['rt']:.4f}, pchip {datagen['ratios']['pchip']:.4f}; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1711,6 +1755,20 @@ def ensemble_gather_check(data, cond, idx_np: np.ndarray, what: str) -> None:
             f"arrays and each member's own store decode, bit for bit (per member {own})")
 
 
+def count_launches(launches: dict, fn):
+    """Run one piece of a path with the codec kernels' counts set to 0 just
+    before it; add what it launched to ``launches`` and return (its result,
+    its own counts)."""
+    from repro_torch.kernels import zfp_codec
+    zfp_codec.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(zfp_codec.LAUNCHES)
+    for k, v in got.items():
+        launches[k] += v
+    return out, got
+
+
 def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
                        single_ms: float) -> dict:
     """Main path steps 5-7 at full width: the seed ensemble against its
@@ -1735,18 +1793,7 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
     from repro_torch.train.source import make_loader
 
     launches = {k: 0 for k in zfp_codec.LAUNCHES}
-
-    def counted(fn):
-        """Run one piece of the path with the counts set to 0 just before
-        it; add what it launched to the phase's counts."""
-        zfp_codec.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        got = dict(zfp_codec.LAUNCHES)
-        for k, v in got.items():
-            launches[k] += v
-        return out, got
-
+    counted = functools.partial(count_launches, launches)
     hist = get_registry().histogram("ensemble.step_seconds")
     n = len(samples)
     seeds = list(ENS_SEEDS)
@@ -1988,6 +2035,328 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
     print(f"certification path: launches {launches}")
     return {"launches": launches, "ensemble_ms": ens_ms, "sweep_ms": sweep_ms,
             "sweep_stores": sweep_stores}
+
+
+SOLVER_PARAMS = {   # tests/test_solver.py's RT and PCHIP parameters
+    "rt": dict(atwood=0.4, amplitude=0.03, mode=2.0),
+    "pchip": dict(atwood=0.5, amplitude=0.03, pchip_seed=11, impulse=1.0),
+}
+
+
+def field_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest per-field difference over that field's largest magnitude."""
+    got, want = got.cpu(), want.cpu()
+    return max(float((got[..., f] - want[..., f]).abs().max() / want[..., f].abs().max())
+               for f in range(want.shape[-1]))
+
+
+def synced_s(fn):
+    """(fn(), seconds) with the card drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def solver_checks(dev) -> dict:
+    """The port's solver on the card against the same solver on the CPU,
+    graph against eager and run against run; returns per-member times."""
+    from repro_torch.sim import solver
+    from repro_torch.sim.ensemble import PCHIP_SPEC, RT_SPEC, sample_params
+    from repro_torch.sim.solver import SimParams, run_simulation
+
+    params = {k: SimParams(**v) for k, v in SOLVER_PARAMS.items()}
+    for gname, grid in SOLVER_GRIDS:
+        for name, p in params.items():
+            rel = field_rel(run_simulation(p, **grid, device=DEV),
+                            run_simulation(p, **grid, device="cpu"))
+            require(rel <= SOLVER_SMALL_RTOL, f"solver {gname} {name}: card == CPU "
+                    f"(worst field {rel:.3e} of its largest magnitude <= {SOLVER_SMALL_RTOL})")
+    times = {}
+    for spec, name in ((RT_SPEC, "rt"), (PCHIP_SPEC, "pchip")):
+        grid = dict(ny=spec.ny, nx=spec.nx, nsteps=spec.nsteps, nsnaps=spec.nsnaps)
+        p = params[name]
+        one, graph_s = synced_s(lambda: run_simulation(p, **grid, device=DEV))
+        two, graph2_s = synced_s(lambda: run_simulation(p, **grid, device=DEV))
+        eager, eager_s = synced_s(lambda: solver._simulate(   # run_simulation's defaults
+            p, **grid, lx=1.0, ly=3.0, dt=1.5e-3, g=4.0, dev=dev, graph=False))
+        t0 = time.perf_counter()
+        cpu = run_simulation(p, **grid, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        rel = field_rel(one, cpu)
+        f = one.cpu().double()
+        mass = f[..., 0].sum(dim=(1, 2))
+        drift = float(((mass - mass[0]).abs() / mass[0]).max())
+        ke = (0.5 * f[..., 0] * (f[..., 1] ** 2 + f[..., 2] ** 2)).sum(dim=(1, 2))
+        ke_bound = KE_BOUND_PER_CELL * spec.ny * spec.nx
+        times[spec.name] = {"graph_s": [graph_s, graph2_s], "eager_s": eager_s, "cpu_s": cpu_s}
+        print(f"solver {spec.name} full ({spec.ny}x{spec.nx}, {spec.nsteps} steps, "
+              f"{spec.nsnaps} snapshots), {name} parameters: card graph {graph_s:.3f} / "
+              f"{graph2_s:.3f} s, card eager {eager_s:.3f} s, CPU {cpu_s:.3f} s; card vs CPU "
+              f"{rel:.3e}; mass drift {drift:.3e}; kinetic energy max {float(ke.max()):.4g}",
+              flush=True)
+        require(rel <= SOLVER_FULL_RTOL, f"solver {spec.name} full: card == CPU (worst field "
+                                         f"{rel:.3e} <= {SOLVER_FULL_RTOL})")
+        require(same_bits(one, two), f"solver {spec.name}: two runs give the same bits")
+        require(same_bits(one, eager), f"solver {spec.name}: the CUDA graph gives the eager "
+                                       f"run's bits")
+        require(drift < 1e-5, f"solver {spec.name}: total mass drift {drift:.3e} < 1e-5")
+        require(bool(torch.isfinite(f).all()) and abs(float(ke[0])) <= 1e-10
+                and 0 < float(ke.max()) < ke_bound and float(f[..., 5].min()) >= 0
+                and float(f[..., 5].max()) <= 1,
+                f"solver {spec.name}: finite, starts at rest, kinetic energy grows and stays "
+                f"under {ke_bound:g}, material in [0, 1]")
+    # the production's first RT member: a reading, not a check (the
+    # instability amplifies rounding further for the sampled parameters)
+    p = sample_params(RT_SPEC, 1, 0)[0]
+    rel = field_rel(run_simulation(p, device=DEV), run_simulation(p, device="cpu"))
+    print(f"solver rt full, sample_params(RT_SPEC, 1, 0)[0]: card vs CPU {rel:.3e} "
+          f"(a reading)", flush=True)
+    return times
+
+
+def profile_solver(dev) -> dict:
+    """Kernels per RK3 step and the device's busy share over one RT_SPEC
+    snapshot interval, run eagerly and replayed from its CUDA graph."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sim import solver
+    from repro_torch.sim.ensemble import RT_SPEC, sample_params
+    p = sample_params(RT_SPEC, 1, 0)[0]
+    lx, ly, dt = 1.0, 3.0, 1.5e-3              # run_simulation's defaults
+    rho, omega, rho1, rho2 = solver._initial_fields(p, RT_SPEC.ny, RT_SPEC.nx, lx, ly, dev)
+    op = solver._Operators(RT_SPEC.ny, RT_SPEC.nx, lx, ly, p.diffusivity,
+                           0.5 * (rho1 + rho2), dev)
+    s = torch.stack([torch.fft.rfft2(omega), torch.fft.rfft2(rho)])
+    g = torch.tensor(4.0, device=dev)
+    steps = RT_SPEC.nsteps // (RT_SPEC.nsnaps - 1)
+    graph, _ = solver._captured_interval(s, g, steps, dt, op)
+    out = {}
+    for what, fn in (("eager", lambda: solver._interval(s, g, steps, dt, op)),
+                     ("graph", graph.replay)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"solver, one snapshot interval ({steps} RK3 steps and the snapshot), {what}:",
+              end=" ")
+        out[what] = print_profile(prof, wall_ms / steps, steps, "RK3 step")
+    return out
+
+
+def same_files(a: str, b: str) -> bool:
+    """The shard files and manifest.json of two scenario directories hold
+    the same bytes."""
+    names = sorted(f for f in os.listdir(a) if f.startswith("shard_") or f == "manifest.json")
+    if names != sorted(f for f in os.listdir(b) if f.startswith("shard_")
+                       or f == "manifest.json"):
+        return False
+    return all(Path(a, f).read_bytes() == Path(b, f).read_bytes() for f in names)
+
+
+def datagen_path(dev, tmp: str, cfg) -> dict:
+    """Queue 1 item 7 on the card: the solver against the CPU; production of
+    RT_SPEC and PCHIP_SPEC at full width through kernel 2 held bit for bit
+    to an in-memory store of the same fields; kill and resume, sequential
+    production, a fixed-rate plan through kernel 4 held to the plain
+    encoder; then 30 training steps and certify_tolerance from the produced
+    path.  Returns {"launches": kernel launches on the path's entry points}
+    (produce, train_surrogate, certify_tolerance); the checks' launches are
+    not counted."""
+    from repro_torch.compression import codec_from_plan
+    from repro_torch.core.ensemble import certify_tolerance
+    from repro_torch.data import ShardedCompressedStore, channels_last
+    from repro_torch import datagen
+    from repro_torch.datagen import (CodecPlan, ProductionPlan, ScenarioPlan,
+                                     open_produced, produce, produced_training_arrays,
+                                     scenario_conditions)
+    from repro_torch.kernels import zfp_codec
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.sim.ensemble import PCHIP_SPEC, RT_SPEC
+    from repro_torch.train.loop import TrainConfig, train_surrogate
+    produce_mod = sys.modules["repro_torch.datagen.produce"]
+
+    t_phase = time.perf_counter()
+    solver_times = solver_checks(dev)
+    solver_kernels = profile_solver(dev)
+    launches = {k: 0 for k in zfp_codec.LAUNCHES}
+    counted = functools.partial(count_launches, launches)
+
+    def capturing(into: dict):
+        """produce's run_simulation, keeping each member's fields."""
+        real = produce_mod.run_simulation
+
+        def run(params, **kw):
+            into[params] = real(params, **kw)
+            return into[params]
+        return mock.patch.object(produce_mod, "run_simulation", run)
+
+    def chunks(plan):
+        return sum(sc.num_sims * -(-sc.spec.nsnaps // plan.shard_size)
+                   for sc in plan.scenarios)
+
+    # (1) the full-width plan: RT_SPEC and PCHIP_SPEC, fixed accuracy
+    plan = ProductionPlan(
+        scenarios=(ScenarioPlan("rt", RT_SPEC, DG_RT_MEMBERS, seed=0),
+                   ScenarioPlan("pchip", PCHIP_SPEC, DG_PCHIP_MEMBERS, seed=0)),
+        codec=CodecPlan(tolerance=TOLERANCE), shard_size=SHARD_SIZE)
+    root = os.path.join(tmp, "full")
+    fields = {}
+    with capturing(fields):
+        (report, s), got = counted(lambda: synced_s(lambda: produce(plan, root, device=DEV)))
+    samples = sum(r.samples_produced for r in report.scenarios)
+    print(f"produce (RT_SPEC x {DG_RT_MEMBERS}, PCHIP_SPEC x {DG_PCHIP_MEMBERS}, tol "
+          f"{TOLERANCE}, shards of {SHARD_SIZE}): {s:.3f} s, {samples} samples, "
+          f"{samples / s:.1f} samples/s; launches {got}", flush=True)
+    for r in report.scenarios:
+        print(f"  {r.name}: {r.sims_run} members, {r.shards_written} shards, "
+              f"{r.bytes_written} bytes, {r.seconds:.3f} s ({r.seconds / r.sims_run:.3f} s "
+              f"a member, simulate to shards), writer transfer "
+              f"{r.transfer_seconds:.3f} s, write {r.write_seconds:.3f} s")
+    require(report.finalized and got["zfp_encode_blocks_fa"] == chunks(plan)
+            and sum(got.values()) == chunks(plan),
+            f"produce encoded each of its {chunks(plan)} chunks with one launch of "
+            f"zfp_encode_blocks_fa and launched nothing else ({got})")
+    ratios = {}
+    for sc in plan.scenarios:
+        sdir = os.path.join(root, sc.name)
+        xs = torch.cat([fields[p].movedim(-1, 1) for p in sc.params()])
+        mem = ShardedCompressedStore(xs.cpu().numpy(), np.full(len(xs), TOLERANCE, np.float32),
+                                     shard_size=SHARD_SIZE, device=DEV)
+        with open(os.path.join(sdir, "manifest.json")) as f:
+            same = json.load(f) == mem.manifest()
+        same &= all(Path(sdir, f"shard_{k:05d}.bin").read_bytes() == mem._shards[k].tobytes()
+                    for k in range(mem.num_shards))
+        require(same, f"produced {sc.name} store == in-memory ShardedCompressedStore of the "
+                      f"same fields on the card, byte for byte ({mem.num_shards} shards)")
+        st = open_produced(root).store(sc.name, device=DEV)
+        worst = 0.0
+        for lo in range(0, len(xs), 256):
+            err = (st.get_batch(np.arange(lo, min(lo + 256, len(xs)))) - xs[lo:lo + 256])
+            worst = max(worst, float(err.abs().max()))
+        require(worst <= TOLERANCE, f"every decoded {sc.name} sample within its tolerance "
+                                    f"(max error {worst:.3e} <= {TOLERANCE})")
+        ratios[sc.name] = st.ratio
+        print(f"  {sc.name} store: ratio {st.ratio:.4f} at tol {TOLERANCE}, logical "
+              f"{st.logical_bytes} bytes, widths {np.bincount(st.widths).tolist()}")
+    chunk = fields[plan.scenarios[0].params()[0]].movedim(-1, 1)[:SHARD_SIZE]
+    codec = codec_from_plan(plan.codec)
+    encode_ms = cuda_ms(lambda: codec.encode_batch(chunk), reps=20)
+    print(f"encode of one chunk ({SHARD_SIZE} RT_SPEC snapshots, "
+          f"{SHARD_SIZE * 6 * RT_SPEC.ny * RT_SPEC.nx // 16} blocks): {encode_ms:.4f} ms",
+          flush=True)
+    del fields, chunk
+
+    # (2) kill and resume, sequential: RT_SPEC x DG_RESUME_MEMBERS
+    plan4 = ProductionPlan(scenarios=(ScenarioPlan("rt", RT_SPEC, DG_RESUME_MEMBERS, seed=0),),
+                           codec=CodecPlan(tolerance=TOLERANCE), shard_size=SHARD_SIZE)
+    rate = {}
+    for what, overlap in (("overlapped", True), ("sequential", False)):
+        (rep, s), got = counted(lambda: synced_s(lambda: produce(
+            plan4, os.path.join(tmp, what), overlap=overlap, device=DEV)))
+        r = rep.scenarios[0]
+        rate[what] = r.samples_produced / s
+        print(f"produce {what}, RT_SPEC x {DG_RESUME_MEMBERS}: {s:.3f} s, "
+              f"{rate[what]:.1f} samples/s, writer transfer {r.transfer_seconds:.3f} s, "
+              f"write {r.write_seconds:.3f} s; launches {got}", flush=True)
+    require(same_files(os.path.join(tmp, "overlapped", "rt"),
+                       os.path.join(tmp, "sequential", "rt")),
+            "sequential production (overlap=False) gives the overlapped run's bytes")
+    killed_root = os.path.join(tmp, "killed")
+    first, _ = counted(lambda: produce(plan4, killed_root, max_shards=DG_RESUME_SHARDS,
+                                       device=DEV).scenarios[0])
+    second, _ = counted(lambda: produce(plan4, killed_root, device=DEV).scenarios[0])
+    num_shards = -(-plan4.scenarios[0].num_samples // SHARD_SIZE)
+    print(f"kill and resume: first run {first.shards_written} shards ({first.sims_run} "
+          f"members, preempted {first.preempted}), resume {second.shards_written} shards "
+          f"({second.sims_run} members)")
+    require(first.preempted and first.shards_written == DG_RESUME_SHARDS
+            and second.finalized and second.shards_written == num_shards - DG_RESUME_SHARDS
+            and same_files(os.path.join(killed_root, "rt"),
+                           os.path.join(tmp, "overlapped", "rt")),
+            "a run stopped after 3 shards and resumed gives the uninterrupted run's bytes")
+
+    # (3) fixed rate through kernel 4, held to the plain encoder
+    plan_fr = ProductionPlan(scenarios=(ScenarioPlan("rt", RT_SPEC, DG_FR_MEMBERS, seed=0),),
+                             codec=CodecPlan(mode="fixed_rate", bits_per_value=FR_BITS),
+                             shard_size=SHARD_SIZE)
+    fr_fields = {}
+    with capturing(fr_fields):
+        rep, got = counted(lambda: produce(plan_fr, os.path.join(tmp, "fr"), device=DEV))
+    require(rep.finalized and got["zfp_encode_blocks"] == chunks(plan_fr),
+            f"the fixed-rate plan encoded each of its {chunks(plan_fr)} chunks with one "
+            f"launch of zfp_encode_blocks ({got})")
+    with mock.patch.object(produce_mod, "run_simulation",
+                           lambda params, **kw: fr_fields[params].cpu()):
+        produce(plan_fr, os.path.join(tmp, "fr_cpu"), device="cpu")
+    require(same_files(os.path.join(tmp, "fr", "rt"), os.path.join(tmp, "fr_cpu", "rt")),
+            f"fixed-rate production at {FR_BITS} bits on the card == the plain encoder "
+            f"on the same fields, byte for byte")
+    del fr_fields
+
+    # (4) train 30 steps from the produced path (kernel 3 per batch)
+    rt_dir = os.path.join(root, "rt")
+    cond = scenario_conditions(rt_dir)
+    opened = []
+    real_resolve = datagen.resolve_store
+
+    def recording_resolve(*a, **k):
+        opened.append(real_resolve(*a, **k))
+        return opened[-1]
+
+    stamps = []
+    wait = get_registry().counter("train.fetch_wait_seconds")
+    wait0 = wait.value
+    with mock.patch.object(datagen, "resolve_store", recording_resolve):
+        (_, losses), got = counted(lambda: train_surrogate(
+            cfg, TrainConfig(epochs=2, batch_size=BATCH, lr=LR, seed=0, log_every=1,
+                             max_steps=HOST_STEPS), cond, rt_dir,
+            hooks=[lambda step, m, loss: stamps.append(time.perf_counter())],
+            target_transform=channels_last, device=DEV))
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    io = opened[0].stats
+    print(f"train from the produced path ({len(cond)} samples): {HOST_STEPS} steps, step "
+          f"median {statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), fetch wait {1e3 * (wait.value - wait0):.3f} ms, io "
+          f"bytes_read {io.bytes_read} read_seconds {io.read_seconds:.6f} decode_seconds "
+          f"{io.decode_seconds:.6f} batches {io.batches}, last loss {losses[-1][1]:.7f}; "
+          f"launches {got}", flush=True)
+    require(len(losses) == HOST_STEPS and all(np.isfinite(l) for _, l in losses),
+            f"{HOST_STEPS} finite losses from the produced path")
+    require(got["zfp_decode_blocks"] == io.batches >= HOST_STEPS,
+            f"zfp_decode_blocks decoded every batch of the produced store "
+            f"({got['zfp_decode_blocks']} launches, {io.batches} batches)")
+
+    # (5) certify from the produced path (kernels 3, then 2 and 1)
+    eval_cond, eval_fields = produced_training_arrays(rt_dir, device=DEV)
+    (res, cert_s), got = counted(lambda: synced_s(lambda: certify_tolerance(
+        cfg, TrainConfig(epochs=CERT_EPOCHS, batch_size=BATCH, lr=LR, log_every=1), None,
+        rt_dir, eval_conditions=eval_cond[:EVAL_SAMPLES],
+        eval_targets=eval_fields[:EVAL_SAMPLES], seeds=ENS_SEEDS, multiples=CERT_MULTIPLES,
+        shard_size=SHARD_SIZE, device_resident=True, device=DEV)))
+    mb = res.max_benign
+    print("certification from the produced path summary: " + json.dumps(res.summary()))
+    print(f"certification from the produced path: {cert_s:.3f} s; model L1 e = "
+          f"{res.model_l1_error:.7f}; max benign multiple "
+          f"{None if mb is None else mb.multiple}, ratio "
+          f"{None if mb is None else round(mb.ratio, 4)}; per candidate " + ", ".join(
+              f"x{c.multiple:g} {'benign' if c.benign else 'degraded'} ratio {c.ratio:.4f}"
+              for c in res.candidates) + f"; the produced store's ratio at {TOLERANCE}: "
+          f"{ratios['rt']:.4f}; launches {got}", flush=True)
+    steps = CERT_EPOCHS * (len(cond) // BATCH)
+    require([c.multiple for c in res.candidates] == list(CERT_MULTIPLES)
+            and got["zfp_decode_blocks"] >= -(-len(cond) // 64)
+            and got["zfp_encode_blocks_fa"] >= len(CERT_MULTIPLES)
+            and got["zfp_decode_blocks_fa"] >= steps,
+            "certification read the produced store (kernel 3), encoded every candidate "
+            "store (kernel 2) and decoded every sweep step (kernel 1)")
+    print(f"datagen path: launches {launches}; overlapped {rate['overlapped']:.1f} vs "
+          f"sequential {rate['sequential']:.1f} samples/s; solver kernels per RK3 step "
+          f"{solver_kernels}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches, "solver": solver_times, "ratios": ratios}
 
 
 def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,

@@ -1,7 +1,8 @@
 """ZFP-style error-bounded lossy compression on PyTorch tensors.
 
 Public API:
-  get_codec / FixedAccuracyCodec / FixedRateCodec -- the codec seam (api.py)
+  get_codec / FixedAccuracyCodec / FixedRateCodec / codec_from_plan
+                                          -- the codec seam (api.py)
   encode_fixed_accuracy_batch / encode_fixed_rate_batch / decode_batch
   CompressedField                         -- tensors + sample geometry
   FAEncodeState / fa_precompute_batch / fa_stats_batch
@@ -27,6 +28,7 @@ from repro_torch.compression.zfp import (
 from repro_torch.compression.api import (
     FixedAccuracyCodec,
     FixedRateCodec,
+    codec_from_plan,
     codec_names,
     decode_stacked_payloads,
     get_codec,
@@ -41,6 +43,7 @@ __all__ = [
     "Q_FIXED_POINT",
     "TOTAL_PLANES",
     "blockify",
+    "codec_from_plan",
     "codec_names",
     "compressed_nbytes_batch",
     "deblockify",

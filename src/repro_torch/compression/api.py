@@ -126,3 +126,15 @@ def get_codec(name: str, **params):
     if name not in _REGISTRY:
         raise KeyError(f"unknown codec {name!r}; registered: {codec_names()}")
     return _REGISTRY[name](**params)
+
+
+def codec_from_plan(codec_plan):
+    """Codec for a datagen ``CodecPlan``-shaped object (duck-typed: ``mode``
+    plus the mode's parameters).  The plan's ``use_pallas`` selects nothing
+    here: the device of the tensors decides, as for every codec of the
+    port."""
+    if codec_plan.mode == "fixed_accuracy":
+        return get_codec("fixed_accuracy", tolerance=codec_plan.tolerance)
+    if codec_plan.mode == "fixed_rate":
+        return get_codec("fixed_rate", bits_per_value=codec_plan.bits_per_value)
+    raise ValueError(f"unknown codec mode {codec_plan.mode!r}")

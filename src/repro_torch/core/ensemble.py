@@ -379,8 +379,11 @@ def certify_tolerance(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     benign tolerance.
 
     ``train_fields``: (n_train, H, W, F) normalized channels-last training
-    fields, with ``conditions`` (n_train, cond_dim).  The eval set supplies
-    the trajectories the band verdict compares.
+    fields, with ``conditions`` (n_train, cond_dim); or a produced-dataset
+    path (:func:`repro_torch.datagen.produce`), whose store is decoded
+    batchwise on ``device``; ``conditions=None`` then rebuilds them from its
+    provenance manifest.  The eval set supplies the trajectories the band
+    verdict compares.
 
     Steps:
       1. the raw seed ensemble -> per-epoch trajectories -> BandArtifact;
@@ -404,13 +407,15 @@ def certify_tolerance(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     from repro_torch.data.shards import ShardedCompressedStore
     from repro_torch.data.store import RawArrayStore, channels_last
 
-    if isinstance(train_fields, str):
-        raise NotImplementedError("produced-dataset paths are not ported yet "
-                                  "(ROADMAP Queue 1 item 7); pass the "
-                                  "training fields as an array")
-    if conditions is None:
-        raise ValueError("certify_tolerance needs the training conditions")
     dev = resolve_device(device)
+    if isinstance(train_fields, str):
+        from repro_torch.datagen import produced_training_arrays
+        conditions, train_fields = produced_training_arrays(
+            train_fields, conditions, device=dev)
+    elif conditions is None:
+        raise ValueError("conditions=None is only valid when train_fields "
+                         "is a produced-dataset path (conditions are then "
+                         "rebuilt from its provenance manifest)")
     train_fields = np.asarray(train_fields, np.float32)
     n_train = len(train_fields)
     if lossy_seed is None:

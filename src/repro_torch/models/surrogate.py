@@ -21,11 +21,7 @@ from torch import nn as tnn
 from torch.func import functional_call
 
 from repro_torch.models import nn
-
-# Copied from repro/sim/solver.py (PARAM_DIM): the simulation's input-
-# parameter vector (atwood, amplitude, mode, log10 diffusivity, pchip seed,
-# impulse).
-PARAM_DIM = 6
+from repro_torch.sim.solver import PARAM_DIM
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,6 +13,8 @@ def synthetic_study(n: int = 48, height: int = 16, width: int = 16,
                     base_channels: int = 16, noise: float = 0.02,
                     seed: int = 0):
     """Returns (model_cfg, conditions (n, cond_dim), fields (n, H, W, 6))."""
+    # deferred: models.surrogate imports repro_torch.sim.solver, so a
+    # module-level import here would be circular through sim/__init__
     from repro_torch.models.surrogate import SurrogateConfig
 
     rng = np.random.default_rng(seed)

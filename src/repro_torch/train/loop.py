@@ -14,8 +14,8 @@ Counterpart of ``repro/train/loop.py``.  The ``BatchSource`` seam
 Batches follow the loaders' ``(seed, epoch)`` order (shard-aware for
 sharded stores), the same as the JAX package's.  The summed wait for
 batches goes to the ``train.fetch_wait_seconds`` counter of the metrics
-registry.  Checkpointing waits for ROADMAP Queue 1 item 8, produced-dataset
-paths for item 7, and telemetry spans for item 9.
+registry.  Checkpointing waits for ROADMAP Queue 1 item 8 and telemetry
+spans for item 9.
 """
 from __future__ import annotations
 
@@ -58,7 +58,11 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     """Train; returns (model, loss_history of (step, loss) pairs).
 
     ``data`` is an ``ArrayStore`` of the port whose batches come back on
-    ``device`` (the card unless ``device="cpu"``).  ``params`` is an
+    ``device`` (the card unless ``device="cpu"``), or a produced-dataset
+    path from :func:`repro_torch.datagen.produce` (opened with
+    ``resolve_store`` on ``device``; produced stores are channels-first, so
+    pass ``target_transform=channels_last`` and conditions from
+    ``repro_torch.datagen.scenario_conditions``).  ``params`` is an
     optional state dict, e.g. from
     :func:`repro_torch.models.surrogate.params_from_jax`; otherwise the
     model is initialised from ``train_cfg.seed``.  Each hook is called as
@@ -70,11 +74,10 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     if train_cfg.ckpt_dir:
         raise NotImplementedError("checkpointing is not ported yet "
                                   "(ROADMAP Queue 1 item 8)")
-    if isinstance(data, str):
-        raise NotImplementedError("produced-dataset paths (datagen."
-                                  "resolve_store) are not ported yet (ROADMAP "
-                                  "Queue 1 item 7); open the store instead")
     dev = resolve_device(device)
+    if isinstance(data, str):
+        from repro_torch.datagen import resolve_store
+        data = resolve_store(data, device=dev)
     source = make_batch_source(data, conditions, target_transform)
     if not same_device(source.device, dev):
         raise ValueError(f"store lives on {source.device}, training "

@@ -304,6 +304,9 @@ def test_ensemble_train_step_and_guards(tiny_study):
     with pytest.raises(ValueError, match="fixed-accuracy"):
         DeviceResidentCompressedStore.from_samples(
             _cf(fields), [0.1] * 32, codec=get_codec("fixed_rate"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        certify_tolerance(CFG, TC, cond, "produced/dataset", eval_conditions=cond,
+    with pytest.raises(FileNotFoundError, match="holds no produced dataset"):
+        certify_tolerance(CFG, TC, None, "produced/dataset", eval_conditions=cond,
+                          eval_targets=fields, device="cpu")
+    with pytest.raises(ValueError, match="conditions=None"):
+        certify_tolerance(CFG, TC, None, fields, eval_conditions=cond,
                           eval_targets=fields, device="cpu")

@@ -19,11 +19,13 @@ from repro_torch.data import DeviceResidentCompressedStore, channels_last
 from repro_torch.configs import reduced_config
 from repro_torch.core import find_tolerance, find_tolerance_batch
 from repro_torch.core.ensemble import certify_tolerance, init_ensemble, train_ensemble
+from repro_torch.datagen import ProductionPlan, ScenarioPlan, produce, resolve_store
 from repro_torch.kernels import flash_attention, zfp_codec
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import lm
 from repro_torch.models.surrogate import SurrogateConfig, init_surrogate
 from repro_torch.serving import ServeEngine
+from repro_torch.sim import EnsembleSpec, generate_ensemble, run_simulation
 from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
 
 torch.set_num_threads(2)
@@ -48,12 +50,13 @@ def test_scan_covers_every_package_of_the_port():
     scanned = {p.parent.name for p in PORT_FILES}
     assert {"compression", "kernels", "data", "train", "models", "sim",
             "obs", "distributed", "configs", "serving", "launch", "core",
-            "metrics"} <= scanned
+            "metrics", "datagen"} <= scanned
     names = {p.name for p in PORT_FILES}
     assert {"metrics.py", "sharding.py", "shards.py", "loader.py", "lm.py", "engine.py",
             "scheduler.py", "loadgen.py", "trace.py", "serve.py",
             "flash_attention.py", "ensemble.py", "tolerance.py", "variability.py",
-            "image.py", "physics.py"} <= names
+            "image.py", "physics.py", "solver.py", "plan.py", "produce.py",
+            "writer.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -139,3 +142,23 @@ def test_certification_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
                          store, (0, 1), target_transform=channels_last, device="cpu")
     assert res.steps == 1 and res.losses[0][1].shape == (2,)
     assert find_tolerance_batch(samples, [0.1, 0.1], device="cpu").tolerance.shape == (2,)
+
+
+def test_datagen_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_path):
+    spec = EnsembleSpec(name="rt", ny=16, nx=8, nsnaps=3, nsteps=4)
+    plan = ProductionPlan(scenarios=(ScenarioPlan("rt", spec, num_sims=1),),
+                          shard_size=4)
+    params = plan.scenarios[0].params()[0]
+    for call in (lambda: run_simulation(params, ny=16, nx=8, nsteps=4, nsnaps=3),
+                 lambda: generate_ensemble(spec, 1),
+                 lambda: produce(plan, str(tmp_path / "card"))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "card").exists()
+    fields = run_simulation(params, ny=16, nx=8, nsteps=4, nsnaps=3, device="cpu")
+    assert fields.device.type == "cpu" and fields.shape == (3, 16, 8, 6)
+    assert produce(plan, str(tmp_path / "cpu"), device="cpu").finalized
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_store(str(tmp_path / "cpu"))
+    store = resolve_store(str(tmp_path / "cpu"), device="cpu")
+    assert store.get_batch(np.arange(2)).device.type == "cpu"

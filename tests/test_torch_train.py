@@ -169,7 +169,7 @@ def test_train_rejects_what_is_not_ported(study):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         train_surrogate(cfg, TrainConfig(ckpt_dir="ckpt"), cond, store,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(FileNotFoundError, match="holds no produced dataset"):
         train_surrogate(cfg, TrainConfig(), cond, "produced/dataset",
                         device="cpu")
     with pytest.raises(TypeError, match="not an ArrayStore"):
