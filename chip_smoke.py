@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs five paths at full
+tolerance, asserting which variant ran, then runs six paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -36,6 +36,20 @@ model width:
   candidate stores at six tolerance multiples (the band, the verdicts, the
   stores' bounds, the artifact read back); and the ensemble on one shared
   and on two per-member host-streaming sharded stores;
+* the checkpoint path (lossy and certified checkpoints, exact resume,
+  compressed gradients) on the same model and store: a fresh run of 102
+  steps saving every 20 against a run preempted at step 50 and resumed
+  from step 40, final parameters and post-resume losses bit for bit under
+  deterministic algorithms (and the same comparison without them, printed
+  as a reading); raw, fixed-rate 13-bit, certified fixed-accuracy (per-leaf
+  tolerances from Algorithm 1 on the last step's displacement) and
+  residual-corrected (1e-3) checkpoints of the trained state, each restore
+  within its bound and every ``.npz`` array equal to the same save from a
+  CPU copy of the state (plain versions); a certifying save inside
+  ``train_surrogate``; ``ops.encode_field``/``decode_field`` against the
+  CPU; one step's gradients through ``compressed_psum_tree`` on a one-rank
+  NCCL group at 8 and 16 bits and at fixed accuracy 1e-3, against the CPU
+  plain versions on a gloo group;
 * the datagen path (simulate, encode on the card, sharded store): the
   spectral solver on the card held to the same solver on the CPU (at the
   solver tests' grids and at RT_SPEC's and PCHIP_SPEC's full grids, with
@@ -67,6 +81,9 @@ the summed fetch wait and the store's ``IoStats``, the ensemble's and the
 sweep's step medians beside the single model's, the kernels per ensemble
 step and its device busy share, Algorithm 1's seconds and iterations, the
 candidate stores' build times and the certification's summary and verdict,
+the checkpoint phase's step medians with and without deterministic
+algorithms, each checkpoint mode's stored/raw, save and restore seconds
+and largest restore error beside its bound, and the gradients' wire bytes,
 the solver's time per member (CUDA graph and eager) and kernels per RK3
 step, the produced stores' ratios, the producer's samples per second
 (overlapped and sequential) and the certification from the produced path,
@@ -585,6 +602,10 @@ def main(argv) -> int:
                          "may be given more than once")
     args = ap.parse_args(argv)
     codec_only = args.codec
+    # cuBLAS reads this when its first handle is made: the checkpoint
+    # phase's exact-resume check runs under deterministic algorithms, which
+    # need it for reproducible matrix products
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -726,7 +747,14 @@ def main(argv) -> int:
     cert = certification_path(dev, samples, cond, cfg_full, store,
                               statistics.median(step_ms))
 
-    # -- 7. datagen path: solver, produce, train and certify from the path ------
+    # -- 7. checkpoint path: exact resume, lossy checkpoints, compressed grads ---
+    print(f"checkpoint phase starts {time.perf_counter() - t_start:.1f} s since start",
+          flush=True)
+    t0 = time.perf_counter()
+    ckpt_res = checkpoint_path(dev, store, cond, cfg_full, smi)
+    print(f"checkpoint phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 8. datagen path: solver, produce, train and certify from the path ------
     print(f"datagen phase starts {time.perf_counter() - t_start:.1f} s since start",
           flush=True)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_datagen_")
@@ -735,7 +763,7 @@ def main(argv) -> int:
     finally:
         tmp.cleanup()
 
-    # -- 8. host-streaming path: stores on disk, decoded per batch ----------------
+    # -- 9. host-streaming path: stores on disk, decoded per batch ----------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
         host = host_streaming_path(tmp.name, samples, cond, cfg_full, store)
@@ -743,7 +771,7 @@ def main(argv) -> int:
         tmp.cleanup()
     host_launches, fr_store_words, shard_batch = host
 
-    # -- 9. times at the main-path shapes ----------------------------------------
+    # -- 10. times at the main-path shapes ----------------------------------------
     codec = codec_timings(dev, samples, store, tuple(t.to(dev) for t in shard_batch), {})
     blocks, _ = whole_store(dev, samples, spread=False)
     require(same_bits(zfp_codec.zfp_encode_blocks(blocks, FR_BITS)[0].reshape(N_SAMPLES, -1),
@@ -751,7 +779,7 @@ def main(argv) -> int:
             "fixed-rate store words == the whole-store encode kernel's")
     del blocks
 
-    # -- 10. where a step's device time goes (profiler on; launches not counted)
+    # -- 11. where a step's device time goes (profiler on; launches not counted)
     single_kernels = profile_steps(store, cond, model, channels_last)
     ens_kernels = profile_ensemble_steps(store, cond, cfg_full)
     sweep_kernels = profile_ensemble_steps(cert.pop("sweep_stores"), cond, cfg_full)
@@ -764,12 +792,12 @@ def main(argv) -> int:
     del store, model, samples, cond
     torch.cuda.empty_cache()
 
-    # -- 11. LM serving path at full width: internlm2-1.8b, kernel 5 --------------
+    # -- 12. LM serving path at full width: internlm2-1.8b, kernel 5 --------------
     print(f"LM phase starts {time.perf_counter() - t_start:.1f} s since start", flush=True)
     attn = lm_serving_path(dev, smi)
 
     def launches(name):
-        return (resident_launches[name] + cert["launches"][name]
+        return (resident_launches[name] + cert["launches"][name] + ckpt_res["launches"][name]
                 + datagen["launches"][name] + host_launches[name])
 
     kernels = [
@@ -2036,6 +2064,320 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
     return {"launches": launches, "ensemble_ms": ens_ms, "sweep_ms": sweep_ms,
             "sweep_stores": sweep_stores}
 
+
+# checkpoint path (Queue 1 item 8 with item 5's checkpoints), on the same
+# model and device-resident store: a fresh run of CKPT_EPOCHS epochs (102
+# steps) saving every CKPT_EVERY steps against a run preempted at
+# CKPT_KILL (not a save step) and resumed, under deterministic algorithms
+# (and once more without, as a reading); lossy checkpoints of the trained
+# state, the rows of benchmarks/checkpoint_io.py:95-140; one step's
+# gradients through compressed_psum_tree on a one-rank NCCL group.  The
+# residual codec's weights come from a ridge solve whose sums run in
+# another order on the card than on the CPU: they are held to
+# CKPT_WEIGHTS_ATOL and its restores to CKPT_RESIDUAL_REL of the tolerance
+CKPT_EPOCHS, CKPT_EVERY, CKPT_KILL = 2, 20, 50
+CKPT_FR_BITS = 13
+CKPT_RESIDUAL_TOL = 1e-3
+CKPT_WEIGHTS_ATOL = 1e-4
+CKPT_RESIDUAL_REL = 1e-2
+CKPT_RUN_STEPS, CKPT_RUN_EVERY = 10, 5
+GRAD_FA_TOL = 1e-3
+
+
+def _flat(tree) -> dict:
+    from repro_torch.compression import tree_flatten_with_path
+    return dict(tree_flatten_with_path(tree)[0])
+
+
+def _same_trees(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return fa.keys() == fb.keys() and all(same_bits(fa[k].cpu(), fb[k].cpu()) for k in fa)
+
+
+def _max_err(a, b) -> float:
+    fa, fb = _flat(a), _flat(b)
+    return max(float((fa[k].float().cpu() - fb[k].float().cpu()).abs().max()) for k in fa)
+
+
+def _same_npz(card: str, cpu: str, what: str) -> None:
+    """The .npz the card wrote against the one written from a CPU copy of
+    the state: every array bit for bit, the residual codec's weights to
+    CKPT_WEIGHTS_ATOL."""
+    a = np.load(os.path.join(card, "arrays.npz"))
+    b = np.load(os.path.join(cpu, "arrays.npz"))
+    require(sorted(a.files) == sorted(b.files), f"{what}: the same arrays on the card and "
+                                                f"the CPU ({len(a.files)})")
+    worst_w, bad = 0.0, []
+    for k in a.files:
+        if k.endswith(".zfp/weights"):
+            worst_w = max(worst_w, float(np.abs(a[k] - b[k]).max()))
+        elif not (a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                  and a[k].tobytes() == b[k].tobytes()):
+            bad.append(k)
+    zfp = sum(k.endswith(".zfp/payload") for k in a.files)
+    raw = sum(".zfp/" not in k for k in a.files)
+    require(not bad, f"{what}: the streams of {zfp} compressed leaves and {raw} raw "
+                     f"leaves equal the CPU's bit for bit (differ: {bad[:4]})")
+    if any(k.endswith(".zfp/weights") for k in a.files):
+        require(worst_w <= CKPT_WEIGHTS_ATOL, f"{what}: corrector weights within "
+                                              f"{CKPT_WEIGHTS_ATOL} of the CPU's "
+                                              f"({worst_w:.3e})")
+
+
+def checkpoint_path(dev, store, cond: np.ndarray, cfg, smi: str) -> dict:
+    """Queue 1 item 8 at full width: exact resume on the card, lossy
+    checkpoints of the trained state held to their bounds and to the same
+    saves from a CPU copy (plain versions), a certifying save inside
+    ``train_surrogate``, the single-field fixed-rate helpers, and one
+    step's gradients through ``compressed_psum_tree``.  Returns
+    {"launches": kernel launches on these paths, and the numbers}.  The
+    CPU copies launch nothing."""
+    import torch.distributed as dist
+    from repro_torch.compression import get_codec, tree_map
+    from repro_torch.core.grad_compress import compressed_psum_tree, tree_collective_bytes
+    from repro_torch.data import channels_last
+    from repro_torch.kernels import ops, zfp_codec
+    from repro_torch.models.surrogate import adam_state_to_jax, l1_loss, params_to_jax
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import TrainConfig, train_surrogate
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+
+    launches = {k: 0 for k in zfp_codec.LAUNCHES}
+    counted = functools.partial(count_launches, launches)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    root = Path(tmp.name)
+    out = {}
+    try:
+        # -- exact resume, with and without deterministic algorithms --------
+        base = dict(epochs=CKPT_EPOCHS, batch_size=BATCH, lr=LR, seed=0, log_every=1,
+                    ckpt_every_steps=CKPT_EVERY)
+        snaps = []
+
+        def run(name, keep_last_two=False, **kw):
+            stamps = []
+
+            def hook(step, model, loss):
+                stamps.append(time.perf_counter())
+                if keep_last_two:          # parameters after the last two steps
+                    cur = [p.detach().clone() for p in model.parameters()]
+                    snaps[:] = (snaps[-1:] + [cur])
+            tc = TrainConfig(**base, ckpt_dir=str(root / name), **kw)
+            (model, losses), got = counted(lambda: train_surrogate(
+                cfg, tc, cond, store, hooks=[hook], target_transform=channels_last,
+                device=DEV))
+            ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+            return model, losses, (statistics.median(ms) if ms else float("nan")), got
+
+        resume = {}
+        for det in (True, False):
+            torch.use_deterministic_algorithms(det)
+            try:
+                tag = "det" if det else "nondet"
+                fresh, fresh_l, fresh_ms, got_f = run(f"fresh_{tag}", keep_last_two=det)
+                _, killed_l, _, _ = run(f"killed_{tag}", max_steps=CKPT_KILL)
+                latest = ckpt.latest_checkpoint(str(root / f"killed_{tag}"))
+                resumed, res_l, res_ms, _ = run(f"killed_{tag}")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            total = len(fresh_l)
+            last_saved = CKPT_KILL - CKPT_KILL % CKPT_EVERY
+            same_p = all(same_bits(a.detach(), b.detach()) for a, b in
+                         zip(fresh.parameters(), resumed.parameters()))
+            want_l = [(s, l) for s, l in fresh_l if s > last_saved]
+            same_l = res_l == want_l
+            resume[tag] = {"fresh_ms": fresh_ms, "resumed_ms": res_ms, "params": same_p,
+                           "losses": same_l, "steps": total}
+            print(f"checkpoint resume, deterministic={det}: {total} steps fresh (step "
+                  f"median {fresh_ms:.3f} ms, launches {got_f}), preempted at "
+                  f"{len(killed_l)}, resumed from {os.path.basename(latest)} for "
+                  f"{len(res_l)} steps (median {res_ms:.3f} ms); final params "
+                  f"bit-identical {same_p}, post-resume losses bit-identical {same_l}; "
+                  f"{smi}", flush=True)
+            require(latest.endswith(f"step_{last_saved:010d}"),
+                    f"the preempted run's last checkpoint is step {last_saved}")
+            require(len(killed_l) == CKPT_KILL and len(res_l) == total - last_saved,
+                    f"preempted at {CKPT_KILL}, resumed for {total - last_saved} steps")
+            if det:
+                require(same_p and same_l, "exact resume on the card: final params and "
+                                           "post-resume losses equal the fresh run's bit "
+                                           "for bit (deterministic algorithms)")
+                model, prev = fresh, snaps[0]
+        out["resume"] = resume
+        print(f"determinism: step median {resume['det']['fresh_ms']:.3f} ms deterministic, "
+              f"{resume['nondet']['fresh_ms']:.3f} ms not; without it resume is "
+              f"{'bit-identical' if resume['nondet']['params'] and resume['nondet']['losses'] else 'not bit-identical'}",
+              flush=True)
+
+        # -- lossy checkpoints of the trained state ---------------------------
+        names = [n for n, _ in model.named_parameters()]
+        live = {n: p.detach() for n, p in model.named_parameters()}
+        template = {"params": params_to_jax(live),
+                    "opt": adam_state_to_jax(adam_init(live, AdamConfig()))}
+        final = ckpt.latest_checkpoint(str(root / "fresh_det"))
+        (state, _), _ = counted(lambda: ckpt.restore_checkpoint(final, template))
+        require(_same_trees(state["params"], template["params"]),
+                f"the fresh run's final checkpoint ({os.path.basename(final)}) restores "
+                f"its parameters bit for bit")
+        prev_j = params_to_jax(dict(zip(names, prev)))
+        t0 = time.perf_counter()
+        tols, _ = counted(lambda: ckpt.certify_param_tolerances(prev_j, state["params"]))
+        certify_s = time.perf_counter() - t0
+        fs, fp = _flat(state["params"]), _flat(prev_j)
+        disp = {k: float((fs[k] - fp[k]).abs().mean()) for k in tols}
+        print(f"certified tolerances ({certify_s:.3f} s, {len(tols)} leaves): " + ", ".join(
+            f"{k} {t:.3e} (displacement {disp[k]:.3e})" for k, t in sorted(tols.items())))
+        n_big = sum(v.numel() >= ckpt.MIN_LOSSY_SIZE for v in _flat(state["params"]).values())
+        require(len(tols) == n_big, f"every leaf of at least {ckpt.MIN_LOSSY_SIZE} values "
+                                    f"certified ({len(tols)} of {n_big})")
+        cpu_state = tree_map(lambda t: t.cpu(), state)
+        rows = [("raw", {}, None),
+                (f"fixed_rate{CKPT_FR_BITS}",
+                 {"codec": get_codec("fixed_rate", bits_per_value=CKPT_FR_BITS)}, None),
+                ("fixed_accuracy_certified",
+                 {"codec": get_codec("fixed_accuracy"), "tolerances": {"params": tols}},
+                 "per leaf"),
+                ("fixed_accuracy_residual",
+                 {"codec": get_codec("fixed_accuracy+residual",
+                                     tolerance=CKPT_RESIDUAL_TOL)}, 2 * CKPT_RESIDUAL_TOL)]
+        table = []
+        for name, kw, bound in rows:
+            save_s, restore_s = [], []
+            for _ in range(2):             # the first call of each pays first-use costs
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path, _ = counted(lambda: ckpt.save_checkpoint(str(root / name), 1, state,
+                                                               **kw))
+                save_s.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                (back, meta), got = counted(lambda: ckpt.restore_checkpoint(path, state))
+                restore_s.append(time.perf_counter() - t0)
+            err = _max_err(back, state)
+            ratio = meta["stored_bytes"] / meta["raw_bytes"]
+            table.append({"mode": name, "stored_over_raw": ratio, "save_s": save_s,
+                          "restore_s": restore_s, "max_err": err, "bound": bound})
+            print(f"checkpoint {name}: stored/raw {ratio:.4f} ({meta['stored_bytes']} of "
+                  f"{meta['raw_bytes']} bytes), save {save_s[0]:.4f} s (again "
+                  f"{save_s[1]:.4f}), restore {restore_s[0]:.4f} s (again "
+                  f"{restore_s[1]:.4f}), max restore error {err:.3e} (bound: "
+                  f"{'none, the rate is fixed' if name.startswith('fixed_rate') else bound if bound else 0}); "
+                  f"restore launches {got}; {smi}", flush=True)
+            if name == "raw":
+                require(_same_trees(back, state), "raw checkpoint restores bit for bit")
+                continue
+            fb, fs = _flat(back["params"]), _flat(state["params"])
+            if bound == "per leaf":
+                worst = max(float((fb[k] - fs[k]).abs().max()) / t for k, t in tols.items())
+                require(worst <= 1.0 and _same_trees(back["opt"], state["opt"]),
+                        f"certified restore: every certified leaf within its tolerance "
+                        f"(worst {worst:.4f} of it), the optimizer state raw and exact")
+            elif bound is not None:
+                require(err <= bound + 1e-6, f"residual restore within 2 tol ({err:.3e} <= "
+                                             f"{bound})")
+            # the same save from a CPU copy (plain versions), and each restore
+            cpu_path = ckpt.save_checkpoint(str(root / f"{name}_cpu"), 1, cpu_state, **kw)
+            _same_npz(path, cpu_path, name)
+            cpu_back, _ = ckpt.restore_checkpoint(path, cpu_state)
+            if name.endswith("residual"):
+                d = _max_err(back, cpu_back)
+                require(d <= CKPT_RESIDUAL_REL * CKPT_RESIDUAL_TOL,
+                        f"{name}: the card's restore within {CKPT_RESIDUAL_REL} tol of the "
+                        f"CPU's ({d:.3e})")
+            else:
+                require(_same_trees(back, cpu_back), f"{name}: the card's restore equals "
+                                                     f"the CPU's bit for bit")
+        out["table"] = table
+
+        # -- a certifying save inside train_surrogate --------------------------
+        t0 = time.perf_counter()
+        (m2, l2), got = counted(lambda: train_surrogate(
+            cfg, TrainConfig(epochs=1, batch_size=BATCH, lr=LR, seed=0, log_every=1,
+                             max_steps=CKPT_RUN_STEPS, ckpt_every_steps=CKPT_RUN_EVERY,
+                             ckpt_dir=str(root / "certifying"),
+                             ckpt_codec=get_codec("fixed_accuracy")),
+            cond, store, target_transform=channels_last, device=DEV))
+        run_s = time.perf_counter() - t0
+        latest = ckpt.latest_checkpoint(str(root / "certifying"))
+        with open(os.path.join(latest, "manifest.json")) as f:
+            meta = json.load(f)
+        cert = meta["codec"].get("tolerances", {}).get("params", {})
+        live2 = params_to_jax({n: p.detach() for n, p in m2.named_parameters()})
+        (back, _), _ = counted(lambda: ckpt.restore_checkpoint(latest, {"params": live2}))
+        fb, fl = _flat(back["params"]), _flat(live2)
+        worst = max((float((fb[k] - fl[k]).abs().max()) / t for k, t in cert.items()),
+                    default=float("inf"))
+        print(f"certifying train_surrogate: {CKPT_RUN_STEPS} steps, saves at "
+              f"{CKPT_RUN_EVERY}-step intervals, {run_s:.3f} s, launches {got}; "
+              f"{len(cert)} certified leaves, stored/raw "
+              f"{meta['stored_bytes'] / meta['raw_bytes']:.4f}, worst error "
+              f"{worst:.4f} of its tolerance", flush=True)
+        require(os.path.basename(latest) == f"step_{CKPT_RUN_STEPS:010d}"
+                and len(cert) == n_big and worst <= 1.0,
+                f"ckpt_codec=fixed_accuracy certifies {n_big} leaves at each save inside "
+                f"train_surrogate, restored within them")
+
+        # -- the single-field fixed-rate helpers (kernels 4 and 3) -------------
+        leaf = state["params"]["up0_t"]["w"].reshape(-1, state["params"]["up0_t"]["w"].shape[-1])
+        (cf, y), got = counted(lambda: (lambda c: (c, ops.decode_field(c)))(
+            ops.encode_field(leaf, CKPT_FR_BITS)))
+        ccf = ops.encode_field(leaf.cpu(), CKPT_FR_BITS)
+        require(same_bits(cf.payload, ccf.payload) and same_bits(cf.emax, ccf.emax)
+                and same_bits(y, ops.decode_field(ccf)),
+                f"ops.encode_field/decode_field {tuple(leaf.shape)} at {CKPT_FR_BITS} bits "
+                f"equal the CPU's bit for bit (launches {got})")
+
+        # -- one step's gradients through compressed_psum_tree ------------------
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.FileStore(str(root / "pg"), 1),
+                                rank=0, world_size=1)
+        try:
+            cpu_group = dist.new_group(backend="gloo")
+            t0 = time.perf_counter()
+            dist.all_reduce(torch.zeros(1, device=dev))   # the communicator starts here
+            torch.cuda.synchronize()
+            print(f"process group: {dist.get_backend()}, first all_reduce "
+                  f"{1e3 * (time.perf_counter() - t0):.1f} ms", flush=True)
+            idx = torch.arange(BATCH, device=dev)
+            model.zero_grad(set_to_none=True)
+            l1_loss(model, torch.from_numpy(cond[:BATCH]).to(dev),
+                    channels_last(store.decode_indices(idx))).backward()
+            grads = params_to_jax({n: p.grad.detach() for n, p in model.named_parameters()})
+            model.zero_grad(set_to_none=True)
+            cpu_grads = tree_map(lambda t: t.cpu(), grads)
+            raw_b, _ = tree_collective_bytes(grads, None)
+            grad_rows = []
+            for name, codec in (("fixed_rate8", 8), ("fixed_rate16", 16),
+                                ("fixed_accuracy",
+                                 get_codec("fixed_accuracy", tolerance=GRAD_FA_TOL))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (mean, res), got = counted(lambda: compressed_psum_tree(grads, None, codec))
+                psum_ms = 1e3 * (time.perf_counter() - t0)
+                fg, fm, fr = _flat(grads), _flat(mean), _flat(res)
+                require(all(same_bits(fr[k], fg[k] - fm[k]) for k in fg),
+                        f"grad {name}: residual = input - decoded, bit for bit (one rank)")
+                if name == "fixed_accuracy":
+                    e = max(float((fm[k] - fg[k]).abs().max()) for k in fg)
+                    require(e <= GRAD_FA_TOL, f"grad {name}: mean within {GRAD_FA_TOL} "
+                                              f"({e:.3e})")
+                cmean, cres = compressed_psum_tree(cpu_grads, cpu_group, codec)
+                require(_same_trees(mean, cmean) and _same_trees(res, cres),
+                        f"grad {name}: mean and residual equal the CPU plain versions' "
+                        f"(gloo) bit for bit")
+                (_, wire_b), _ = counted(lambda: tree_collective_bytes(grads, codec))
+                grad_rows.append({"codec": name, "raw_bytes": raw_b, "wire_bytes": wire_b,
+                                  "psum_ms": psum_ms})
+                print(f"grad {name}: tree_collective_bytes raw {raw_b} wire {wire_b} "
+                      f"(ratio {raw_b / wire_b:.4f}), compressed_psum_tree "
+                      f"{psum_ms:.3f} ms, launches {got}; {smi}", flush=True)
+            out["grads"] = grad_rows
+        finally:
+            dist.destroy_process_group()
+    finally:
+        tmp.cleanup()
+    print(f"checkpoint path: launches {launches}")
+    out["launches"] = launches
+    return out
 
 SOLVER_PARAMS = {   # tests/test_solver.py's RT and PCHIP parameters
     "rt": dict(atwood=0.4, amplitude=0.03, mode=2.0),

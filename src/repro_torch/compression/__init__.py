@@ -1,8 +1,12 @@
 """ZFP-style error-bounded lossy compression on PyTorch tensors.
 
 Public API:
-  get_codec / FixedAccuracyCodec / FixedRateCodec / codec_from_plan
+  get_codec / register_codec / codec_spec / codec_from_spec / FixedAccuracyCodec
+  FixedRateCodec / ResidualCorrectedCodec / codec_from_plan
                                           -- the codec seam (api.py)
+  encode_tree / decode_tree / tree_nbytes / TreeCodecMeta / LeafSpec
+  leaf_2d_shape / tree_leaf_keys / tree_flatten / tree_map
+                                          -- the tree codec (api.py)
   encode_fixed_accuracy_batch / encode_fixed_rate_batch / decode_batch
   CompressedField                         -- tensors + sample geometry
   FAEncodeState / fa_precompute_batch / fa_stats_batch
@@ -26,29 +30,58 @@ from repro_torch.compression.zfp import (
     trim_to_nplanes,
 )
 from repro_torch.compression.api import (
+    BACKENDS,
     FixedAccuracyCodec,
     FixedRateCodec,
+    LeafSpec,
+    ResidualCorrectedCodec,
+    ResidualCorrectedField,
+    TreeCodecMeta,
+    TreeDef,
+    as_tensor,
     codec_from_plan,
+    codec_from_spec,
     codec_names,
+    codec_spec,
     decode_stacked_payloads,
+    decode_tree,
+    encode_tree,
     get_codec,
+    leaf_2d_shape,
+    register_codec,
+    tree_flatten,
+    tree_flatten_with_path,
+    tree_leaf_keys,
+    tree_map,
+    tree_nbytes,
 )
 
 __all__ = [
+    "BACKENDS",
     "CompressedField",
     "FAEncodeState",
     "FixedAccuracyCodec",
     "FixedRateCodec",
+    "LeafSpec",
     "MAX_WORDS",
     "Q_FIXED_POINT",
+    "ResidualCorrectedCodec",
+    "ResidualCorrectedField",
     "TOTAL_PLANES",
+    "TreeCodecMeta",
+    "TreeDef",
+    "as_tensor",
     "blockify",
     "codec_from_plan",
+    "codec_from_spec",
     "codec_names",
+    "codec_spec",
     "compressed_nbytes_batch",
     "deblockify",
     "decode_batch",
     "decode_stacked_payloads",
+    "decode_tree",
+    "encode_tree",
     "encode_fixed_accuracy_batch",
     "encode_fixed_rate_batch",
     "fa_plane_counts",
@@ -56,6 +89,13 @@ __all__ = [
     "fa_stats_batch",
     "floor_log2",
     "get_codec",
+    "leaf_2d_shape",
+    "register_codec",
     "sample_l1",
+    "tree_flatten",
+    "tree_flatten_with_path",
+    "tree_leaf_keys",
+    "tree_map",
+    "tree_nbytes",
     "trim_to_nplanes",
 ]

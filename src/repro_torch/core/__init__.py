@@ -8,14 +8,19 @@
                     advances every member) + certify_tolerance, the
                     end-to-end max-benign-tolerance pipeline with persisted
                     BandArtifacts
+  grad_compress  -- error-feedback compressed gradient mean over a
+                    torch.distributed group (compressed_psum_tree) and its
+                    wire-byte accounting (tree_collective_bytes)
 
 The ensemble names are re-exported lazily: importing them pulls in the
-data and train layers.  Gradient compression is not ported yet (ROADMAP
-Queue 1 item 8).
+data and train layers.
 """
 from repro_torch.core.tolerance import (
     BatchToleranceResult, ToleranceResult, algorithm1_per_sample,
     find_tolerance, find_tolerance_batch,
+)
+from repro_torch.core.grad_compress import (
+    as_codec, compress_decompress, compressed_psum_tree, tree_collective_bytes,
 )
 from repro_torch.core.variability import (
     BandVerdict, VariabilityBand, band_contains, band_verdict, compute_band,
@@ -34,6 +39,8 @@ _ENSEMBLE_EXPORTS = (
 __all__ = [
     "BatchToleranceResult", "ToleranceResult", "algorithm1_per_sample",
     "find_tolerance", "find_tolerance_batch",
+    "as_codec", "compress_decompress", "compressed_psum_tree",
+    "tree_collective_bytes",
     "BandVerdict", "VariabilityBand", "band_contains", "band_verdict",
     "compute_band", "dev_vs_seeds", "train_seed_ensemble",
     "ArrayStore", "CompressedArrayStore", "IoStats", "RawArrayStore",

@@ -49,7 +49,7 @@ class ToleranceResult:
 def find_tolerance(sample: np.ndarray, model_l1_error: float,
                    d: int = 2, max_iters: int = 8,
                    device: DeviceLike = None) -> ToleranceResult:
-    """Algorithm 1 for one sample (any (..., H, W) float array).
+    """Algorithm 1 for one sample (any (..., H, W) float array or tensor).
 
     ``model_l1_error``: mean |.| prediction error of the lossless-trained
     model on this sample, in the sample's normalization.  The tolerance is
@@ -58,7 +58,9 @@ def find_tolerance(sample: np.ndarray, model_l1_error: float,
     """
     dev = resolve_device(device)
     e = float(model_l1_error)
-    x = torch.as_tensor(np.asarray(sample, np.float32)).to(dev)
+    if not isinstance(sample, torch.Tensor):
+        sample = torch.as_tensor(np.asarray(sample, np.float32))
+    x = sample.to(dev, torch.float32)
 
     def roundtrip(t):
         cf = _SEARCH_CODEC.encode_batch(

@@ -11,7 +11,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.compression.zfp import floor_log2
+from repro_torch.compression import transform as T
+from repro_torch.compression.zfp import CompressedField, floor_log2
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, zfp_codec
 
@@ -80,6 +81,26 @@ def zfp_encode_blocks(blocks: torch.Tensor, bits_per_value: int):
     if _on_cpu(blocks):
         return ref.zfp_encode_blocks_ref(blocks, bits_per_value)
     return zfp_codec.zfp_encode_blocks(blocks, bits_per_value)
+
+
+def decode_field(cf: CompressedField) -> torch.Tensor:
+    """Fixed-rate decode of one unbatched field (payload (nb, W), emax
+    (nb,)) at ``2 * W`` planes -> ``cf.shape`` float32."""
+    bits = int(cf.payload.shape[1]) * 2
+    blocks = zfp_decode_blocks(cf.payload, cf.emax, bits)
+    xp = T.deblockify(blocks, cf.padded_shape)
+    return xp[tuple(slice(0, s) for s in cf.shape)]
+
+
+def encode_field(x: torch.Tensor, bits_per_value: int) -> CompressedField:
+    """Fixed-rate encode of one array (its trailing two dims blocked) into
+    an unbatched field: payload (nb, W), emax and nplanes (nb,)."""
+    xp = T.pad_to_blocks(x.to(torch.float32))
+    blocks = T.blockify(xp).contiguous()
+    payload, emax = zfp_encode_blocks(blocks, bits_per_value)
+    nplanes = torch.full((blocks.shape[0],), bits_per_value, dtype=torch.int32,
+                         device=x.device)
+    return CompressedField(payload, emax, nplanes, tuple(x.shape), tuple(xp.shape))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

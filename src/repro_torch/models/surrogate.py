@@ -22,6 +22,7 @@ from torch.func import functional_call
 
 from repro_torch.models import nn
 from repro_torch.sim.solver import PARAM_DIM
+from repro_torch.train.optimizer import AdamState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,23 +132,60 @@ def member_params(stacked: Mapping[str, torch.Tensor], m: int
 
 
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX surrogate param pytree (numpy leaves) -> this module's state dict.
+    """JAX surrogate param tree -> this module's state dict.
 
     Dense weights keep their (in, out) layout; conv weights go from HWIO to
     (Cout, Cin, kh, kw); the transposed convs' weights are flipped
     spatially and stored (Cin, Cout, kh, kw) (see ``nn.conv2d_transpose``).
+    Tensor leaves are converted on their own device and keep their dtype;
+    array leaves (numpy, JAX) come back as float32 CPU tensors.
     """
     out = {}
     for layer, leaves in params.items():
         for name, v in leaves.items():
-            a = np.asarray(v, np.float32)
-            if name == "w" and a.ndim == 4:
-                if layer.endswith("_t"):
-                    a = a[::-1, ::-1].transpose(2, 3, 0, 1)
-                else:
-                    a = a.transpose(3, 2, 0, 1)
-            out[f"{layer}.{name}"] = torch.from_numpy(np.array(a, np.float32, order="C"))
+            t = v if isinstance(v, torch.Tensor) else \
+                torch.from_numpy(np.array(v, np.float32))
+            if name == "w" and t.dim() == 4:
+                t = (t.flip(0, 1).permute(2, 3, 0, 1) if layer.endswith("_t")
+                     else t.permute(3, 2, 0, 1))
+            out[f"{layer}.{name}"] = t.contiguous()
     return out
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """This module's state dict -> the JAX surrogate's nested ``{layer:
+    {name: tensor}}`` tree, the exact inverse of :func:`params_from_jax`
+    (dense weights stay (in, out), conv weights go to HWIO, the transposed
+    convs' weights are flipped back and stored HWIO), on the tensors' own
+    device.  Checkpoints and their certification work on this layout: the
+    tree codec blocks a leaf as (prod(shape[:-1]), shape[-1]), so the
+    layout decides the blocks, the bits and the certified tolerances."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, t in params.items():
+        layer, name = key.rsplit(".", 1)
+        if name == "w" and t.dim() == 4:
+            t = (t.permute(2, 3, 0, 1).flip(0, 1) if layer.endswith("_t")
+                 else t.permute(2, 3, 1, 0))
+        out.setdefault(layer, {})[name] = t.contiguous()
+    return out
+
+
+def adam_state_to_jax(state: AdamState) -> AdamState:
+    """The port's ``AdamState`` (state-dict moments) -> the same state in
+    the JAX layout: ``m`` and ``v`` as :func:`params_to_jax`, ``step`` an
+    int32 scalar.  Flattens to the JAX package's ``.step``, ``.m/<layer>/
+    <name>``, ``.v/...`` keys."""
+    return AdamState(step=state.step.to(torch.int32),
+                     m=params_to_jax(state.m), v=params_to_jax(state.v))
+
+
+def adam_state_from_jax(state) -> AdamState:
+    """Inverse of :func:`adam_state_to_jax`; also takes the JAX package's
+    own ``AdamState`` (array leaves, converted to CPU tensors)."""
+    step = state.step if isinstance(state.step, torch.Tensor) else \
+        torch.from_numpy(np.array(state.step, np.int32))
+    return AdamState(step=step.to(torch.int32), m=params_from_jax(state.m),
+                     v=params_from_jax(state.v))
 
 
 @dataclasses.dataclass

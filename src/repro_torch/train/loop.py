@@ -14,8 +14,22 @@ Counterpart of ``repro/train/loop.py``.  The ``BatchSource`` seam
 Batches follow the loaders' ``(seed, epoch)`` order (shard-aware for
 sharded stores), the same as the JAX package's.  The summed wait for
 batches goes to the ``train.fetch_wait_seconds`` counter of the metrics
-registry.  Checkpointing waits for ROADMAP Queue 1 item 8 and telemetry
-spans for item 9.
+registry.  Telemetry spans wait for ROADMAP Queue 1 item 9.
+
+Checkpoints and exact resume: with ``TrainConfig.ckpt_dir`` the loop saves
+every ``ckpt_every_steps`` steps, and at the end unless the last step was
+saved or the run stopped at ``max_steps`` (a simulated preemption), the
+parameters and Adam state in the JAX package's layout
+(:func:`~repro_torch.models.surrogate.params_to_jax`) with the loader state
+(epoch, step_in_epoch, seed) in the manifest.  A run started on a directory
+that holds a checkpoint resumes from it: the same batches, in the same
+order, at the same global steps as an uninterrupted run, so final
+parameters and the post-resume loss history are bit-identical to it
+(where the device's kernels are deterministic).  Either package resumes
+from the other's checkpoints.  Lossy checkpoints
+(``lossy_ckpt_bits``, ``ckpt_codec``) encode on the device; a
+fixed-accuracy codec without a default tolerance certifies per-leaf
+tolerances at each save from the last step's displacement.
 """
 from __future__ import annotations
 
@@ -28,8 +42,12 @@ import torch
 
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.device import DeviceLike, resolve_device, same_device
-from repro_torch.models.surrogate import Surrogate, SurrogateConfig, init_surrogate
+from repro_torch.models.surrogate import (Surrogate, SurrogateConfig,
+                                          adam_state_from_jax, adam_state_to_jax,
+                                          init_surrogate, params_from_jax,
+                                          params_to_jax)
 from repro_torch.obs.metrics import get_registry
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import AdamConfig, adam_init
 from repro_torch.train.source import (batch_stream, make_batch_source,
                                       make_fused_step, make_host_step,
@@ -42,10 +60,69 @@ class TrainConfig:
     batch_size: int = 64
     lr: float = 1e-4
     seed: int = 0
-    ckpt_dir: Optional[str] = None   # not ported: must stay None
+    ckpt_dir: Optional[str] = None
+    ckpt_every_steps: int = 200
+    ckpt_keep: int = 3
+    lossy_ckpt_bits: Optional[int] = None
+    # any codec of the port (repro_torch.compression.get_codec(...)); takes
+    # precedence over lossy_ckpt_bits.  A fixed-accuracy codec with no
+    # default tolerance certifies per-leaf tolerances at each save
+    # (Algorithm 1 on the parameters, the last step's displacement as bound).
+    ckpt_codec: Optional[object] = None
     log_every: int = 50
-    max_steps: Optional[int] = None  # stop after this many steps
+    max_steps: Optional[int] = None  # simulated preemption: stop, no final save
     prefetch: int = 2                # queue depth; 0 = synchronous fetch
+
+
+def _needs_certify(train_cfg: TrainConfig) -> bool:
+    codec = train_cfg.ckpt_codec
+    return (codec is not None
+            and getattr(codec, "tolerance", 0) is None
+            and codec.name.startswith("fixed_accuracy"))
+
+
+def _save(train_cfg: TrainConfig, step: int, params, opt_state,
+          loader_state: dict, params_prev=None) -> None:
+    """Checkpoint ``params`` (a state dict) and ``opt_state`` in the JAX
+    layout; certified per-leaf tolerances come from ``params_prev``."""
+    codec = train_cfg.ckpt_codec
+    lossy_bits = None if codec is not None else train_cfg.lossy_ckpt_bits
+    jparams = params_to_jax(params)
+    tolerances = None
+    if _needs_certify(train_cfg) and params_prev is not None:
+        tolerances = {"params": ckpt.certify_param_tolerances(
+            params_to_jax(params_prev), jparams)}
+    ckpt.save_checkpoint(
+        train_cfg.ckpt_dir, step,
+        {"params": jparams, "opt": adam_state_to_jax(opt_state)},
+        extra={"loader": dict(loader_state),
+               "epoch": loader_state["epoch"],
+               "seed": loader_state["seed"]},
+        lossy_bits=lossy_bits, codec=codec, tolerances=tolerances,
+        keep=train_cfg.ckpt_keep)
+
+
+def _resume(train_cfg: TrainConfig, model: Surrogate, opt_state, loader):
+    """Load the newest checkpoint of ``train_cfg.ckpt_dir`` into ``model``,
+    the Adam state and ``loader``; returns (opt_state, step), step 0 when
+    there is none."""
+    latest = ckpt.latest_checkpoint(train_cfg.ckpt_dir)
+    if not latest:
+        return opt_state, 0
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    state, meta = ckpt.restore_checkpoint(
+        latest, {"params": params_to_jax(params),
+                 "opt": adam_state_to_jax(opt_state)})
+    restored = params_from_jax(state["params"])
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(restored[n])
+    lstate = meta["extra"].get("loader")
+    if lstate is None:          # pre-loader manifest: epoch granularity
+        lstate = {"epoch": meta["extra"].get("epoch", 0),
+                  "step_in_epoch": 0, "seed": loader.seed}
+    loader.restore(lstate)
+    return adam_state_from_jax(state["opt"]), meta["step"]
 
 
 def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
@@ -65,15 +142,14 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     ``repro_torch.datagen.scenario_conditions``).  ``params`` is an
     optional state dict, e.g. from
     :func:`repro_torch.models.surrogate.params_from_jax`; otherwise the
-    model is initialised from ``train_cfg.seed``.  Each hook is called as
+    model is initialised from ``train_cfg.seed``.  A checkpoint in
+    ``train_cfg.ckpt_dir`` takes precedence over both, and the loss
+    history then holds the steps after it.  Each hook is called as
     ``hook(step, model, loss)`` after every step.  ``loader`` overrides the
     one built from the store and ``train_cfg.seed``, e.g. one member loader
     of an ensemble's ``EnsembleLoader``, so that a single run draws that
     member's batches.
     """
-    if train_cfg.ckpt_dir:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
     dev = resolve_device(device)
     if isinstance(data, str):
         from repro_torch.datagen import resolve_store
@@ -89,6 +165,11 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     opt_state = adam_init(dict(model.named_parameters()), opt_cfg)
     if loader is None:
         loader = make_loader(data, train_cfg.batch_size, train_cfg.seed)
+    step = 0
+    if train_cfg.ckpt_dir:
+        opt_state, step = _resume(train_cfg, model, opt_state, loader)
+    if train_cfg.max_steps is not None and step >= train_cfg.max_steps:
+        return model, []                # already at the preemption point
     if source.kind == "device":
         train_step = make_fused_step(source, model, opt_cfg)
         prefetch = 0
@@ -96,25 +177,44 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
         train_step = make_host_step(model, opt_cfg)
         prefetch = train_cfg.prefetch
 
+    # views of the parameters, which the step updates in place: a certified
+    # save's pre-step parameters are copied into buffers before each step
+    live = {n: p.detach() for n, p in model.named_parameters()}
+    params_prev = None
+    if train_cfg.ckpt_dir and _needs_certify(train_cfg):
+        params_prev = {n: torch.empty_like(p) for n, p in live.items()}
+
     fetch_wait = get_registry().counter("train.fetch_wait_seconds")
     losses = []
-    step = 0
+    # the loader position to store in the next checkpoint: with prefetch
+    # the live loader runs ahead, so each batch carries its own snapshot
+    last_state = dict(loader.state())
+    saved_step = -1
     stream = batch_stream(loader, source.fetch, train_cfg.epochs, prefetch)
     try:
         t_iter = time.perf_counter()
-        for _, item in stream:
+        for lstate, item in stream:
             fetch_wait.add(time.perf_counter() - t_iter)
+            if params_prev is not None:
+                torch._foreach_copy_(list(params_prev.values()),
+                                     list(live.values()))
             opt_state, loss = train_step(opt_state, item)
             step += 1
+            last_state = lstate
             if step % train_cfg.log_every == 0:
                 losses.append((step, float(loss)))
             for h in hooks:
                 h(step, model, loss)
+            if train_cfg.ckpt_dir and step % train_cfg.ckpt_every_steps == 0:
+                _save(train_cfg, step, live, opt_state, last_state, params_prev)
+                saved_step = step
             if train_cfg.max_steps is not None and step >= train_cfg.max_steps:
-                break
+                return model, losses    # preempted: no final save
             t_iter = time.perf_counter()
     finally:
         stream.close()
+    if train_cfg.ckpt_dir and step != saved_step:
+        _save(train_cfg, step, live, opt_state, last_state, params_prev)
     return model, losses
 
 

@@ -359,8 +359,8 @@ def test_device_store_get_batch_matches_jax(rng):
 def test_codec_registry_names_the_roadmap():
     assert isinstance(get_codec("fixed_accuracy"), type(get_codec("fixed_accuracy")))
     assert get_codec("fixed_rate", bits_per_value=9).name == "fixed_rate"
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        get_codec("fixed_accuracy+residual")
+    residual = get_codec("fixed_accuracy+residual", tolerance=1e-3)
+    assert residual.name == "fixed_accuracy+residual" and residual.tolerance == 1e-3
     with pytest.raises(KeyError, match="unknown codec"):
         get_codec("nope")
     with pytest.raises(ValueError, match="tolerances"):

@@ -246,10 +246,29 @@ def test_decode_stacked_payloads_without_nplanes_matches_jax(rng):
     assert float(np.abs(want - xs).max(axis=(1, 2, 3)).max() / tols.max()) <= 1
 
 
+@pytest.mark.parametrize("shape", [(13, 22), (2, 9, 6)])
+@pytest.mark.parametrize("bits", [12, 13, 20])
+def test_encode_decode_field_match_jax(rng, shape, bits):
+    """``ops.encode_field``/``decode_field`` (kernels 4 and 3 on one field)
+    against the JAX package's on shapes that are no multiple of 4: the
+    padded shape, payload, emax and the ``nplanes`` fill bit for bit, and
+    the decode at ``2 * W`` planes (14 at 13 bits) cropped back."""
+    x = (rng.standard_normal(shape) * 10.0 ** rng.integers(-2, 2)).astype(np.float32)
+    cf = ops.encode_field(torch.from_numpy(x), bits)
+    jcf = jops.encode_field(jnp.asarray(x), bits)
+    assert (cf.shape, cf.padded_shape) == (tuple(jcf.shape), tuple(jcf.padded_shape))
+    for f in ("payload", "emax", "nplanes"):
+        a, b = _np(getattr(cf, f)), np.asarray(getattr(jcf, f))
+        assert a.shape == b.shape and np.array_equal(a, b), f
+    assert np.all(_np(cf.nplanes) == bits)
+    got = ops.decode_field(cf)
+    assert got.shape == shape
+    _assert_same_bits(got.numpy(), np.asarray(jops.decode_field(jcf)))
+
+
 def test_codec_registry():
     assert get_codec("fixed_rate").bits_per_value == 12
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        get_codec("fixed_accuracy+residual")
+    assert get_codec("fixed_accuracy+residual").name == "fixed_accuracy+residual"
     with pytest.raises(ValueError, match="bits_per_value"):
         encode_fixed_rate_batch(torch.zeros(1, 4, 4), 31)
 

@@ -15,6 +15,8 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.compression import as_tensor, encode_tree, get_codec
+from repro_torch.core.grad_compress import tree_collective_bytes
 from repro_torch.data import DeviceResidentCompressedStore, channels_last
 from repro_torch.configs import reduced_config
 from repro_torch.core import find_tolerance, find_tolerance_batch
@@ -26,6 +28,7 @@ from repro_torch.models import lm
 from repro_torch.models.surrogate import SurrogateConfig, init_surrogate
 from repro_torch.serving import ServeEngine
 from repro_torch.sim import EnsembleSpec, generate_ensemble, run_simulation
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
 
 torch.set_num_threads(2)
@@ -56,7 +59,7 @@ def test_scan_covers_every_package_of_the_port():
             "scheduler.py", "loadgen.py", "trace.py", "serve.py",
             "flash_attention.py", "ensemble.py", "tolerance.py", "variability.py",
             "image.py", "physics.py", "solver.py", "plan.py", "produce.py",
-            "writer.py"} <= names
+            "writer.py", "checkpoint.py", "grad_compress.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -162,3 +165,37 @@ def test_datagen_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_path):
         resolve_store(str(tmp_path / "cpu"))
     store = resolve_store(str(tmp_path / "cpu"), device="cpu")
     assert store.get_batch(np.arange(2)).device.type == "cpu"
+
+
+def test_compression_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_path):
+    """Array leaves and fields read back from arrays go to the card unless
+    the caller asks for the CPU; tensors stay where they are."""
+    w = np.random.default_rng(0).normal(size=(64, 96)).astype(np.float32)
+    fr = get_codec("fixed_rate", bits_per_value=13)
+    state = {"params": {"w": w}}
+    p = ckpt.save_checkpoint(str(tmp_path), 1, state, lossy_bits=13, device="cpu")
+    for call in (lambda: as_tensor(w),
+                 lambda: encode_tree(fr, {"w": w}),
+                 lambda: tree_collective_bytes({"w": w}, 8),
+                 lambda: fr.field_from_arrays(fr.field_to_arrays(
+                     fr.encode_batch(torch.from_numpy(w)[None])), w.shape),
+                 lambda: ckpt.certify_param_tolerances({"w": w}, {"w": w + 1e-3},
+                                                       min_size=1024),
+                 lambda: ckpt.save_checkpoint(str(tmp_path / "card"), 1, state,
+                                              lossy_bits=13),
+                 lambda: ckpt.restore_checkpoint(p, state)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "card" / "LATEST").exists()
+    assert as_tensor(w, "cpu").device.type == "cpu"
+    enc, _ = encode_tree(fr, {"w": w}, device="cpu")
+    assert enc[0].payload.device.type == "cpu"
+    assert tree_collective_bytes({"w": torch.from_numpy(w)}, 8)[0] == w.nbytes
+    assert tree_collective_bytes({"w": w}, None) == (w.nbytes, w.nbytes)
+    out, _ = ckpt.restore_checkpoint(p, state, device="cpu")
+    assert out["params"]["w"].device.type == "cpu"
+    assert float(np.abs(out["params"]["w"].numpy() - w).max()) < 0.02
+    out, _ = ckpt.restore_checkpoint(p, {"params": {"w": torch.from_numpy(w)}})
+    assert out["params"]["w"].device.type == "cpu"
+    assert ckpt.certify_param_tolerances({"w": w}, {"w": w + 1e-3}, min_size=1024,
+                                         device="cpu")

@@ -7,6 +7,9 @@ host-streaming (raw and sharded) stores.  The comparison is
 to a tolerance, not bitwise: the L1 gradient is ``sign(pred - target)``, and
 a residual within float noise of zero can flip between the two runtimes.
 """
+import dataclasses
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -162,13 +165,21 @@ def test_host_streaming_train_matches_jax(study, kind):
         assert torch.equal(a, b), n
 
 
-def test_train_rejects_what_is_not_ported(study):
+def test_train_rejects_what_is_not_ported(study, tmp_path):
     cfg, cond, samples, tols = study
     store = DeviceResidentCompressedStore.from_samples(samples[:4], tols[:4],
                                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train_surrogate(cfg, TrainConfig(ckpt_dir="ckpt"), cond, store,
-                        device="cpu")
+    # checkpoints are ported: ckpt_dir trains, saves and resumes
+    tcfg = TrainConfig(epochs=2, batch_size=2, log_every=1, ckpt_dir=str(tmp_path),
+                       ckpt_every_steps=3)
+    ckpt_cfg = dataclasses.replace(tcfg, max_steps=3)
+    _, first = train_surrogate(cfg, ckpt_cfg, cond, store,
+                               target_transform=channels_last, device="cpu")
+    assert [s for s, _ in first] == [1, 2, 3]
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_0000000003"]
+    _, rest = train_surrogate(cfg, tcfg, cond, store, target_transform=channels_last,
+                              device="cpu")
+    assert [s for s, _ in rest] == [4]
     with pytest.raises(FileNotFoundError, match="holds no produced dataset"):
         train_surrogate(cfg, TrainConfig(), cond, "produced/dataset",
                         device="cpu")
