@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs six paths at full
+tolerance, asserting which variant ran, then runs seven paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -36,6 +36,17 @@ model width:
   candidate stores at six tolerance multiples (the band, the verdicts, the
   stores' bounds, the artifact read back); and the ensemble on one shared
   and on two per-member host-streaming sharded stores;
+* the surrogate serving path: the certification path's 4-member fleet
+  serves 64 mixed-length rollout queries through ``SurrogateServeEngine``
+  (8 slots, bands at 2 sigma) with continuous batching, in lockstep and in
+  open loop at half the closed loop's rate; every query's mean and width
+  finite and of field shape, the two modes agreeing, the fleet step held
+  to each member's own forward through ``compute_band`` and the card to a
+  CPU copy of the fleet, the schedule's counts to the CPU engine's; the
+  fleet step profiled vmapped and with the members one after another; one
+  traced run (the serve, 10 device-resident and 10 host-streaming steps
+  with the prefetch worker) whose spans, first-step split and recompile
+  watch are checked and read back by ``tools/trace_report.py``;
 * the checkpoint path (lossy and certified checkpoints, exact resume,
   compressed gradients) on the same model and store: a fresh run of 102
   steps saving every 20 against a run preempted at step 50 and resumed
@@ -81,7 +92,9 @@ the summed fetch wait and the store's ``IoStats``, the ensemble's and the
 sweep's step medians beside the single model's, the kernels per ensemble
 step and its device busy share, Algorithm 1's seconds and iterations, the
 candidate stores' build times and the certification's summary and verdict,
-the checkpoint phase's step medians with and without deterministic
+the serving phase's queries/s, p50/p99 and fleet-step profiles (one
+``surrogate_serving`` JSON line) and the traced runs' first-step and
+steady-state times, the checkpoint phase's step medians with and without deterministic
 algorithms, each checkpoint mode's stored/raw, save and restore seconds
 and largest restore error beside its bound, and the gradients' wire bytes,
 the solver's time per member (CUDA graph and eager) and kernels per RK3
@@ -194,6 +207,21 @@ ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # the two round attention outputs to bf16 differently, and the residual
 # stream carries those bf16 differences on (logits are about N(0, 1))
 LOGIT_ATOL = 0.25
+# surrogate serving path (Queue 1 item 10): the certification phase's
+# 4-member fleet serves SERVE_QUERIES queries of the seeded mixed workload
+# (rollouts of 1, 2, 4 and 16 steps) in SERVE_SLOTS slots, bands at
+# SERVE_SIGMAS.  The fleet step (vmapped, grouped convolutions) against each
+# member's own forward and the card against a CPU copy of the fleet: mean
+# to SERVE_ATOL, width to 4 * SERVE_SIGMAS * SERVE_ATOL (f32 convolutions
+# in other algorithms; a population std moves by at most twice the largest
+# member error, and the width is 2 * sigmas stds).  The traced runs: the
+# closed-loop serve, TRACE_STEPS steps on the resident store and
+# TRACE_STEPS host-streaming steps with the prefetch worker
+SERVE_QUERIES, SERVE_SLOTS, SERVE_SIGMAS = 64, 8, 2.0
+SERVE_ROLLOUTS = (1, 2, 4, 16)
+SERVE_ATOL = 1e-4
+SERVE_CPU_QUERIES = 8
+TRACE_STEPS = 10
 
 
 class CheckFailed(RuntimeError):
@@ -747,6 +775,14 @@ def main(argv) -> int:
     cert = certification_path(dev, samples, cond, cfg_full, store,
                               statistics.median(step_ms))
 
+    # -- 6b. surrogate serving of the certification phase's fleet, and the
+    # traced runs (spans, the compile/steady split, the recompile watcher) ---
+    print(f"surrogate serving phase starts {time.perf_counter() - t_start:.1f} s since "
+          f"start", flush=True)
+    t0 = time.perf_counter()
+    serving = surrogate_serving_path(dev, samples, cond, cfg_full, store, cert.pop("fleet"))
+    print(f"surrogate serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 7. checkpoint path: exact resume, lossy checkpoints, compressed grads ---
     print(f"checkpoint phase starts {time.perf_counter() - t_start:.1f} s since start",
           flush=True)
@@ -798,7 +834,8 @@ def main(argv) -> int:
 
     def launches(name):
         return (resident_launches[name] + cert["launches"][name] + ckpt_res["launches"][name]
-                + datagen["launches"][name] + host_launches[name])
+                + datagen["launches"][name] + host_launches[name]
+                + serving["launches"][name])
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
@@ -812,10 +849,15 @@ def main(argv) -> int:
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} launched on the paths "
                                    f"({k['launches']} times)")
+    from repro_torch.obs.metrics import get_registry
+    recompiles = get_registry().counter("jax.recompiles").value
+    require(recompiles == 0, f"no kernel library was built after a run's first step "
+                             f"({recompiles} flagged by the recompile watcher)")
     print(f"card: {smi}; device-resident step median {statistics.median(step_ms):.3f} "
           f"ms; ensemble step median ({len(ENS_SEEDS)} members) {cert['ensemble_ms']:.3f} "
           f"ms, sweep step median ({len(CERT_MULTIPLES)} candidates) "
-          f"{cert['sweep_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
+          f"{cert['sweep_ms']:.3f} ms; surrogate serving {serving['qps']:.1f} queries/s "
+          f"closed loop, fleet step {serving['fleet_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
           f"{attn['timings']['decode']['ms']:.4f} ms; RT_SPEC member on the card "
           f"{datagen['solver']['rt']['graph_s'][1]:.3f} s, produced ratios at {TOLERANCE} "
           f"rt {datagen['ratios']['rt']:.4f}, pchip {datagen['ratios']['pchip']:.4f}; total "
@@ -1783,6 +1825,281 @@ def ensemble_gather_check(data, cond, idx_np: np.ndarray, what: str) -> None:
             f"arrays and each member's own store decode, bit for bit (per member {own})")
 
 
+# cuDNN's layout changes: its generic transposes (around vmap's grouped
+# convolutions) and its NCHW <-> NHWC conversions
+LAYOUT_KERNELS = ("genericTranspose", "nchwToNhwc", "nhwcToNchw")
+
+
+def device_time(prof, per: int):
+    """(device busy ms per unit, the share of it in cuDNN's layout changes,
+    ``LAYOUT_KERNELS``) from a torch.profiler run over ``per`` units;
+    (None, None) where it recorded no device time."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events)
+    if not busy:
+        return None, None
+    layout = sum(e.self_device_time_total for e in events
+                 if any(k in e.key for k in LAYOUT_KERNELS))
+    return busy / 1e3 / per, layout / busy
+
+
+def profile_fleet(engine, cond_np: np.ndarray, fleet, cfg, steps: int = 10) -> dict:
+    """Time 2 * ``steps`` serving fleet steps one by one (condition upload,
+    the vmapped forward of every member, mean and width, read back: the
+    read back syncs) and trace ``steps`` more with torch.profiler; beside
+    them the same work with the members run one after another through one
+    skeleton.  Prints both profiles and returns per way the median ms
+    (profiler off), the wall ms, kernels, device busy ms and share with
+    the profiler on, and the share of device time in cuDNN's layout
+    changes."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.surrogate import functional_forward, init_surrogate, member_params
+    skeleton = init_surrogate(cfg, 0, engine.device)
+    members = [member_params(fleet, m) for m in range(engine.num_members)]
+
+    def loop_step():
+        cond = torch.from_numpy(cond_np).to(engine.device)
+        with torch.inference_mode():
+            preds = torch.stack([functional_forward(skeleton, p, cond) for p in members])
+            mean = preds.mean(dim=0)
+            width = 2.0 * engine.sigmas * preds.std(dim=0, correction=0)
+        return mean.cpu().numpy(), width.cpu().numpy()
+
+    out = {}
+    for way, step in (("vmap", lambda: engine._step(cond_np)), ("loop", loop_step)):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(2 * steps):
+            t0 = time.perf_counter()
+            step()
+            times.append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        print(f"fleet step, {engine.num_members} members "
+              f"{'vmapped' if way == 'vmap' else 'one after another'}: median "
+              f"{statistics.median(times):.3f} ms over {2 * steps} steps (profiler off);",
+              end=" ")
+        kernels = print_profile(prof, wall_ms, steps, "step")
+        busy_ms, layout = device_time(prof, steps)
+        out[way] = {"median_ms": statistics.median(times), "wall_ms": wall_ms,
+                    "kernels": kernels, "busy_ms": busy_ms,
+                    "busy_share": None if busy_ms is None else busy_ms / wall_ms,
+                    "layout_share": layout}
+    return out
+
+
+def surrogate_serving_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
+                           fleet) -> dict:
+    """Serve the certification phase's fleet (``fleet``: stacked state dict
+    on the card) with ``SurrogateServeEngine``: closed loop, lockstep and
+    open loop at half the closed loop's queries/s, each checked; the fleet
+    step against its members and against a CPU copy; one traced run of the
+    closed-loop serve, ``TRACE_STEPS`` device-resident steps and
+    ``TRACE_STEPS`` host-streaming steps with the prefetch worker, its spans
+    checked and summarised by ``tools/trace_report.py``.  Returns
+    {"launches": kernel launches of the traced training runs, "qps",
+    "fleet_ms"}."""
+    from repro_torch.core.ensemble import init_ensemble
+    from repro_torch.core.variability import compute_band
+    from repro_torch.data import ShardedCompressedStore, channels_last
+    from repro_torch.kernels import zfp_codec
+    from repro_torch.models.surrogate import (SurrogateConfig, functional_forward,
+                                              init_surrogate, member_params)
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.serving import SurrogateServeEngine
+    from repro_torch.serving.loadgen import latency_percentiles, surrogate_workload
+    from repro_torch.sim.solver import PARAM_DIM
+    from repro_torch.train.loop import TrainConfig, train_surrogate
+
+    launches = {k: 0 for k in zfp_codec.LAUNCHES}
+    members = int(next(iter(fleet.values())).shape[0])
+    shape = (cfg.height, cfg.width, cfg.fields)
+
+    def engine(params=fleet, config=cfg, device=DEV):
+        return SurrogateServeEngine(params, config, batch_slots=SERVE_SLOTS,
+                                    sigmas=SERVE_SIGMAS, device=device)
+
+    def queries(rate=None):
+        return surrogate_workload(PARAM_DIM, SERVE_QUERIES, rollout_lens=SERVE_ROLLOUTS,
+                                  rate_qps=rate, seed=0)
+
+    def serve(mode, rate=None):
+        eng, qs = engine(), queries(rate)
+        t0 = time.perf_counter()
+        done = getattr(eng, mode)(qs)
+        wall = time.perf_counter() - t0
+        pct = latency_percentiles(done)
+        print(f"surrogate {mode}{'' if rate is None else f' open loop at {rate:.1f} q/s'}: "
+              f"{len(done)} queries, {eng.stats['steps']} fleet steps in {wall:.3f} s "
+              f"({len(done) / wall:.1f} queries/s wall, {eng.queries_per_second:.1f} "
+              f"queries/s of step time), p50 {1e3 * pct['p50']:.3f} ms, p99 "
+              f"{1e3 * pct['p99']:.3f} ms, slot utilisation {eng.slot_utilization:.3f}",
+              flush=True)
+        require(len(done) == SERVE_QUERIES and all(
+            q.mean.shape == q.width.shape == (q.steps,) + shape
+            and bool(np.isfinite(q.mean).all()) and bool(np.isfinite(q.width).all())
+            and bool((q.width >= 0).all()) for q in done),
+            f"surrogate {mode}: every query returns finite (T, 96, 32, 6) mean and "
+            f"width >= 0")
+        return eng, qs, wall, pct
+
+    engine().run(queries()[:SERVE_SLOTS])      # warm-up: allocator, cuDNN's choice
+    closed_eng, closed_q, closed_wall, closed_pct = serve("run")
+    lock_eng, lock_q, _, lock_pct = serve("run_lockstep")
+    worst_m = max(float(np.abs(a.mean - b.mean).max()) for a, b in zip(closed_q, lock_q))
+    worst_w = max(float(np.abs(a.width - b.width).max()) for a, b in zip(closed_q, lock_q))
+    require(worst_m <= SERVE_ATOL and worst_w <= 4 * SERVE_SIGMAS * SERVE_ATOL,
+            f"run == run_lockstep per query (mean {worst_m:.2e} <= {SERVE_ATOL}, width "
+            f"{worst_w:.2e} <= {4 * SERVE_SIGMAS * SERVE_ATOL:.0e})")
+    rate = 0.5 * SERVE_QUERIES / closed_wall
+    _, _, open_wall, open_pct = serve("run", rate)
+
+    # the counts are the CPU engine's on the same queries (they depend on
+    # the rollouts and slots alone, so a narrow fleet serves for them)
+    narrow = SurrogateConfig(height=32, width=16, base_channels=32)
+    cpu_eng = engine(init_ensemble(narrow, range(members), "cpu"), narrow, "cpu")
+    cpu_eng.run(queries())
+    require(cpu_eng.stats["steps"] == closed_eng.stats["steps"]
+            and cpu_eng.stats["field_evals"] == closed_eng.stats["field_evals"]
+            and cpu_eng.slot_utilization == closed_eng.slot_utilization,
+            f"closed-loop steps {closed_eng.stats['steps']}, field evaluations "
+            f"{closed_eng.stats['field_evals']} and slot utilisation "
+            f"{closed_eng.slot_utilization:.4f} == the CPU engine's "
+            f"({cpu_eng.stats['steps']}, {cpu_eng.stats['field_evals']}, "
+            f"{cpu_eng.slot_utilization:.4f})")
+    # the first queries served on the CPU from a CPU copy of the fleet
+    cpu_q = queries()[:SERVE_CPU_QUERIES]
+    engine({k: v.cpu() for k, v in fleet.items()}, cfg, "cpu").run(cpu_q)
+    worst_m = max(float(np.abs(a.mean - b.mean).max()) for a, b in zip(cpu_q, closed_q))
+    worst_w = max(float(np.abs(a.width - b.width).max()) for a, b in zip(cpu_q, closed_q))
+    require(worst_m <= SERVE_ATOL and worst_w <= 4 * SERVE_SIGMAS * SERVE_ATOL,
+            f"the first {SERVE_CPU_QUERIES} queries on the card == on the CPU (mean "
+            f"{worst_m:.2e} <= {SERVE_ATOL}, width {worst_w:.2e})")
+    # one full batch: the fleet step against each member's own forward
+    cond_np = np.stack([np.concatenate([q.params_vec, q.times[:1]])
+                        for q in closed_q[:SERVE_SLOTS]]).astype(np.float32)
+    cond_b = torch.from_numpy(cond_np).to(dev)
+    mean, width = closed_eng.fleet_step(cond_b)
+    skeleton = init_surrogate(cfg, 0, dev)
+    with torch.inference_mode():
+        preds = [functional_forward(skeleton, member_params(fleet, m), cond_b).cpu().numpy()
+                 for m in range(members)]
+    band = compute_band(preds, sigmas=SERVE_SIGMAS)
+    err_m = float(np.abs(mean.cpu().numpy() - band.mean).max())
+    err_w = float(np.abs(width.cpu().numpy() - (band.hi - band.lo)).max())
+    print(f"fleet step vs each member's own forward: mean max err {err_m:.3e}, width "
+          f"(hi - lo of compute_band) max err {err_w:.3e}; band width mean "
+          f"{float(width.mean()):.4f}", flush=True)
+    require(err_m <= SERVE_ATOL and err_w <= 4 * SERVE_SIGMAS * SERVE_ATOL,
+            f"fleet step == the members' own forwards through compute_band (mean "
+            f"{err_m:.2e} <= {SERVE_ATOL}, width {err_w:.2e})")
+    prof = profile_fleet(closed_eng, cond_np, fleet, cfg)
+
+    # one traced run: serve, device-resident steps, host-streaming steps
+    reg = get_registry()
+    step_hist = reg.histogram("train.step_seconds")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trace_")
+    tracer = obs_trace.configure(tmp.name, run="surrogate_serving")
+    try:
+        traced_eng = engine()
+        traced_eng.run(queries())
+        served = tracer.events()
+        n = BATCH * TRACE_STEPS
+        tols = np.full(n, TOLERANCE, np.float32)
+        runs = {}
+        for name, make, prefetch in (
+                ("device-resident", lambda: store, 0),
+                ("host-streaming sharded", lambda: ShardedCompressedStore(
+                    samples[:n], tols, shard_size=SHARD_SIZE, device=DEV), 2)):
+            step_hist.reset()
+            first = len(tracer.events())
+            compile_s = reg.gauge("train.compile_seconds")
+
+            def run():
+                return train_surrogate(
+                    cfg, TrainConfig(epochs=1, batch_size=BATCH, lr=LR, seed=0,
+                                     log_every=5, max_steps=TRACE_STEPS,
+                                     prefetch=prefetch),
+                    cond, make(), target_transform=channels_last, device=DEV)
+
+            _, got = count_launches(launches, run)
+            evs = tracer.events()[first:]
+            runs[name] = evs
+            compiles = [e for e in evs if e["name"] == "train.compile"]
+            steps = [e for e in evs if e["name"] == "train.step"]
+            print(f"traced {name} run: {len(steps)} steps, first step "
+                  f"{1e3 * compile_s.value:.3f} ms (train.compile_seconds), steady "
+                  f"median {1e3 * step_hist.percentile(50):.3f} ms over "
+                  f"{step_hist.count} steps (train.step_seconds, dispatch without a "
+                  f"sync); launches {got}", flush=True)
+            require(len(compiles) == 1 and len(steps) == TRACE_STEPS
+                    and step_hist.count == TRACE_STEPS - 1,
+                    f"{name}: train.compile once ({len(compiles)}), {TRACE_STEPS} "
+                    f"train.step spans ({len(steps)}), train.step_seconds count "
+                    f"{step_hist.count} == {TRACE_STEPS - 1}")
+        events = tracer.events()
+    finally:
+        paths = obs_trace.shutdown()
+    try:
+        count = lambda evs, name: sum(1 for e in evs if e["name"] == name)
+        require(count(served, "surrogate_serve.query") == SERVE_QUERIES
+                and count(served, "surrogate_serve.fleet_step")
+                == traced_eng.stats["steps"],
+                f"one surrogate_serve.query span per query "
+                f"({count(served, 'surrogate_serve.query')}) and one fleet_step span "
+                f"per step ({count(served, 'surrogate_serve.fleet_step')} of "
+                f"{traced_eng.stats['steps']})")
+        host = runs["host-streaming sharded"]
+        fetch_tids = {e["tid"] for e in host if e["name"] == "train.fetch"}
+        step_tids = {e["tid"] for e in host if e["name"] == "train.step"}
+        require(fetch_tids and not fetch_tids & step_tids
+                and count(host, "data.get_batch") >= TRACE_STEPS,
+                f"train.fetch spans on the prefetch worker's thread, apart from the "
+                f"train.step spans, and data.get_batch spans "
+                f"({count(host, 'data.get_batch')})")
+        require(count(events, "recompile") == 0, "no recompile instant in the traced run")
+        out = subprocess.run([sys.executable, str(ROOT / "tools" / "trace_report.py"),
+                              tmp.name, "--json"], capture_output=True, text=True,
+                             timeout=120)
+        require(out.returncode == 0, f"tools/trace_report.py reads the trace "
+                                     f"(exit {out.returncode}: {out.stderr[-300:]})")
+        (report,) = json.loads(out.stdout).values()
+        want = {"surrogate_serve.query", "surrogate_serve.fleet_step", "train.step",
+                "train.fetch", "data.get_batch"}
+        require(want <= set(report["stages"]),
+                f"trace_report lists {sorted(want)} (got {sorted(report['stages'])})")
+        print("trace_report: " + ", ".join(
+            f"{k} {v['count']}x {v['total_s']:.4f} s"
+            for k, v in sorted(report["stages"].items())) + f"; written {paths['trace']}",
+            flush=True)
+    finally:
+        tmp.cleanup()
+    print(json.dumps({"surrogate_serving": {
+        "closed": {"queries_per_s": SERVE_QUERIES / closed_wall,
+                   "step_queries_per_s": closed_eng.queries_per_second,
+                   "p50_ms": 1e3 * closed_pct["p50"], "p99_ms": 1e3 * closed_pct["p99"],
+                   "steps": closed_eng.stats["steps"],
+                   "slot_utilization": closed_eng.slot_utilization},
+        "lockstep": {"step_queries_per_s": lock_eng.queries_per_second,
+                     "p50_ms": 1e3 * lock_pct["p50"], "p99_ms": 1e3 * lock_pct["p99"],
+                     "steps": lock_eng.stats["steps"],
+                     "slot_utilization": lock_eng.slot_utilization},
+        "open": {"rate": rate, "queries_per_s": SERVE_QUERIES / open_wall,
+                 "p50_ms": 1e3 * open_pct["p50"], "p99_ms": 1e3 * open_pct["p99"]},
+        "fleet_step": prof, "members": members}}))
+    return {"launches": launches, "qps": SERVE_QUERIES / closed_wall,
+            "fleet_ms": prof["vmap"]["median_ms"]}
+
+
 def count_launches(launches: dict, fn):
     """Run one piece of a path with the codec kernels' counts set to 0 just
     before it; add what it launched to ``launches`` and return (its result,
@@ -2062,7 +2379,7 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
                 f"({got_h['zfp_decode_blocks']} launches, {batches} batches)")
     print(f"certification path: launches {launches}")
     return {"launches": launches, "ensemble_ms": ens_ms, "sweep_ms": sweep_ms,
-            "sweep_stores": sweep_stores}
+            "sweep_stores": sweep_stores, "fleet": ens.params}
 
 
 # checkpoint path (Queue 1 item 8 with item 5's checkpoints), on the same

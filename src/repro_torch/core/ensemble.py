@@ -44,11 +44,13 @@ from repro_torch.core.variability import (BandVerdict, VariabilityBand,
                                           band_verdict, compute_band)
 from repro_torch.data.loader import EnsembleLoader, ShardAwareLoader
 from repro_torch.device import DeviceLike, resolve_device, same_device
+from repro_torch.kernels import zfp_codec
 from repro_torch.metrics import psnr, total_mass, total_momentum
 from repro_torch.models.surrogate import (Surrogate, SurrogateConfig,
                                           functional_forward, init_surrogate,
                                           member_params, stack_params)
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import torchprof
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train.loop import TrainConfig
 from repro_torch.train.optimizer import AdamConfig, adam_init
@@ -185,12 +187,17 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     if do_eval:
         eval_cond = torch.as_tensor(np.asarray(eval_conditions, np.float32)).to(dev)
         eval_tgt = torch.as_tensor(np.asarray(eval_targets, np.float32)).to(dev)
+    # telemetry: the train loop's first-step split.  The first step (kernel
+    # build, allocator growth, cuDNN's algorithm choice) is synced and
+    # reported once (ensemble.compile_seconds) and kept out of
     # ensemble.step_seconds: host seconds from a step's dispatch to its
     # logged loss on the host (dispatch alone on a step that does not log).
-    # The first step (allocator growth, cuDNN's algorithm choice) stays out,
-    # as the JAX package keeps its compile step out
+    # A kernel library built after the first step is flagged by the watcher
     reg = obs_metrics.get_registry()
     step_hist = reg.histogram("ensemble.step_seconds")
+    watcher = torchprof.get_watcher()
+    watcher.watch("ensemble.fused_step" if device_path else "ensemble.step",
+                  zfp_codec.build)
     traj = {k: [] for k in TRAJECTORY_METRICS}
     spe = loader.steps_per_epoch
     losses = []
@@ -202,6 +209,13 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
             t0s = time.perf_counter()
             params, opt_state, loss = step_fn(params, opt_state, item)
             step += 1
+            if step == 1:
+                torchprof.block_until_ready(loss)
+                compile_s = time.perf_counter() - t0s
+                reg.gauge("ensemble.compile_seconds").set(compile_s)
+                obs_trace.instant("ensemble.compile", cat="ensemble",
+                                  members=len(seeds), seconds=compile_s)
+                watcher.rebase()
             if step % train_cfg.log_every == 0:
                 losses.append((step, loss.cpu().numpy()))
             if step > 1:
@@ -217,6 +231,7 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     finally:
         stream.close()
         reg.counter("ensemble.steps").add(step)
+        watcher.check()
     trajectories = {k: np.stack(v, axis=1) for k, v in traj.items() if v}
     return EnsembleResult(params=params, losses=losses,
                           trajectories=trajectories, seeds=seeds,

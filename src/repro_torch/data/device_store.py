@@ -25,6 +25,7 @@ from repro_torch.compression import (TOTAL_PLANES, CompressedField,
 from repro_torch.data.store import on_device
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import IoStats
 
 
@@ -159,9 +160,11 @@ class DeviceResidentCompressedStore:
         """ArrayStore-compatible batch access from host indices.  No host
         bytes are read; only the decode time is accounted (on the current
         stream, after the work queued there)."""
-        idx_t = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
-        batch, decode_s = on_device(
-            self.device, lambda: self.decode_indices(idx_t.to(self.device)),
-            side_stream=False)
-        self.stats.account(decode_seconds=decode_s)
-        return batch
+        with obs_trace.span("data.get_batch", cat="data",
+                            store="device_resident", batch=len(idx)):
+            idx_t = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
+            batch, decode_s = on_device(
+                self.device, lambda: self.decode_indices(idx_t.to(self.device)),
+                side_stream=False)
+            self.stats.account(decode_seconds=decode_s)
+            return batch

@@ -31,6 +31,7 @@ from repro_torch.compression import (compressed_nbytes_batch,
                                      decode_stacked_payloads, get_codec)
 from repro_torch.data.store import on_device, throttle, upload
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import IoStats
 
 MANIFEST_NAME = "manifest.json"
@@ -279,16 +280,19 @@ class ShardedCompressedStore:
         """Fetch + decode a batch with one kernel call on the store's
         device: the records padded to the in-batch max width, the whole
         (B * nb, wmax) stack decoded at once."""
-        t0 = time.perf_counter()
-        payload, emax, nbytes = self.read_records(idx)
-        throttle(nbytes, t0, self.bandwidth_mbs)
-        t1 = time.perf_counter()
-        batch, decode_s = on_device(self.device, lambda: decode_stacked_payloads(
-            *upload(self.device, payload, emax), self._padded_shape,
-            self.shape))
-        self.stats.account(nbytes, read_seconds=t1 - t0,
-                           decode_seconds=decode_s)
-        return batch
+        with obs_trace.span("data.get_batch", cat="data", store="sharded",
+                            batch=len(idx)):
+            t0 = time.perf_counter()
+            payload, emax, nbytes = self.read_records(idx)
+            throttle(nbytes, t0, self.bandwidth_mbs)
+            t1 = time.perf_counter()
+            batch, decode_s = on_device(
+                self.device, lambda: decode_stacked_payloads(
+                    *upload(self.device, payload, emax), self._padded_shape,
+                    self.shape))
+            self.stats.account(nbytes, read_seconds=t1 - t0,
+                               decode_seconds=decode_s)
+            return batch
 
     def as_device_resident(self, device: DeviceLike = None):
         """Upload the whole store to device memory once

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.compression import decode_stacked_payloads, get_codec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import IoStats
 
 ENCODE_CHUNK = 256     # samples per encode call when a store is built
@@ -150,18 +151,20 @@ class RawArrayStore:
         return self.sample_nbytes * self.num_samples
 
     def get_batch(self, idx: np.ndarray) -> torch.Tensor:
-        t0 = time.perf_counter()
-        if self._mem is not None:
-            batch = self._mem[np.asarray(idx)]
-        else:
-            batch = np.stack([np.load(os.path.join(self.root,
-                                                   f"sample_{i:06d}.npy"))
-                              for i in np.asarray(idx)])
-        nbytes = batch.nbytes
-        throttle(nbytes, t0, self.bandwidth_mbs)
-        self.stats.account(nbytes, read_seconds=time.perf_counter() - t0)
-        out, _ = on_device(self.device, lambda: upload(self.device, batch)[0])
-        return out
+        with obs_trace.span("data.get_batch", cat="data", store="raw",
+                            batch=len(idx)):
+            t0 = time.perf_counter()
+            if self._mem is not None:
+                batch = self._mem[np.asarray(idx)]
+            else:
+                batch = np.stack([np.load(os.path.join(self.root,
+                                                       f"sample_{i:06d}.npy"))
+                                  for i in np.asarray(idx)])
+            nbytes = batch.nbytes
+            throttle(nbytes, t0, self.bandwidth_mbs)
+            self.stats.account(nbytes, read_seconds=time.perf_counter() - t0)
+            out, _ = on_device(self.device, lambda: upload(self.device, batch)[0])
+            return out
 
 
 class CompressedArrayStore:
@@ -241,27 +244,29 @@ class CompressedArrayStore:
         return self.sample_nbytes * self.num_samples / max(self.logical_bytes, 1)
 
     def get_batch(self, idx: np.ndarray) -> torch.Tensor:
-        idx = np.asarray(idx)
-        t0 = time.perf_counter()
-        payloads, emaxs, nbytes = [], [], 0
-        for i in idx:
-            if self.root is None:
-                p, e = self._payload[i], self._emax[i]
-            else:
-                z = np.load(os.path.join(self.root, f"sample_{i:06d}.npz"))
-                p, e = z["payload"], z["emax"]
-            nbytes += p.nbytes + e.nbytes
-            payloads.append(p)
-            emaxs.append(e)
-        wmax = max(p.shape[1] for p in payloads)
-        payload = np.stack([np.pad(p, ((0, 0), (0, wmax - p.shape[1])))
-                            for p in payloads])
-        emax = np.stack(emaxs)
-        throttle(nbytes, t0, self.bandwidth_mbs)
-        t1 = time.perf_counter()
-        batch, decode_s = on_device(self.device, lambda: decode_stacked_payloads(
-            *upload(self.device, payload, emax), self._padded_shape,
-            self.shape))
-        self.stats.account(nbytes, read_seconds=t1 - t0,
-                           decode_seconds=decode_s)
-        return batch
+        with obs_trace.span("data.get_batch", cat="data", store="zfp",
+                            batch=len(idx)):
+            idx = np.asarray(idx)
+            t0 = time.perf_counter()
+            payloads, emaxs, nbytes = [], [], 0
+            for i in idx:
+                if self.root is None:
+                    p, e = self._payload[i], self._emax[i]
+                else:
+                    z = np.load(os.path.join(self.root, f"sample_{i:06d}.npz"))
+                    p, e = z["payload"], z["emax"]
+                nbytes += p.nbytes + e.nbytes
+                payloads.append(p)
+                emaxs.append(e)
+            wmax = max(p.shape[1] for p in payloads)
+            payload = np.stack([np.pad(p, ((0, 0), (0, wmax - p.shape[1])))
+                                for p in payloads])
+            emax = np.stack(emaxs)
+            throttle(nbytes, t0, self.bandwidth_mbs)
+            t1 = time.perf_counter()
+            batch, decode_s = on_device(self.device, lambda: decode_stacked_payloads(
+                *upload(self.device, payload, emax), self._padded_shape,
+                self.shape))
+            self.stats.account(nbytes, read_seconds=t1 - t0,
+                               decode_seconds=decode_s)
+            return batch

@@ -97,6 +97,11 @@ def build() -> Dict[str, ctypes.CDLL]:
         return _libs
 
 
+# the recompile watcher's probe (obs.torchprof): libraries built or loaded
+# into this process, which a steady-state step must not add to
+build._cache_size = lambda: len(_libs)
+
+
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: Optional[int], kv_lens: Optional[torch.Tensor]) -> None:
     """Shape and type rules shared by the kernel and its plain version."""

@@ -97,6 +97,11 @@ def build() -> Dict[str, ctypes.CDLL]:
         return _libs
 
 
+# the recompile watcher's probe (obs.torchprof): libraries built or loaded
+# into this process, which a steady-state step must not add to
+build._cache_size = lambda: len(_libs)
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")

@@ -1,16 +1,22 @@
 """Serving launcher: continuous batching under synthetic load, on the card.
 
-The port of ``repro/launch/serve.py --mode lm``: the LM ``ServeEngine`` on
-the same reduced decoder arch, with the same flags and the mixed-length
-workload of ``repro_torch.serving.loadgen``.  ``--rate QPS`` switches from
-closed loop (all requests at t=0) to Poisson arrivals; ``--lockstep`` runs
-the chunked baseline; ``--device cpu`` runs the plain PyTorch path on the
-CPU (the default is the card, and without one the launcher raises).
-``--mode surrogate`` waits for the surrogate engine (ROADMAP Queue 1 item 10).
+The port of ``repro/launch/serve.py``, with its flags and the mixed-length
+workloads of ``repro_torch.serving.loadgen``:
+
+  * ``--mode lm``        -- LM ``ServeEngine`` on a reduced decoder arch;
+  * ``--mode surrogate`` -- ``SurrogateServeEngine`` on a fresh N-member
+                            fleet (per-query ensemble mean + variability-band
+                            width).
+
+``--rate QPS`` switches from closed loop (all requests at t=0) to Poisson
+arrivals; ``--lockstep`` runs the chunked baseline; ``--device cpu`` runs
+the plain PyTorch path on the CPU (the default is the card, and without one
+the launcher raises); ``--trace-dir`` writes the run's telemetry.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --lockstep
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode surrogate --rate 8
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ from repro_torch.configs import reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serving import ServeEngine
-from repro_torch.serving.loadgen import latency_percentiles, lm_workload
+from repro_torch.serving import ServeEngine, SurrogateServeEngine
+from repro_torch.serving.loadgen import (latency_percentiles, lm_workload,
+                                         surrogate_workload)
 
 
 def _report(tag: str, done, pct: dict, extra: str) -> None:
@@ -53,6 +60,28 @@ def serve_lm(args) -> list:
     return done
 
 
+def serve_surrogate(args) -> list:
+    from repro_torch.core.ensemble import init_ensemble
+    from repro_torch.models.surrogate import SurrogateConfig
+    cfg = SurrogateConfig(height=32, width=16, base_channels=32)
+    dev = resolve_device(args.device)
+    members = init_ensemble(cfg, list(range(args.members)), dev)
+    engine = SurrogateServeEngine(members, cfg, batch_slots=args.slots, device=dev)
+    queries = surrogate_workload(cfg.cond_dim - 1, args.requests,
+                                 rate_qps=args.rate, seed=args.seed)
+    done = (engine.run_lockstep(queries) if args.lockstep
+            else engine.run(queries))
+    q = next(d for d in done if d.steps > 0)
+    print(f"query: T={q.steps} mean{q.mean.shape} "
+          f"band width mean={float(q.width.mean()):.4f}")
+    _report("surrogate" + ("/lockstep" if args.lockstep else ""),
+            done, latency_percentiles(done),
+            f"{engine.queries_per_second:.1f} q/s "
+            f"util={engine.slot_utilization:.2f} "
+            f"({args.members}-member fleet, one vmapped call/step; device {dev})")
+    return done
+
+
 def main(argv: Optional[Sequence[str]] = None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "surrogate"), default="lm")
@@ -75,12 +104,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                     help="enable telemetry: write <run>.trace.json "
                          "(Perfetto-loadable) + <run>.events.jsonl here")
     args = ap.parse_args(argv)
-    if args.mode == "surrogate":
-        raise NotImplementedError("--mode surrogate: the surrogate serving engine is "
-                                  "not ported yet (ROADMAP Queue 1 item 10)")
     if args.trace_dir:
         obs_trace.configure(args.trace_dir, run=f"serve_{args.mode}")
-    done = serve_lm(args)
+    done = (serve_lm if args.mode == "lm" else serve_surrogate)(args)
     if args.trace_dir:
         paths = obs_trace.shutdown()
         print(f"trace: {paths['trace']}\nevents: {paths['events']}")

@@ -20,6 +20,7 @@ import torch
 from torch import nn as tnn
 from torch.func import functional_call
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import nn
 from repro_torch.sim.solver import PARAM_DIM
 from repro_torch.train.optimizer import AdamState
@@ -87,12 +88,13 @@ class Surrogate(tnn.Module):
 
 
 def init_surrogate(cfg: SurrogateConfig, seed: int = 0,
-                   device="cpu") -> Surrogate:
-    """He-normal init from a ``torch.Generator`` seeded with ``seed``.  Its
-    numbers differ from ``jax.random``; parity goes through
-    :func:`params_from_jax`."""
+                   device: DeviceLike = None) -> Surrogate:
+    """He-normal init from a ``torch.Generator`` seeded with ``seed``, on
+    ``device`` (the card unless ``device="cpu"``).  Its numbers differ from
+    ``jax.random``; parity goes through :func:`params_from_jax`."""
+    dev = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
-    return Surrogate(cfg, g).to(device)
+    return Surrogate(cfg, g).to(dev)
 
 
 def apply_surrogate(model: Surrogate, cond: torch.Tensor) -> torch.Tensor:

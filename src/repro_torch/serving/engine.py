@@ -16,9 +16,11 @@ Both paths hold the JAX engine's contracts: a request's output is the same
 served alone or batched; every real request is returned, including
 ``max_new_tokens=0`` (empty output); ``stats`` splits ``prefill_seconds``
 from ``decode_seconds`` and counts delivered tokens only.  The greedy token
-is read back to the host after every step, as the JAX engine does.  The
-JAX engine's recompile watcher has no eager counterpart and is left out;
-its ``serve.*`` spans, counters and histograms are kept.
+is read back to the host after every step, as the JAX engine does.  Its
+``serve.*`` spans, counters and histograms are the JAX engine's, and so is
+the recompile watch of ``run``: the attention kernel's library
+(``kernels.flash_attention.build``) must not be built after the first
+decode step.
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import flash_attention
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import torchprof
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.scheduler import SlotScheduler
 
@@ -151,6 +155,11 @@ class ServeEngine:
         reg = obs_metrics.get_registry()
         occ_hist = reg.histogram("serve.slot_occupancy")
         tracer = obs_trace.get_tracer()
+        # the first decode step may build the attention kernel (absorbed by
+        # rebase below); a build after it is a stall worth flagging
+        watcher = torchprof.get_watcher()
+        watcher.watch("serve.decode_step", flash_attention.build)
+        first_decode = True
 
         while not sched.done:
             now = clock()
@@ -219,6 +228,9 @@ class ServeEngine:
             self.stats["decode_steps"] += 1
             self.stats["delivered_slot_steps"] += len(active)
             occ_hist.observe(len(active) / b)
+            if first_decode:
+                first_decode = False
+                watcher.rebase()        # a first-step build is expected
             if tracer is not None:
                 tracer.complete("serve.decode_step", tracer.rel(t0), decode_s,
                                 cat="serve", active=len(active))
@@ -232,6 +244,7 @@ class ServeEngine:
                 if remaining[slot] == 0:
                     self._finish(req, outs[slot], now, done)
                     sched.complete(slot)
+        watcher.check()         # flags mid-run attention-kernel builds
         return done
 
     # -- lockstep baseline --------------------------------------------------

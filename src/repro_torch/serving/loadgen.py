@@ -7,8 +7,7 @@ a request's latency runs from its scheduled arrival, so server-side
 queueing delay is counted even while the engine is busy.
 
 The numpy ``default_rng`` stream is the JAX package's, so the same seed
-gives the same requests.  ``surrogate_workload`` waits with the surrogate
-engine (ROADMAP Queue 1 item 10).
+gives the same requests and queries.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.serving.engine import Request
+from repro_torch.serving.surrogate_engine import SurrogateQuery
 
 
 def poisson_arrivals(n: int, rate_qps: Optional[float],
@@ -45,6 +45,25 @@ def lm_workload(vocab_size: int, n: int, *,
                             max_new_tokens=int(rng.choice(list(new_tokens))),
                             arrival=float(arrivals[i])))
     return reqs
+
+
+def surrogate_workload(param_dim: int, n: int, *,
+                       rollout_lens: Sequence[int] = (1, 2, 4, 16),
+                       rate_qps: Optional[float] = None,
+                       seed: int = 0) -> list:
+    """Mixed surrogate rollout queries: random conditioning vectors in
+    [0, 1), rollouts over ``T`` evenly spaced normalized times."""
+    rng = np.random.default_rng(seed)
+    arrivals = poisson_arrivals(n, rate_qps, rng)
+    queries = []
+    for i in range(n):
+        t = int(rng.choice(list(rollout_lens)))
+        queries.append(SurrogateQuery(
+            params_vec=rng.random(param_dim).astype(np.float32),
+            times=np.linspace(0.0, 1.0, max(t, 1),
+                              dtype=np.float32)[:t],
+            arrival=float(arrivals[i])))
+    return queries
 
 
 def latency_percentiles(done: list) -> dict:

@@ -12,9 +12,19 @@ Counterpart of ``repro/train/loop.py``.  The ``BatchSource`` seam
     (``prefetch`` is ignored; there is no host work to overlap).
 
 Batches follow the loaders' ``(seed, epoch)`` order (shard-aware for
-sharded stores), the same as the JAX package's.  The summed wait for
-batches goes to the ``train.fetch_wait_seconds`` counter of the metrics
-registry.  Telemetry spans wait for ROADMAP Queue 1 item 9.
+sharded stores), the same as the JAX package's.
+
+Telemetry, with the JAX loop's names: the first step of a run pays the
+kernel build, cuDNN's algorithm choice and the allocator's growth; it is
+timed to a device sync and reported once (``train.compile_seconds`` gauge,
+``train.compile`` instant), then kept out of the steady-state
+``train.step_seconds`` histogram, the ``train.steady_seconds`` counter and
+the ``train.window`` rates.  Steady steps are timed without a sync, as the
+JAX loop times its asynchronous dispatch.  Every step is a ``train.step``
+span, every periodic save a ``train.checkpoint`` span; the summed wait for
+batches goes to the ``train.fetch_wait_seconds`` counter.  The recompile
+watcher (:mod:`repro_torch.obs.torchprof`) flags a kernel library built
+after the first step.
 
 Checkpoints and exact resume: with ``TrainConfig.ckpt_dir`` the loop saves
 every ``ckpt_every_steps`` steps, and at the end unless the last step was
@@ -42,10 +52,13 @@ import torch
 
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.device import DeviceLike, resolve_device, same_device
+from repro_torch.kernels import zfp_codec
 from repro_torch.models.surrogate import (Surrogate, SurrogateConfig,
                                           adam_state_from_jax, adam_state_to_jax,
                                           init_surrogate, params_from_jax,
                                           params_to_jax)
+from repro_torch.obs import torchprof
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import get_registry
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import AdamConfig, adam_init
@@ -184,7 +197,17 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     if train_cfg.ckpt_dir and _needs_certify(train_cfg):
         params_prev = {n: torch.empty_like(p) for n, p in live.items()}
 
-    fetch_wait = get_registry().counter("train.fetch_wait_seconds")
+    reg = get_registry()
+    fetch_wait = reg.counter("train.fetch_wait_seconds")
+    step_hist = reg.histogram("train.step_seconds")
+    watcher = torchprof.get_watcher()
+    watcher.watch("train.fused_step" if source.kind == "device" else "train.step",
+                  zfp_codec.build)
+    tracer = obs_trace.get_tracer()
+    first_in_run = True
+    steady_s = 0.0
+    win_steps, win_s = 0, 0.0
+    start_step = step
     losses = []
     # the loader position to store in the next checkpoint: with prefetch
     # the live loader runs ahead, so each batch carries its own snapshot
@@ -198,21 +221,48 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
             if params_prev is not None:
                 torch._foreach_copy_(list(params_prev.values()),
                                      list(live.values()))
+            t0s = time.perf_counter()
             opt_state, loss = train_step(opt_state, item)
             step += 1
+            if first_in_run:
+                first_in_run = False
+                torchprof.block_until_ready(loss)
+                dur = time.perf_counter() - t0s
+                reg.gauge("train.compile_seconds").set(dur)
+                obs_trace.instant("train.compile", cat="train", step=step,
+                                  seconds=dur)
+                watcher.rebase()        # first-step builds are expected
+            else:
+                dur = time.perf_counter() - t0s
+                steady_s += dur
+                step_hist.observe(dur)
+                win_steps += 1
+                win_s += dur
+            if tracer is not None:
+                tracer.complete("train.step", tracer.rel(t0s), dur,
+                                cat="train", step=step)
             last_state = lstate
             if step % train_cfg.log_every == 0:
                 losses.append((step, float(loss)))
+                if win_steps:           # steady-state only: first step excluded
+                    obs_trace.instant("train.window", cat="train", step=step,
+                                      steps_per_s=win_steps / max(win_s, 1e-9))
+                win_steps, win_s = 0, 0.0
             for h in hooks:
                 h(step, model, loss)
             if train_cfg.ckpt_dir and step % train_cfg.ckpt_every_steps == 0:
-                _save(train_cfg, step, live, opt_state, last_state, params_prev)
+                with obs_trace.span("train.checkpoint", cat="train", step=step):
+                    _save(train_cfg, step, live, opt_state, last_state,
+                          params_prev)
                 saved_step = step
             if train_cfg.max_steps is not None and step >= train_cfg.max_steps:
                 return model, losses    # preempted: no final save
             t_iter = time.perf_counter()
     finally:
         stream.close()
+        reg.counter("train.steps").add(step - start_step)
+        reg.counter("train.steady_seconds").add(steady_s)
+        watcher.check()     # flags (event + counter) steady-state rebuilds
     if train_cfg.ckpt_dir and step != saved_step:
         _save(train_cfg, step, live, opt_state, last_state, params_prev)
     return model, losses

@@ -1,4 +1,5 @@
-"""Adam / AdamW on dicts of tensors, as ``repro/train/optimizer.py`` writes it.
+"""Adam / AdamW on dicts of tensors, and the warm-up + cosine learning-rate
+scale, as ``repro/train/optimizer.py`` writes them.
 
 Deliberately not ``torch.optim.Adam``: this keeps the reference's order of
 operations (f32 bias corrections ``1 - b ** step``, then
@@ -7,6 +8,7 @@ operations (f32 bias corrections ``1 - b ** step``, then
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -82,3 +84,15 @@ def adam_update(grads: Tensors, state: AdamState, params: Tensors,
 
     new_params = {k: upd(p, m[k], v[k]) for k, p in params.items()}
     return new_params, AdamState(step=step, m=m, v=v)
+
+
+def cosine_lr_scale(step, warmup: int, total: int, min_frac: float = 0.1
+                    ) -> torch.Tensor:
+    """Learning-rate multiplier at ``step`` (a number or a tensor of steps):
+    linear warm-up to 1 over ``warmup`` steps, then a cosine decay that
+    reaches ``min_frac`` at ``total`` and stays there; float32."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    warm = torch.clamp(step / max(warmup, 1), max=1.0)
+    prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = min_frac + (1 - min_frac) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return warm * cos

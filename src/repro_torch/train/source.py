@@ -33,6 +33,8 @@ from repro_torch.data.loader import PrefetchLoader, ShardAwareLoader, ShardedLoa
 from repro_torch.data.store import ArrayStore, on_device, upload
 from repro_torch.device import same_device
 from repro_torch.models.surrogate import Surrogate, functional_l1_loss, l1_loss
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.torchprof import named_scope
 from repro_torch.train.optimizer import AdamConfig, AdamState, adam_update
 
 
@@ -73,8 +75,12 @@ def batch_stream(loader, fetch: Callable, epochs: Optional[int],
             yield dict(loader.state()), idx
 
     def _fetch(item):
+        # spans land on whichever thread runs the fetch -- the PrefetchLoader
+        # worker when prefetch > 0 -- so host read/decode shows up on its own
+        # Perfetto track, overlapping the main thread's train.step spans
         lstate, idx = item
-        return lstate, fetch(idx)
+        with obs_trace.span("train.fetch", cat="train"):
+            return lstate, fetch(idx)
 
     if prefetch > 0:
         pl = PrefetchLoader(_snapshots(), _fetch, depth=prefetch)
@@ -125,10 +131,11 @@ class DeviceResidentSource:
 
     def gather(self, idx: torch.Tensor):
         """(conditions, decoded targets) of one batch of device indices."""
-        tgt = self.store.decode_indices(idx)
-        if self.transform is not None:
-            tgt = self.transform(tgt)
-        return self.conditions[idx], tgt
+        with named_scope("gather_decode"):
+            tgt = self.store.decode_indices(idx)
+            if self.transform is not None:
+                tgt = self.transform(tgt)
+            return self.conditions[idx], tgt
 
 
 def make_batch_source(data, conditions, target_transform=None):
@@ -177,7 +184,9 @@ def make_fused_step(source: DeviceResidentSource, model: Surrogate,
     update = make_update(model, opt_cfg)
 
     def step(opt_state: AdamState, idx: torch.Tensor):
-        return update(opt_state, *source.gather(idx))
+        cond, target = source.gather(idx)
+        with named_scope("train_update"):
+            return update(opt_state, cond, target)
 
     return step
 
@@ -299,10 +308,11 @@ class DeviceEnsembleSource:
         """(conditions (N, B, cond_dim), decoded targets (N, B, ...)) of one
         step's (N, B) device indices; one decode launch for all members."""
         flat = idx if self.offsets is None else idx + self.offsets
-        tgt = self.store.decode_indices(flat.reshape(-1))
-        if self.transform is not None:
-            tgt = self.transform(tgt)
-        return self.conditions[idx], tgt.reshape(idx.shape + tgt.shape[1:])
+        with named_scope("gather_decode"):
+            tgt = self.store.decode_indices(flat.reshape(-1))
+            if self.transform is not None:
+                tgt = self.transform(tgt)
+            return self.conditions[idx], tgt.reshape(idx.shape + tgt.shape[1:])
 
 
 def make_ensemble_source(data, conditions, target_transform=None):

@@ -282,14 +282,14 @@ def test_ensemble_train_step_and_guards(tiny_study):
     store = RawArrayStore(fields, device="cpu")
     params = init_ensemble(CFG, SEEDS, device="cpu")
     for m, s in enumerate(SEEDS):
-        one = init_surrogate(CFG, s).state_dict()
+        one = init_surrogate(CFG, s, "cpu").state_dict()
         assert all(torch.equal(params[k][m], one[k]) for k in one)
     opt_cfg = AdamConfig(lr=1e-3)
     idx = np.stack([np.arange(8)] * len(SEEDS))
     c = torch.from_numpy(cond[idx])
     t = torch.from_numpy(fields[idx])
     new, opt, loss = ensemble_train_step(params, adam_init(params, opt_cfg), c, t,
-                                         init_surrogate(CFG), opt_cfg)
+                                         init_surrogate(CFG, device="cpu"), opt_cfg)
     assert loss.shape == (len(SEEDS),) and int(opt.step) == 1
     assert all(new[k].shape == params[k].shape for k in params)
     with pytest.raises(ValueError, match="checkpoint"):

@@ -26,7 +26,7 @@ from repro_torch.kernels import flash_attention, zfp_codec
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import lm
 from repro_torch.models.surrogate import SurrogateConfig, init_surrogate
-from repro_torch.serving import ServeEngine
+from repro_torch.serving import ServeEngine, SurrogateServeEngine
 from repro_torch.sim import EnsembleSpec, generate_ensemble, run_simulation
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
@@ -59,7 +59,8 @@ def test_scan_covers_every_package_of_the_port():
             "scheduler.py", "loadgen.py", "trace.py", "serve.py",
             "flash_attention.py", "ensemble.py", "tolerance.py", "variability.py",
             "image.py", "physics.py", "solver.py", "plan.py", "produce.py",
-            "writer.py", "checkpoint.py", "grad_compress.py"} <= names
+            "writer.py", "checkpoint.py", "grad_compress.py", "torchprof.py",
+            "surrogate_engine.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -106,7 +107,10 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
         predict_fields(model, cond)
     assert predict_fields(model, cond, device="cpu").shape == (2, 16, 16, 6)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        predict_fields(init_surrogate(cfg), cond, device="cuda")
+        predict_fields(init_surrogate(cfg, device="cpu"), cond, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_surrogate(cfg)
+    assert next(init_surrogate(cfg, device="cpu").parameters()).device.type == "cpu"
 
 
 def test_lm_serving_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
@@ -122,6 +126,19 @@ def test_lm_serving_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
         serve_launcher.main(["--requests", "1"])
     engine = ServeEngine(params, cfg, batch_slots=2, max_seq=16, device="cpu")
     assert engine.device.type == "cpu"
+
+
+def test_surrogate_serving_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):
+    cfg = SurrogateConfig(height=32, width=16, base_channels=8)
+    fleet = init_ensemble(cfg, (0, 1), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SurrogateServeEngine(fleet, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_launcher.main(["--mode", "surrogate", "--requests", "1"])
+    engine = SurrogateServeEngine(fleet, cfg, batch_slots=2, device="cpu")
+    assert engine.device.type == "cpu" and engine.num_members == 2
+    assert len(serve_launcher.main(["--mode", "surrogate", "--requests", "2",
+                                    "--device", "cpu"])) == 2
 
 
 def test_certification_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda):

@@ -50,14 +50,14 @@ def _nchw(x_nhwc):
 def _model_pair(seed=0, cfg=CFG):
     jcfg = JaxConfig(**cfg)
     jparams = jax_init(jax.random.PRNGKey(seed), jcfg)
-    model = init_surrogate(SurrogateConfig(**cfg), seed=seed)
+    model = init_surrogate(SurrogateConfig(**cfg), seed=seed, device="cpu")
     model.load_state_dict(params_from_jax(jparams))
     return jcfg, jparams, model
 
 
 def test_init_matches_jax_shapes_and_scale():
     jcfg, jparams, _ = _model_pair()
-    model = init_surrogate(SurrogateConfig(**CFG), seed=3)
+    model = init_surrogate(SurrogateConfig(**CFG), seed=3, device="cpu")
     converted = params_from_jax(jparams)
     state = model.state_dict()
     assert set(state) == set(converted)

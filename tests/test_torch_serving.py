@@ -138,8 +138,9 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys, tmp_path):
     assert (tmp_path / "serve_lm.trace.json").exists()
     done = launcher.main(["--device", "cpu", "--requests", "4", "--lockstep"])
     assert len(done) == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        launcher.main(["--mode", "surrogate", "--device", "cpu"])
+    done = launcher.main(["--mode", "surrogate", "--device", "cpu", "--requests", "3"])
+    assert len(done) == 3 and all(q.mean is not None for q in done)
+    assert "surrogate: 3 completed" in capsys.readouterr().out
 
 
 def test_launcher_needs_a_card_unless_cpu_is_asked(monkeypatch):

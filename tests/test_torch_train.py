@@ -186,4 +186,4 @@ def test_train_rejects_what_is_not_ported(study, tmp_path):
     with pytest.raises(TypeError, match="not an ArrayStore"):
         make_batch_source(lambda idx: samples[idx], cond)
     with pytest.raises(ValueError, match="unsupported device"):
-        predict_fields(init_surrogate(cfg), cond, device="meta")
+        predict_fields(init_surrogate(cfg, device="cpu"), cond, device="meta")

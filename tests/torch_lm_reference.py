@@ -26,7 +26,7 @@ from jax._src.interpreters import batching as _batching_impl
 from jax.interpreters import batching as _batching
 
 MODULES = ("repro.models.lm", "repro.serving.engine", "repro.serving.loadgen",
-           "repro.serving.scheduler")
+           "repro.serving.scheduler", "repro.serving.surrogate_engine")
 
 _loaded = None
 
@@ -48,8 +48,9 @@ def _repro_modules() -> dict:
 
 
 def load() -> types.SimpleNamespace:
-    """``lm``, ``engine``, ``loadgen`` and ``scheduler`` of the JAX package,
-    imported once per process; ``sys.modules`` is left as it was."""
+    """``lm``, ``engine``, ``loadgen``, ``scheduler`` and ``surrogate_engine``
+    of the JAX package, imported once per process; ``sys.modules`` is left
+    as it was."""
     global _loaded
     if _loaded is not None:
         return _loaded
@@ -67,5 +68,5 @@ def load() -> types.SimpleNamespace:
             for attr in set(vars(mod)) - attrs.get(name, set()):
                 delattr(mod, attr)
     _loaded = types.SimpleNamespace(lm=mods[0], engine=mods[1], loadgen=mods[2],
-                                    scheduler=mods[3])
+                                    scheduler=mods[3], surrogate_engine=mods[4])
     return _loaded
