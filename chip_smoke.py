@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs seven paths at full
+tolerance, asserting which variant ran, then runs eight paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -85,7 +85,19 @@ model width:
   1,088 positions (every prefill launch must run the wgmma prefill and
   every decode launch the split-KV decode); the served tokens are replayed
   teacher-forced with the kernel and with the plain attention, and their
-  logits compared.
+  logits compared;
+* LM training: the launcher (``python -m repro_torch.launch.train``) on
+  the card, then resumed from its step-5 checkpoint; one ``train_step`` at
+  full width with 2 layers in f32 against a CPU copy (loss, every
+  gradient, the updated parameters); ``internlm2-1.8b`` at full width and
+  depth (bf16, remat "full", batch 2 x 4,096): every gradient finite and
+  the attention weights' nonzero with no kernel-5 launch under autograd,
+  ``lm_forward`` against ``lm_prefill`` (kernel 5) on 1,024 tokens, 10
+  timed and 3 profiled steps of ``train_step``, 3 steps of the
+  compressed-gradient example (``examples/lm_pretrain_torch.py``: kernels
+  4 and 1 on every gradient leaf, error feedback checked leaf by leaf) and
+  a fixed-rate 14-bit checkpoint of the trained parameters restored bit
+  for bit against ``decode_tree(encode_tree(leaf))``.
 
 It prints the card's name and power limit, per run the median step time,
 the summed fetch wait and the store's ``IoStats``, the ensemble's and the
@@ -102,8 +114,11 @@ step, the produced stores' ratios, the producer's samples per second
 (overlapped and sequential) and the certification from the produced path,
 the serving rates and latencies, the attention variants' times at the main
 path's shapes beside
-the scalar variant's, the plain version's, each SDPA backend's and the
-bound, one ``kernels`` JSON line (launches on the paths, agreement, times,
+the scalar variant's, the plain version's, each SDPA backend's (for the
+decode also on the kernel's own function: q upcast to f32 against the f32
+cache) and the bound, the LM training phase's readings (one
+``lm_training`` JSON line: losses, step median, tokens/s, peak memory,
+the profile, the compressed step, the checkpoint), one ``kernels`` JSON line (launches on the paths, agreement, times,
 bounds and the library yardstick; kernel 5 also per variant), and as its
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -222,6 +237,27 @@ SERVE_ROLLOUTS = (1, 2, 4, 16)
 SERVE_ATOL = 1e-4
 SERVE_CPU_QUERIES = 8
 TRACE_STEPS = 10
+# LM training path (Queue 1 item 11a): LM_ARCH at full width and depth, bf16,
+# remat "full", batch LM_TRAIN_BATCH x LM_TRAIN_SEQ (the train_4k cell's
+# length; its global batch of 256 cut to 2 to fit one card), Adam as the JAX
+# launcher sets it.  LM_TRAIN_STEPS timed steps, LM_TRAIN_PROFILE profiled,
+# LM_COMP_STEPS steps of the compressed-gradient example at LM_GRAD_BITS,
+# then a fixed-rate LM_LOSSY_BITS checkpoint of the trained parameters.
+# Card against CPU on one step at full width with LM_CPU_LAYERS layers in
+# f32 on 1 x LM_CPU_SEQ tokens: loss to LM_CPU_LOSS_RTOL, every gradient to
+# LM_CPU_GRAD_RTOL of its tensor's max, updated parameters by the quantile
+# criterion of tests/test_ensemble.py:45-55 (p99 |d| under LM_CPU_Q99, none
+# over 2 lr: Adam's first step moves each element by about +-lr, so a
+# gradient near zero whose sign rounding flips moves it by 2 lr).  The
+# training forward against lm_prefill (kernel 5) on LM_FWD_PROMPT tokens:
+# last-token logits to LOGIT_ATOL (bf16 through 24 layers, as the replay)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_PROFILE = 2, 4096, 10, 3
+LM_TRAIN_LR = 3e-4
+LM_COMP_STEPS, LM_GRAD_BITS, LM_LOSSY_BITS = 3, 12, 14
+LM_CPU_LAYERS, LM_CPU_SEQ = 2, 64
+LM_CPU_LOSS_RTOL, LM_CPU_GRAD_RTOL, LM_CPU_Q99 = 1e-5, 1e-4, 1e-6
+LM_FWD_PROMPT = 1024
+LM_LAUNCHER_STEPS = (6, 4)
 
 
 class CheckFailed(RuntimeError):
@@ -831,11 +867,19 @@ def main(argv) -> int:
     # -- 12. LM serving path at full width: internlm2-1.8b, kernel 5 --------------
     print(f"LM phase starts {time.perf_counter() - t_start:.1f} s since start", flush=True)
     attn = lm_serving_path(dev, smi)
+    torch.cuda.empty_cache()
+
+    # -- 13. LM training path at full width: train_step, compressed gradients
+    print(f"LM training phase starts {time.perf_counter() - t_start:.1f} s since start",
+          flush=True)
+    t0 = time.perf_counter()
+    lm_train = lm_training_path(dev, smi)
+    print(f"LM training phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def launches(name):
         return (resident_launches[name] + cert["launches"][name] + ckpt_res["launches"][name]
                 + datagen["launches"][name] + host_launches[name]
-                + serving["launches"][name])
+                + serving["launches"][name] + lm_train["launches"][name])
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
@@ -856,7 +900,9 @@ def main(argv) -> int:
     print(f"card: {smi}; device-resident step median {statistics.median(step_ms):.3f} "
           f"ms; ensemble step median ({len(ENS_SEEDS)} members) {cert['ensemble_ms']:.3f} "
           f"ms, sweep step median ({len(CERT_MULTIPLES)} candidates) "
-          f"{cert['sweep_ms']:.3f} ms; surrogate serving {serving['qps']:.1f} queries/s "
+          f"{cert['sweep_ms']:.3f} ms; LM train step median "
+          f"{lm_train['train']['median_s']:.4f} s, compressed "
+          f"{lm_train['compressed']['median_s']:.4f} s; surrogate serving {serving['qps']:.1f} queries/s "
           f"closed loop, fleet step {serving['fleet_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
           f"{attn['timings']['decode']['ms']:.4f} ms; RT_SPEC member on the card "
           f"{datagen['solver']['rt']['graph_s'][1]:.3f} s, produced ratios at {TOLERANCE} "
@@ -1370,12 +1416,13 @@ def attn_bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_times(q, k, v, reps: int, mask=None) -> dict:
+def sdpa_times(q, k, v, reps: int, mask=None, q_dtype=None) -> dict:
     """``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal``
     without a mask, else the explicit boolean mask), pinned to each backend
     in turn: {backend: {"ms": device ms per call (CUDA graph), "eager_ms":
     ms per call launched from Python}, or None where it refuses the call}.
-    The library yardstick, never on the port's path."""
+    With ``q_dtype`` each call first casts q to it (part of the timed
+    call).  The library yardstick, never on the port's path."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     kw = {"is_causal": True} if mask is None else {"attn_mask": mask}
@@ -1388,7 +1435,8 @@ def sdpa_times(q, k, v, reps: int, mask=None) -> dict:
             continue
 
         def call():
-            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+            qq = q if q_dtype is None else q.to(q_dtype)
+            return F.scaled_dot_product_attention(qq, k, v, enable_gqa=True, **kw)
 
         try:
             with sdpa_kernel(backend):
@@ -1538,6 +1586,10 @@ def attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
         lambda: ref.flash_attention_ref(q, kt, vt, kv_lens=lens), 20)
     t["sdpa"] = sdpa_times(q, kb, vb, reps=100, mask=dmask)
     t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
+    # the kernel's own function: bf16 q upcast to f32 against the f32 cache
+    # views, the kv_lens mask
+    t["sdpa_same"] = sdpa_times(q, kt, vt, reps=100, mask=dmask, q_dtype=torch.float32)
+    t["same_library_ms"], t["same_library_backend"] = fastest(t["sdpa_same"])
     keys = int(lens_np.sum())
     t["bound_ms"], t["bound_by"] = attn_bound_ms(keys * hkv * d * 2 * 4 + 2 * (
         2 * LM_SLOTS * h * d) + 4 * LM_SLOTS, 4 * h * d * keys)
@@ -1547,16 +1599,21 @@ def attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
     def f(x):
         return "not measured" if x is None else f"{x:.4f}"
 
-    for name, t in timings.items():
-        sdpa = ", ".join(f"{n} refused" if x is None else
+    def sdpa_line(times):
+        return ", ".join(f"{n} refused" if x is None else
                          f"{n} {f(x['ms'])} ({f(x['eager_ms'])} eager)"
-                         for n, x in t["sdpa"].items())
+                         for n, x in times.items())
+
+    for name, t in timings.items():
+        same = ("" if "sdpa_same" not in t else
+                f"; SDPA on the same function (q upcast to f32, the f32 cache, the "
+                f"kv_lens mask): {sdpa_line(t['sdpa_same'])}")
         print(f"flash_attention {name} (ms per call on the device; eager in brackets): "
               f"{t['variant']} {f(t['ms'])} ({f(t['eager_ms'])}), scalar "
               f"{f(t['scalar_ms'])} ({f(t['scalar_eager_ms'])}), plain {f(t['plain_ms'])} "
               f"({f(t['plain_eager_ms'])}), bound {t['bound_ms']:.5f} ({t['bound_by']}); "
-              f"SDPA{' on a bf16 copy of the cache' if name == 'decode' else ''}: {sdpa}; "
-              f"{smi}", flush=True)
+              f"SDPA{' on a bf16 copy of the cache' if name == 'decode' else ''}: "
+              f"{sdpa_line(t['sdpa'])}{same}; {smi}", flush=True)
     return timings
 
 
@@ -1760,11 +1817,370 @@ def lm_serving_path(dev, smi: str) -> dict:
                                   "shape": [1, h, PREFILL_S[-1], d]},
                 "decode_splitkv": {"launches": by_variant["decode_splitkv"],
                                    **{k: dec[k] for k in keep},
+                                   "same_library_ms": dec["same_library_ms"],
+                                   "same_library_backend": dec["same_library_backend"],
                                    "shape": [LM_SLOTS, h, 1, d],
                                    "kv_lens": dec["kv_lens"]},
                 "scalar": {"launches": by_variant["scalar"]}},
             "launches_by_run": launches, "timings": timings,
             "logit_max_abs_diff": err, "greedy_agreement": agree / n}
+
+
+def run_launcher(steps: int, ckpt_dir: str) -> str:
+    """``python -m repro_torch.launch.train`` on the card as a subprocess;
+    returns its standard output."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+           "--steps", str(steps), "--ckpt-dir", ckpt_dir]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=str(ROOT),
+                       timeout=300)
+    print(f"launcher {' '.join(cmd[1:])}: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; last lines: "
+          f"{' | '.join(r.stdout.strip().splitlines()[-3:])}", flush=True)
+    require(r.returncode == 0, f"the launcher ran {steps} steps on the card "
+                               f"({r.stderr.strip().splitlines()[-1:] if r.returncode else ''})")
+    return r.stdout
+
+
+def profile_lm_steps(step, steps: int) -> dict:
+    """Trace ``steps`` calls of ``step`` with torch.profiler: wall ms a step
+    (profiler on), device busy ms and share, kernels a step and the five
+    kernels that take most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        print("LM training profile: the profiler recorded no device time")
+        return {"wall_ms": wall_ms, "busy_ms": None, "busy_share": None,
+                "kernels": None, "top": [], "by_kind_ms": None}
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    top = [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3 / steps,
+            "count": e.count / steps}
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]]
+    # device ms a step by kind, from the kernel names: f32 matrix products
+    # (cuBLAS/CUTLASS sgemm: the training attention's einsums), the other
+    # matrix products (the bf16 projections and head), everything else
+    kinds = {"gemm_f32": 0.0, "gemm_other": 0.0, "other": 0.0}
+    for e in events:
+        name = e.key.lower()
+        kind = ("other" if not ("gemm" in name or "nvjet" in name) else
+                "gemm_f32" if ("sgemm" in name or "f32f32" in name) else "gemm_other")
+        kinds[kind] += e.self_device_time_total / 1e3 / steps
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "kernels": sum(e.count for e in events) / steps, "top": top,
+            "by_kind_ms": kinds}
+
+
+def lm_training_path(dev, smi: str) -> dict:
+    """Train the full-width dense LM on the card: the launcher (run, then
+    resumed), one step against a CPU copy, gradients with no kernel-5 launch,
+    the training forward against the serving prefill, timed and profiled
+    steps, the compressed-gradient example's step and a lossy checkpoint of
+    the trained parameters.  Returns the readings and the codec kernels'
+    launches on the path."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    from repro_torch.compression import (decode_tree, encode_tree, get_codec,
+                                         tree_flatten_with_path, tree_map)
+    from repro_torch.configs import get_config
+    from repro_torch.core.grad_compress import tree_collective_bytes
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import zfp_codec
+    from repro_torch.launch import train as launch
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamConfig
+
+    def flat(tree):
+        return dict(tree_flatten_with_path(tree)[0])
+
+    res = {}
+    launches = dict.fromkeys(zfp_codec.LAUNCHES, 0)
+    opt_cfg = AdamConfig(lr=LM_TRAIN_LR, grad_clip=1.0)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lm_train_")
+    try:
+        # -- the launcher on the card, then resumed from its step-5 checkpoint
+        t0 = time.perf_counter()
+        ck = os.path.join(tmp.name, "launcher")
+        first = run_launcher(LM_LAUNCHER_STEPS[0], ck)
+        second = run_launcher(LM_LAUNCHER_STEPS[1], ck)
+        require("resumed" not in first and "resumed from step 5" in second
+                and "step    5 loss" in second,
+                "the launcher resumed from its step-5 checkpoint")
+        res["launcher_s"] = time.perf_counter() - t0
+
+        # -- one step on the card against a CPU copy: full width, 2 layers, f32
+        cfg2 = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_CPU_LAYERS,
+                                   param_dtype="float32")
+        p_card = lm.init_lm(torch.Generator(device=dev).manual_seed(1), cfg2)
+        p_cpu = tree_map(lambda t: t.cpu(), p_card)
+        b_card = launch.make_batch(np.random.default_rng(1), cfg2, 1, LM_CPU_SEQ, dev)
+        b_cpu = {k: v.cpu() for k, v in b_card.items()}
+        seen = []
+        real_adam = launch.apply_adam
+
+        def capture(grads, *args):
+            seen.append(grads)
+            return real_adam(grads, *args)
+
+        t0 = time.perf_counter()
+        with mock.patch.object(launch, "apply_adam", capture):
+            new_card, _, l_card = launch.train_step(p_card, launch.adam_init_tree(p_card),
+                                                    b_card, cfg2, opt_cfg)
+            new_cpu, _, l_cpu = launch.train_step(p_cpu, launch.adam_init_tree(p_cpu),
+                                                  b_cpu, cfg2, opt_cfg)
+        g_card, g_cpu = flat(seen[0]), flat(seen[1])
+        grad_err = max(float((g_card[k].cpu() - g).abs().max()) /
+                       max(float(g.abs().max()), 1e-30) for k, g in g_cpu.items())
+        diffs = torch.cat([(t.cpu() - flat(new_cpu)[k]).abs().flatten()
+                           for k, t in flat(new_card).items()])
+        worst, above = float(diffs.max()), int((diffs > LM_CPU_Q99).sum())
+        # the criterion counts exactly (p99 < LM_CPU_Q99 iff under 1% of the
+        # elements exceed it); the printed p99 is read off every 50th element
+        q99 = float(np.quantile(diffs[::50].numpy(), 0.99))
+        res["cpu_check"] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+                            "grad_err": grad_err, "param_max": worst, "param_q99": q99,
+                            "param_above": above, "param_count": diffs.numel(),
+                            "seconds": time.perf_counter() - t0}
+        print(f"LM card vs CPU, one train_step at full width, {LM_CPU_LAYERS} layers, f32, "
+              f"1 x {LM_CPU_SEQ}: {res['cpu_check']}", flush=True)
+        require(abs(float(l_card) - float(l_cpu)) <= LM_CPU_LOSS_RTOL * abs(float(l_cpu)),
+                f"LM loss on the card {float(l_card):.7f} == CPU {float(l_cpu):.7f} "
+                f"(rtol {LM_CPU_LOSS_RTOL})")
+        require(grad_err <= LM_CPU_GRAD_RTOL, f"every LM gradient on the card == CPU "
+                                              f"(worst {grad_err:.2e} of its tensor's max "
+                                              f"<= {LM_CPU_GRAD_RTOL})")
+        require(above < 0.01 * diffs.numel() and worst <= 2 * LM_TRAIN_LR,
+                f"updated LM parameters on the card == CPU: p99 |d| {q99:.2e} < "
+                f"{LM_CPU_Q99}, max {worst:.2e} <= 2 lr, {above} of {diffs.numel()} "
+                f"elements above {LM_CPU_Q99}")
+        del p_card, p_cpu, new_card, new_cpu, seen, g_card, g_cpu, diffs
+        torch.cuda.empty_cache()
+
+        # -- the full-width model: every parameter gets a gradient on the card
+        cfg = get_config(LM_ARCH)
+        params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+        rng = np.random.default_rng(0)
+        fa.reset_launches()
+        loss, grads = launch.loss_and_grads(
+            params, cfg, launch.make_batch(rng, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev))
+        torch.cuda.synchronize()
+        g = flat(grads)
+        require(all(bool(torch.isfinite(t).all()) for t in g.values())
+                and bool(torch.isfinite(loss)),
+                f"every one of {len(g)} LM gradients is finite on the card "
+                f"(loss {float(loss):.4f})")
+        nonzero = {w: float(g[f"layers/{w}"].float().abs().max())
+                   for w in ("wq", "wk", "wv", "wo")}
+        require(all(v > 0 for v in nonzero.values()),
+                f"wq/wk/wv/wo have nonzero gradients on the card (max |g| {nonzero})")
+        require(fa.LAUNCHES["flash_attention"] == 0,
+                "no flash_attention launch in the training forward and backward")
+        del grads, g
+
+        # -- the training forward against the serving prefill (kernel 5)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, LM_FWD_PROMPT)).astype(np.int32)).to(dev)
+        with torch.no_grad():
+            hidden, _ = lm.lm_forward(params, cfg, {"tokens": toks})
+            n_fwd = fa.LAUNCHES["flash_attention"]
+            train_logits = (hidden[:, -1] @ lm._head_weight(params, cfg)).float()
+            del hidden
+            before = dict(fa.VARIANT_LAUNCHES)
+            serve_logits, cache = lm.lm_prefill(params, cfg, {"tokens": toks},
+                                                LM_FWD_PROMPT)
+            del cache
+        n_prefill = fa.LAUNCHES["flash_attention"] - n_fwd
+        wgmma = fa.VARIANT_LAUNCHES["prefill_wgmma"] - before["prefill_wgmma"]
+        fwd_err = float((train_logits - serve_logits).abs().max())
+        res["forward_vs_prefill"] = {"max_abs_diff": fwd_err, "kernel5_launches": n_prefill,
+                                     "argmax_equal": bool((train_logits.argmax(-1) ==
+                                                           serve_logits.argmax(-1)).all())}
+        require(n_fwd == 0 and n_prefill == wgmma == cfg.num_layers,
+                f"lm_forward launched no kernel 5, lm_prefill {n_prefill} "
+                f"({wgmma} prefill_wgmma, one a layer)")
+        require(fwd_err <= LOGIT_ATOL, f"lm_forward's last-token logits == lm_prefill's "
+                                       f"(kernel 5) on {LM_FWD_PROMPT} tokens: max abs diff "
+                                       f"{fwd_err:.4f} <= {LOGIT_ATOL}")
+
+        # -- LM_TRAIN_STEPS steps of train_step, fresh tokens each step
+        opt = launch.adam_init_tree(params)
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for _ in range(LM_TRAIN_STEPS):
+            batch = launch.make_batch(rng, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = launch.train_step(params, opt, batch, cfg, opt_cfg)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        require(fa.LAUNCHES["flash_attention"] == 0,
+                f"no flash_attention launch in {LM_TRAIN_STEPS} training steps")
+        require(all(np.isfinite(losses)), f"{LM_TRAIN_STEPS} finite LM losses")
+        require({t.dtype for t in flat(opt.m).values()} == {torch.float32}
+                and {t.dtype for t in flat(params).values()} == {torch.bfloat16},
+                "Adam's m and v are f32 after the first step, the parameters bf16")
+        med = statistics.median(step_s)
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        shapes = lm._layer_param_shapes(cfg)
+        n_mm = (sum(int(np.prod(shapes[w])) for w in
+                    ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) * cfg.num_layers
+                + cfg.d_model * cfg.vocab_size)
+        mm_flops = 6 * n_mm * tokens
+        attn_fwd = 4 * LM_TRAIN_BATCH * cfg.num_heads * LM_TRAIN_SEQ ** 2 * cfg.hdim \
+            * cfg.num_layers
+        res["train"] = {"losses": losses, "step_s": step_s, "median_s": med,
+                        "tokens_per_s": tokens / med, "max_memory_allocated": peak,
+                        "matmul_params": n_mm, "matmul_flops": mm_flops,
+                        "attention_flops": 3 * attn_fwd, "attention_remat_flops": attn_fwd,
+                        "share_matmul": mm_flops / (med * BF16_TENSOR_FLOPS),
+                        "share_with_attention": (mm_flops + 3 * attn_fwd)
+                        / (med * BF16_TENSOR_FLOPS)}
+        print(f"LM training: {LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step median {med:.4f} s "
+              f"(first {step_s[0]:.4f} s), {tokens / med:.1f} tokens/s; peak "
+              f"{peak / 1e9:.2f} GB; 6NT {mm_flops:.3e} + attention f32 {3 * attn_fwd:.3e} "
+              f"(+ remat {attn_fwd:.3e}) FLOP: {100 * res['train']['share_matmul']:.2f}% "
+              f"({100 * res['train']['share_with_attention']:.2f}% with attention) of "
+              f"989 TFLOP/s; {smi}", flush=True)
+        prof_rng = np.random.default_rng(100)
+
+        def one_step():
+            nonlocal params, opt
+            params, opt, loss = launch.train_step(
+                params, opt, launch.make_batch(prof_rng, cfg, LM_TRAIN_BATCH,
+                                               LM_TRAIN_SEQ, dev), cfg, opt_cfg)
+            float(loss)
+
+        res["profile"] = profile_lm_steps(one_step, LM_TRAIN_PROFILE)
+        print(f"LM training profile over {LM_TRAIN_PROFILE} steps: {res['profile']}",
+              flush=True)
+
+        # -- the compressed-gradient example's step at full width
+        spec = importlib.util.spec_from_file_location(
+            "lm_pretrain_torch", ROOT / "examples" / "lm_pretrain_torch.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        comp_step = example.make_step(cfg, opt_cfg, LM_GRAD_BITS)
+        residual = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        # step 0's ghat + r against gf, leaf by leaf: the step writes a leaf's
+        # r right after its compress_decompress, so each call settles the
+        # previous leaf (one gf kept at a time; a tree of them is 7.6 GB)
+        r_leaves = list(flat(residual).values())
+        pending, calls = [], [0]
+        ef = {"equal_to_gf": 0, "elements": 0, "bound_ok": True}
+        real_cd = example.compress_decompress
+
+        def settle():
+            while pending:
+                gf, gh, r = pending.pop()
+                ef["equal_to_gf"] += int(torch.eq(gh + r, gf).sum())
+                ef["elements"] += gf.numel()
+                ef["bound_ok"] &= bool(torch.equal(r, gf - gh))
+                err = (gh.double() + r.double() - gf.double()).abs()
+                ef["bound_ok"] &= bool((err <= 2.0 ** -24 * (gf.double() - gh.double())
+                                        .abs()).all())
+
+        def check_ef(gf, bits):
+            settle()
+            gh = real_cd(gf, bits)
+            pending.append((gf, gh, r_leaves[calls[0]]))
+            calls[0] += 1
+            return gh
+
+        comp_s, comp_launches, comp_losses = [], [], []
+        for i in range(LM_COMP_STEPS):
+            batch = launch.make_batch(rng, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mock.patch.object(example, "compress_decompress",
+                                   check_ef if i == 0 else real_cd):
+                (params, opt, residual, loss, ghat), got = count_launches(
+                    launches, lambda: comp_step(params, opt, residual, batch))
+            comp_losses.append(float(loss))
+            comp_s.append(time.perf_counter() - t0)
+            comp_launches.append(got)
+            if i == 0:
+                settle()
+                res["ghat_plus_r"] = {k: ef[k] for k in ("equal_to_gf", "elements")}
+                print(f"compressed step 0: ghat + r == gf bit for bit at "
+                      f"{ef['equal_to_gf']} of {ef['elements']} elements", flush=True)
+                require(ef["elements"] == sum(t.numel() for t in r_leaves),
+                        "every gradient leaf went through the codec in step 0")
+                require(ef["bound_ok"], "r == gf - ghat in f32 on every leaf, and ghat + r "
+                                        "recovers gf within that subtraction's rounding")
+        require(all(c["zfp_encode_blocks"] > 0 and c["zfp_decode_blocks_fa"] > 0
+                    for c in comp_launches),
+                f"kernels 4 and 1 launched in every compressed step ({comp_launches})")
+        raw, wire = tree_collective_bytes(ghat, LM_GRAD_BITS)
+        res["compressed"] = {"step_s": comp_s, "median_s": statistics.median(comp_s),
+                             "uncompressed_median_s": med, "losses": comp_losses,
+                             "launches_per_step": comp_launches, "raw_bytes": raw,
+                             "wire_bytes": wire, "wire_ratio": raw / wire}
+        print(f"LM compressed step ({LM_GRAD_BITS} bits): median "
+              f"{res['compressed']['median_s']:.4f} s against {med:.4f} s uncompressed; "
+              f"launches a step {comp_launches}; wire {raw} -> {wire} bytes "
+              f"({raw / wire:.4f}x); {smi}", flush=True)
+        require(all(np.isfinite(comp_losses)), "finite compressed-step losses")
+        del opt, residual, ghat, r_leaves
+        torch.cuda.empty_cache()
+
+        # -- a lossy fixed-rate checkpoint of the trained parameters
+        params_ck, depth = params, cfg.num_layers
+        free = shutil.disk_usage(tmp.name).free
+        need = 2 * 1.9 * sum(t.numel() for t in flat(params).values())
+        if free < need:                  # cut the depth, never the width
+            depth = max(1, int(cfg.num_layers * free / need))
+            params_ck = {**params, "layers": {k: v[:depth] for k, v in
+                                              params["layers"].items()}}
+            print(f"checkpoint: {free / 1e9:.1f} GB free, cut to {depth} layers")
+        ck = os.path.join(tmp.name, "fr14")
+        t0 = time.perf_counter()
+        path, _ = count_launches(launches, lambda: ckpt.save_checkpoint(
+            ck, LM_TRAIN_STEPS, {"params": params_ck}, lossy_bits=LM_LOSSY_BITS))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (state, meta), _ = count_launches(launches, lambda: ckpt.restore_checkpoint(
+            path, {"params": params_ck}))
+        restore_s = time.perf_counter() - t0
+        codec = get_codec("fixed_rate", bits_per_value=LM_LOSSY_BITS)
+        enc, tmeta = encode_tree(codec, {"params": params_ck}, min_size=ckpt.MIN_LOSSY_SIZE)
+        want = decode_tree(enc, tmeta, codec=codec)
+        del enc
+        got = list(flat(state).values())
+        orig = list(flat({"params": params_ck}).values())
+        require(len(got) == len(want) == len(orig) and all(
+            a.shape == o.shape and a.dtype == o.dtype and torch.equal(a, w)
+            for a, w, o in zip(got, want, orig)),
+            f"the FR-{LM_LOSSY_BITS} checkpoint restores every leaf's shape and dtype, "
+            f"equal to decode_tree(encode_tree(leaf)) on the card bit for bit")
+        res["checkpoint"] = {"layers": depth, "raw_bytes": meta["raw_bytes"],
+                             "stored_bytes": meta["stored_bytes"],
+                             "stored_over_raw": meta["stored_bytes"] / meta["raw_bytes"],
+                             "save_s": save_s, "restore_s": restore_s}
+        print(f"LM FR-{LM_LOSSY_BITS} checkpoint ({depth} layers): {res['checkpoint']}",
+              flush=True)
+        del state, want, got, params, params_ck
+        torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+    res["launches"] = launches
+    print(json.dumps({"lm_training": res}), flush=True)
+    return res
 
 
 def _as_bits(a: np.ndarray) -> np.ndarray:

@@ -8,6 +8,9 @@ Public API:
   leaf_2d_shape / tree_leaf_keys / tree_flatten / tree_map
                                           -- the tree codec (api.py)
   encode_fixed_accuracy_batch / encode_fixed_rate_batch / decode_batch
+  encode_fixed_rate / decode_fixed_rate / encode_fixed_accuracy / decode
+  compressed_nbytes / compression_ratio   -- one unbatched field
+  Codec                                   -- what a codec provides
   CompressedField                         -- tensors + sample geometry
   FAEncodeState / fa_precompute_batch / fa_stats_batch
                                           -- Algorithm 1's stats-only roundtrip
@@ -18,9 +21,15 @@ from repro_torch.compression.transform import (MAX_WORDS, Q_FIXED_POINT,
 from repro_torch.compression.zfp import (
     CompressedField,
     FAEncodeState,
+    compressed_nbytes,
     compressed_nbytes_batch,
+    compression_ratio,
+    decode,
     decode_batch,
+    decode_fixed_rate,
+    encode_fixed_accuracy,
     encode_fixed_accuracy_batch,
+    encode_fixed_rate,
     encode_fixed_rate_batch,
     fa_plane_counts,
     fa_precompute_batch,
@@ -31,6 +40,7 @@ from repro_torch.compression.zfp import (
 )
 from repro_torch.compression.api import (
     BACKENDS,
+    Codec,
     FixedAccuracyCodec,
     FixedRateCodec,
     LeafSpec,
@@ -58,6 +68,7 @@ from repro_torch.compression.api import (
 
 __all__ = [
     "BACKENDS",
+    "Codec",
     "CompressedField",
     "FAEncodeState",
     "FixedAccuracyCodec",
@@ -76,13 +87,19 @@ __all__ = [
     "codec_from_spec",
     "codec_names",
     "codec_spec",
+    "compressed_nbytes",
     "compressed_nbytes_batch",
+    "compression_ratio",
     "deblockify",
+    "decode",
     "decode_batch",
+    "decode_fixed_rate",
     "decode_stacked_payloads",
     "decode_tree",
     "encode_tree",
+    "encode_fixed_accuracy",
     "encode_fixed_accuracy_batch",
+    "encode_fixed_rate",
     "encode_fixed_rate_batch",
     "fa_plane_counts",
     "fa_precompute_batch",

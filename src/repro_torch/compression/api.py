@@ -32,7 +32,8 @@ two packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Mapping, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -49,6 +50,28 @@ from repro_torch.device import resolve_device
 # the JAX package's backend names; recorded in specs, selecting nothing here
 BACKENDS = ("jnp", "pallas")
 SPEC_BACKEND = "pallas"
+
+
+@runtime_checkable
+class Codec(Protocol):
+    """What the data, datagen, core and train layers require of a codec
+    (the JAX package's ``Codec``, api.py:46, without its ``backend``: here
+    the tensors' device selects the path).  ``field_to_arrays`` /
+    ``field_from_arrays`` turn a compressed field into named host arrays
+    and back, so checkpoints and stores need not know its class."""
+
+    @property
+    def name(self) -> str: ...
+
+    def encode_batch(self, xs, tolerances=None): ...
+
+    def decode_batch(self, cf) -> torch.Tensor: ...
+
+    def nbytes(self, cf) -> torch.Tensor: ...
+
+    def field_to_arrays(self, cf) -> Dict[str, np.ndarray]: ...
+
+    def field_from_arrays(self, arrays: Mapping[str, Any], shape2d, device=None): ...
 
 
 def decode_stacked_payloads(payload, emax, padded_shape, shape,

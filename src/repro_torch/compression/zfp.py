@@ -137,6 +137,44 @@ def decode_batch(cf: CompressedField) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# single-sample forms: one unbatched field (payload (nb, W), emax and
+# nplanes (nb,)), through the batch forms above on a batch of one
+# ---------------------------------------------------------------------------
+
+def _batched(cf: CompressedField) -> CompressedField:
+    return CompressedField(cf.payload[None], cf.emax[None], cf.nplanes[None],
+                           cf.shape, cf.padded_shape)
+
+
+def _unbatched(cf: CompressedField) -> CompressedField:
+    return CompressedField(cf.payload[0], cf.emax[0], cf.nplanes[0], cf.shape,
+                           cf.padded_shape)
+
+
+def encode_fixed_rate(x: torch.Tensor, bits_per_value: int) -> CompressedField:
+    """Fixed-rate encode of one array, its trailing two dims blocked."""
+    return _unbatched(encode_fixed_rate_batch(x[None], bits_per_value))
+
+
+def decode_fixed_rate(cf: CompressedField) -> torch.Tensor:
+    """Fixed-rate decode of one field at ``2 * W`` planes, no plane mask."""
+    from repro_torch.compression.api import decode_stacked_payloads
+    return decode_stacked_payloads(cf.payload[None], cf.emax[None],
+                                   cf.padded_shape, cf.shape)[0]
+
+
+def encode_fixed_accuracy(x: torch.Tensor, tol: float) -> CompressedField:
+    """Error-bounded encode of one array: max |x - decode| <= tol."""
+    tols = torch.full((1,), float(tol), dtype=torch.float32, device=x.device)
+    return _unbatched(encode_fixed_accuracy_batch(x[None], tols))
+
+
+def decode(cf: CompressedField) -> torch.Tensor:
+    """Decode one field of either mode (its per-block plane counts)."""
+    return decode_batch(_batched(cf))[0]
+
+
+# ---------------------------------------------------------------------------
 # stats-only fixed-accuracy roundtrip (Algorithm 1's inner loop)
 # ---------------------------------------------------------------------------
 # The tolerance search (core/tolerance.py) evaluates many tolerances on the
@@ -236,6 +274,24 @@ def compressed_nbytes_batch(cf: CompressedField,
     nb = cf.nplanes.shape[-1]
     return (_header_bytes_per_block(mode) * nb
             + 2 * cf.nplanes.to(torch.int64).sum(dim=-1))
+
+
+def compressed_nbytes(cf: CompressedField,
+                      mode: str = "fixed_accuracy") -> torch.Tensor:
+    """Logical bytes of one field, 0-d int64 (see
+    :func:`compressed_nbytes_batch`)."""
+    return compressed_nbytes_batch(_batched(cf), mode)[0]
+
+
+def compression_ratio(cf: CompressedField,
+                      mode: str = "fixed_accuracy") -> torch.Tensor:
+    """Raw f32 bytes of one field over its logical compressed bytes, one
+    f32 division as JAX divides (``int / tensor`` would multiply by a
+    rounded reciprocal)."""
+    nbytes = compressed_nbytes(cf, mode)
+    raw = torch.tensor(int(np.prod(cf.shape)) * 4, dtype=torch.float32,
+                       device=nbytes.device)
+    return raw / nbytes.to(torch.float32)
 
 
 def trim_to_nplanes(cf: CompressedField) -> CompressedField:

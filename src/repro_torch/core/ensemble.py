@@ -52,14 +52,14 @@ from repro_torch.models.surrogate import (Surrogate, SurrogateConfig,
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import torchprof
 from repro_torch.obs import trace as obs_trace
-from repro_torch.train.loop import TrainConfig
-from repro_torch.train.optimizer import AdamConfig, adam_init
-from repro_torch.train.source import (batch_stream, make_ensemble_source,
-                                      make_ensemble_update,
-                                      make_fused_ensemble_step,
-                                      make_host_ensemble_step, make_loader)
 
 TRAJECTORY_METRICS = ("l1", "psnr", "mass", "mom_x", "mom_y")
+
+# core sits below train in the import order (train.checkpoint uses
+# core.tolerance for certified checkpoints), so the trainer plumbing this
+# module drives -- optimizer, batch sources, TrainConfig -- is imported inside
+# the functions that need it.  ``TrainConfig`` and ``AdamConfig`` appear only
+# in annotations (strings under ``from __future__ import annotations``).
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +82,7 @@ def ensemble_train_step(params, opt_state, cond, target, model: Surrogate,
     F), stacked params and Adam state -> (params, opt_state, (N,) loss).
     ``model`` is any ``Surrogate`` of the ensemble's config, used as the
     skeleton of ``functional_call`` (its own weights are not read)."""
+    from repro_torch.train.source import make_ensemble_update
     return make_ensemble_update(model, opt_cfg)(params, opt_state, cond, target)
 
 
@@ -150,6 +151,10 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     :func:`init_ensemble`).  ``loader`` overrides the per-seed
     ``EnsembleLoader``.  Ensembles do not checkpoint.
     """
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+    from repro_torch.train.source import (batch_stream, make_ensemble_source,
+                                          make_fused_ensemble_step,
+                                          make_host_ensemble_step, make_loader)
     if train_cfg.ckpt_dir is not None:
         raise ValueError("ensemble training does not checkpoint; "
                          "use train_surrogate for single runs")

@@ -1,4 +1,5 @@
-"""Dense decoder LM for serving: the dense family of ``repro/models/lm.py``.
+"""Dense decoder LM, serving and training: the dense family of
+``repro/models/lm.py``.
 
 Parameters are a plain dictionary in the JAX package's layout: ``embed``
 (V, D), ``final_norm`` (D,), ``lm_head`` (D, V) unless embeddings are tied,
@@ -7,25 +8,35 @@ and ``layers``, a dictionary of stacked (L, ...) tensors (``ln1``, ``ln2``,
 ``bq``/``bk``/``bv``, ``w_gate``/``w_up`` (D, F), ``w_down`` (F, D)).  The
 layer scan becomes a Python loop over ``l``.
 
-Attention goes through :func:`repro_torch.kernels.ops.flash_attention`: the
-CUDA kernel on the card, its plain version on the CPU.  The KV cache is a
-dictionary of (L, B, max_seq, Hkv, Dh) tensors, written in place (the JAX
-functions return updated copies); attention reads it through strided views,
-with per-row key lengths ``pos + 1`` where slots sit at their own depths.
+Serving attention (a KV cache) goes through
+:func:`repro_torch.kernels.ops.flash_attention`: the CUDA kernel on the
+card, its plain version on the CPU.  The KV cache is a dictionary of (L, B,
+max_seq, Hkv, Dh) tensors, written in place (the JAX functions return
+updated copies); attention reads it through strided views, with per-row key
+lengths ``pos + 1`` where slots sit at their own depths.
+
+The training forward (:func:`lm_forward`, :func:`lm_loss`) has no cache and
+runs :func:`attention_train`, plain PyTorch that autograd differentiates,
+as the JAX package's training runs its jnp ``attention``.  The layer loop
+checkpoints per layer as the config's ``remat`` asks; the loss is chunked
+over the sequence with each chunk checkpointed.
 
 Left out, because they are identities without a mesh: ``_constrain``,
-``_reduce_barrier``, ``_gather_weights``, the constraint-mesh setters and
-remat.  The MoE, SSM, hybrid, encoder-decoder and frontend families raise
+``_reduce_barrier``, ``_gather_weights`` and the constraint-mesh setters.
+The MoE, SSM, hybrid, encoder-decoder and frontend families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -48,10 +59,10 @@ def check_dense(cfg: ArchConfig) -> None:
         if cond:
             raise NotImplementedError(
                 f"{cfg.name}: the {what} family is not ported yet (ROADMAP Queue 1 "
-                f"item 11); the port serves the dense family only")
+                f"item 11b); the port runs the dense family only")
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 11)")
+                                  f"(ROADMAP Queue 1 item 11b)")
 
 
 # ===========================================================================
@@ -135,6 +146,17 @@ def param_count(cfg: ArchConfig) -> int:
     return n + cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
 
 
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters active per token: :func:`param_count` for the dense
+    family (lm.py:894).  Only routed experts would count for MoE, which is
+    not ported yet (ROADMAP Queue 1 item 11b)."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE family is not ported yet (ROADMAP Queue 1 item "
+            f"11b); active_param_count covers the dense family only")
+    return param_count(cfg)
+
+
 # ===========================================================================
 # primitives
 # ===========================================================================
@@ -169,6 +191,53 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=causal, window=window, kv_lens=kv_lens)
     return out.transpose(1, 2)
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None, chunk: int = 1024) -> torch.Tensor:
+    """Attention of the training forward, the JAX package's jnp
+    ``attention`` (lm.py:263) in plain PyTorch.
+
+    q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh); positions (B, Sq)/(B, Sk).
+    GQA repeats each KV head ``H // Hkv`` times (``jnp.repeat`` on axis 2).
+    Queries go in chunks of ``chunk``, the last padded with position -1;
+    scores are f32 with ``scale = 1/sqrt(Dh)``, masked with
+    ``where(m, s, -1e30)``, softmaxed in f32; the output is cast to q's
+    dtype.
+
+    It never calls :func:`repro_torch.kernels.ops.flash_attention`: that
+    kernel has no backward, and neither has the Pallas kernel it ports, so
+    the JAX package trains through its jnp attention too.  Autograd
+    differentiates this function as written.
+    """
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    scale = 1.0 / math.sqrt(dh)
+    kf, vf = k.float(), v.float()
+
+    def block(q_blk, qpos_blk):
+        s = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), kf) * scale
+        m = (kpos[:, None, None, :] <= qpos_blk[:, None, :, None] if causal
+             else torch.ones_like(s, dtype=torch.bool))
+        if window is not None:
+            m = m & (kpos[:, None, None, :] > qpos_blk[:, None, :, None] - window)
+        p = torch.softmax(torch.where(m, s, -1e30), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vf)
+
+    if sq <= chunk:
+        out = block(q, qpos)
+    else:
+        pad = (-sq) % chunk
+        if pad:
+            q = F.pad(q, (0, 0, 0, 0, 0, pad))
+            qpos = F.pad(qpos, (0, pad), value=-1)
+        out = torch.cat([block(q[:, i:i + chunk], qpos[:, i:i + chunk])
+                         for i in range(0, q.shape[1], chunk)], dim=1)[:, :sq]
+    return out.to(q.dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down):
@@ -207,7 +276,9 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
                = None, cache_pos=None):
     """Self-attention sublayer.  Returns (y, (k, v)): the fresh k, v without a
     cache, else the cache tensors (B, max_seq, Hkv, Dh), written in place at
-    ``cache_pos`` (a scalar, or (B,) per-slot positions)."""
+    ``cache_pos`` (a scalar, or (B,) per-slot positions).  Without a cache
+    this is the training forward and attends through :func:`attention_train`;
+    with one, through the serving kernel (:func:`attention`)."""
     q, k, v = _project_qkv(lp, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -239,7 +310,9 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
             y = attention(q, ck, cv, causal=causal, window=window, kv_lens=kv_lens)
         new_kv = (ck, cv)
     else:
-        y = attention(q, k, v, causal=causal, window=window)
+        # no cache: the training forward, differentiable plain attention
+        y = attention_train(q, k, v, positions, positions, causal=causal,
+                            window=window, chunk=cfg.attn_chunk)
         new_kv = (k, v)
     b, s, h, hd = y.shape
     wo = lp["wo"]
@@ -261,6 +334,90 @@ def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
     return x, new_cache
+
+
+# ===========================================================================
+# training forward and loss
+# ===========================================================================
+
+# the matmuls without batch dims (the projections) go through aten.mm /
+# addmm; attention's einsums are bmm.  JAX's
+# checkpoint_dots_with_no_batch_dims saves exactly the former.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(f, cfg: ArchConfig):
+    """The config's rematerialisation of one layer (lm.py:665): "full"
+    recomputes the layer in the backward, "dots" keeps the matmul outputs
+    without batch dims and recomputes the rest, "none" keeps everything."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, f, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, f, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    if cfg.remat == "none":
+        return f
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def run_decoder_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer loop of the training forward (lm.py:695), each layer under
+    the config's remat; returns (x, total aux), the aux a 0-d f32 zero for
+    the dense family."""
+    def body(h, i):
+        return decoder_layer(_layer(params, i), h, cfg, positions)[0]
+
+    body = _remat(body, cfg)
+    for i in range(cfg.num_layers):
+        x = body(x, i)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_forward(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
+                                                                  torch.Tensor]:
+    """Full causal forward (lm.py:712) -> (final-normed hidden (B, S, D),
+    aux)."""
+    check_dense(cfg)
+    x, positions = _embed_inputs(params, cfg, batch)
+    x, aux = run_decoder_stack(params, cfg, x, positions)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def _chunk_ce(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # hx @ w in the params' dtype, then f32, as einsum(...).astype(f32)
+    logits = (hx @ w).float()
+    gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).sum()
+
+
+def lm_loss(params: Params, cfg: ArchConfig, batch,
+            vocab_chunk_tokens: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy, chunked over the sequence (lm.py:738).
+
+    ``c = min(vocab_chunk_tokens, S)`` tokens a chunk and ``S // c`` chunks:
+    tokens past the last whole chunk are dropped, and the sum is divided by
+    ``B * nc * c``.  Each chunk is checkpointed, so no (tokens, V) tensor
+    outlives its chunk.  Returns ``loss + 0.01 * aux``, 0-d f32."""
+    hidden, aux = lm_forward(params, cfg, batch)
+    labels = batch["labels"]
+    w = _head_weight(params, cfg)
+    b, s, _ = hidden.shape
+    c = min(vocab_chunk_tokens, s)
+    nc = s // c
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_ce, hidden[:, sl], labels[:, sl], w,
+                                   use_reentrant=False)
+    return total / (b * nc * c) + 0.01 * aux
 
 
 # ===========================================================================

@@ -37,8 +37,19 @@ def conv2d_transpose(p: Params, x: torch.Tensor, stride: int = 2) -> torch.Tenso
     ``(k + s - 2) // 2`` on each side; for k = 4, s = 2 that equals
     ``conv_transpose2d(stride=2, padding=1)`` with the JAX kernel flipped
     spatially and stored (Cin, Cout, kh, kw).
+
+    A spatial extent of 0 (the surrogate below a width of 16) comes out as
+    1, as in the JAX layer: the lhs-dilated size 0, plus the padding
+    ``k + s - 2``, minus ``k - 1``.  No input contributes, so every value is
+    the bias; ``F.conv_transpose2d`` would refuse the empty input.
     """
     k = p["w"].shape[-1]
+    if 0 in x.shape[2:]:
+        h, w = (n * stride if n else 1 for n in x.shape[2:])
+        # the empty sum is written out so that w and x keep their (zero)
+        # gradients
+        y = x.sum(dim=(2, 3)) @ p["w"].sum(dim=(2, 3)) + p["b"]
+        return y[:, :, None, None].expand(-1, -1, h, w)
     pad = k - 1 - (k + stride - 2) // 2
     return F.conv_transpose2d(x, p["w"], p["b"], stride=stride, padding=pad)
 
@@ -55,3 +66,18 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     # where(x >= 0) keeps JAX's gradient of 1 at exactly 0
     return torch.where(x >= 0, x, slope * x)
+
+
+def count_params(tree) -> int:
+    """Number of scalars in a tree of tensors or arrays (mappings, lists,
+    tuples; ``None`` holds none), or in a module's parameters, as
+    ``repro/models/nn.py:count_params`` counts a pytree's leaves."""
+    if isinstance(tree, torch.nn.Module):
+        tree = list(tree.parameters())
+    if tree is None:
+        return 0
+    if isinstance(tree, Mapping):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return math.prod(tree.shape) if hasattr(tree, "shape") else 1

@@ -23,7 +23,6 @@ from torch.func import functional_call
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import nn
 from repro_torch.sim.solver import PARAM_DIM
-from repro_torch.train.optimizer import AdamState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +176,7 @@ def adam_state_to_jax(state: AdamState) -> AdamState:
     the JAX layout: ``m`` and ``v`` as :func:`params_to_jax`, ``step`` an
     int32 scalar.  Flattens to the JAX package's ``.step``, ``.m/<layer>/
     <name>``, ``.v/...`` keys."""
+    from repro_torch.train.optimizer import AdamState
     return AdamState(step=state.step.to(torch.int32),
                      m=params_to_jax(state.m), v=params_to_jax(state.v))
 
@@ -184,6 +184,7 @@ def adam_state_to_jax(state: AdamState) -> AdamState:
 def adam_state_from_jax(state) -> AdamState:
     """Inverse of :func:`adam_state_to_jax`; also takes the JAX package's
     own ``AdamState`` (array leaves, converted to CPU tensors)."""
+    from repro_torch.train.optimizer import AdamState
     step = state.step if isinstance(state.step, torch.Tensor) else \
         torch.from_numpy(np.array(state.step, np.int32))
     return AdamState(step=step.to(torch.int32), m=params_from_jax(state.m),

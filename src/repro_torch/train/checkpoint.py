@@ -50,9 +50,22 @@ def _flatten(tree) -> Dict[str, Any]:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as a host array.  bf16 has no numpy dtype: its bits are
+    written as 2-byte void records, the ``|V2`` the JAX package's
+    ``np.savez`` writes for an ml_dtypes bfloat16 array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """Inverse of :func:`_to_numpy`: ``|V2`` records are bf16 bits."""
+    if a.dtype == np.dtype("V2"):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 
@@ -228,7 +241,7 @@ def restore_checkpoint(path: str, template: Dict[str, Any],
                       for name, tm in codec_meta["trees"].items()}
 
     def load(key, dev):
-        return torch.from_numpy(np.array(data[key])).to(dev)
+        return _from_numpy(data[key]).to(dev)
 
     out = {}
     for name, tree in template.items():

@@ -78,10 +78,9 @@ def produced(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def produced16(tmp_path_factory):
-    """PLAN on a 16x16 grid, for the cases that train a surrogate: the
-    port's surrogate needs a width of at least 16 (the JAX one runs its
-    dense layer at zero width below that, and its output then ignores the
-    conditions)."""
+    """PLAN on a 16x16 grid, for the cases that train a surrogate at a
+    width where its dense layer has outputs (below 16 it has none, in both
+    packages, and the output then ignores the conditions)."""
     root = str(tmp_path_factory.mktemp("produced16"))
     spec = dataclasses.replace(SPEC, nx=16)
     plan = dataclasses.replace(PLAN, scenarios=(
@@ -324,6 +323,21 @@ def test_train_on_produced_path(produced16):
     root = produced16
     cond = scenario_conditions(os.path.join(root, "rt"))
     cfg = SurrogateConfig(height=16, width=16, base_channels=8)
+    tc = TrainConfig(epochs=1, batch_size=4, lr=1e-3, log_every=1)
+    _, losses = train_surrogate(cfg, tc, cond, os.path.join(root, "rt"),
+                                target_transform=channels_last, **CPU)
+    assert len(losses) == 4 and np.isfinite([l for _, l in losses]).all()
+
+
+def test_train_on_produced_path_at_jax_width(produced):
+    """The JAX package's own scenario: the 16x8 produced path, a width-8
+    surrogate (zero-width dense layer, stages 0 -> 1 -> 2 -> 4 -> 8)."""
+    from repro_torch.data.store import channels_last
+    from repro_torch.models.surrogate import SurrogateConfig
+    from repro_torch.train.loop import TrainConfig, train_surrogate
+    root, _ = produced
+    cond = scenario_conditions(os.path.join(root, "rt"))
+    cfg = SurrogateConfig(height=16, width=8, base_channels=8)
     tc = TrainConfig(epochs=1, batch_size=4, lr=1e-3, log_every=1)
     _, losses = train_surrogate(cfg, tc, cond, os.path.join(root, "rt"),
                                 target_transform=channels_last, **CPU)

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
-An AST scan of every module under ``src/repro_torch/`` and of
-``chip_smoke.py`` shows no import of ``jax``, ``repro`` or ``triton`` at
-module level; the entry points raise without a GPU unless the caller asks
-for the CPU.
+An AST scan of every module under ``src/repro_torch/``, of
+``chip_smoke.py`` and of the port's example shows no import of ``jax``,
+``repro`` or ``triton`` at module level; the entry points raise without a
+GPU unless the caller asks for the CPU.
 """
 import ast
 import importlib
@@ -24,6 +24,7 @@ from repro_torch.core.ensemble import certify_tolerance, init_ensemble, train_en
 from repro_torch.datagen import ProductionPlan, ScenarioPlan, produce, resolve_store
 from repro_torch.kernels import flash_attention, zfp_codec
 from repro_torch.launch import serve as serve_launcher
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import lm
 from repro_torch.models.surrogate import SurrogateConfig, init_surrogate
 from repro_torch.serving import ServeEngine, SurrogateServeEngine
@@ -35,7 +36,7 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "lm_pretrain_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -60,7 +61,7 @@ def test_scan_covers_every_package_of_the_port():
             "flash_attention.py", "ensemble.py", "tolerance.py", "variability.py",
             "image.py", "physics.py", "solver.py", "plan.py", "produce.py",
             "writer.py", "checkpoint.py", "grad_compress.py", "torchprof.py",
-            "surrogate_engine.py"} <= names
+            "surrogate_engine.py", "train.py", "lm_pretrain_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -77,7 +78,7 @@ def test_every_port_module_imports_without_toolchain():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     assert {"repro_torch.kernels.zfp_codec", "repro_torch.kernels.flash_attention",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.launch.train"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert not zfp_codec._libs and not flash_attention._libs
@@ -216,3 +217,18 @@ def test_compression_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_pa
     assert out["params"]["w"].device.type == "cpu"
     assert ckpt.certify_param_tolerances({"w": w}, {"w": w + 1e-3}, min_size=1024,
                                          device="cpu")
+
+
+def test_lm_training_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "lm_pretrain_torch", ROOT / "examples" / "lm_pretrain_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    args = ["--arch", "internlm2-1.8b", "--steps", "1"]
+    for call in (lambda: train_launcher.main(args),
+                 lambda: example.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not any(tmp_path.iterdir())
+    assert len(train_launcher.main(args + ["--device", "cpu", "--seq", "16"])) == 1

@@ -169,3 +169,56 @@ def test_conditions_and_normalizer_match_jax(rng):
                                rtol=1e-6, atol=1e-6)
     back = norm.denormalize(torch.from_numpy(got)).numpy()
     np.testing.assert_allclose(back, fields, rtol=1e-5, atol=1e-5)
+
+
+NARROW = dict(height=16, width=8, base_channels=8)     # width // 16 == 0
+
+
+def test_conv2d_transpose_of_an_empty_extent_matches_jax(rng):
+    """A zero-width input comes out one wide and holds only the bias, as the
+    JAX layer's lhs-dilated convolution gives it; gradients reach the bias
+    and are zero for the weights."""
+    w = rng.standard_normal((4, 4, 8, 3)).astype(np.float32)       # HWIO
+    b = rng.standard_normal(3).astype(np.float32)
+    for shape in ((2, 1, 0, 8), (2, 0, 0, 8), (2, 0, 3, 8)):
+        x = np.zeros(shape, np.float32)
+        want = np.asarray(jnn.conv2d_transpose({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+                                               jnp.asarray(x)))
+        p = {k: v.requires_grad_() for k, v in
+             zip(("w", "b"), (lambda d: (d["up0_t.w"], d["up0_t.b"]))(
+                 params_from_jax({"up0_t": {"w": w, "b": b}})))}
+        got = nn.conv2d_transpose(p, _nchw(x))
+        assert got.permute(0, 2, 3, 1).shape == want.shape
+        assert np.array_equal(got.detach().permute(0, 2, 3, 1).numpy(), want)
+        got.sum().backward()
+        assert float(p["w"].grad.abs().max()) == 0
+        assert np.array_equal(p["b"].grad.numpy(), np.full(3, got[:, 0].numel(), np.float32))
+
+
+def test_narrow_surrogate_forward_and_train_step_match_jax(rng):
+    """SurrogateConfig(width=8): its dense layer has zero outputs and the
+    four stages widen 0 -> 1 -> 2 -> 4 -> 8, in both packages."""
+    from repro.train.loop import _train_step as jax_train_step
+    from repro_torch.train.source import make_update
+    jcfg, jparams, model = _model_pair(seed=2, cfg=NARROW)
+    cond = rng.standard_normal((4, jcfg.cond_dim)).astype(np.float32)
+    target = rng.standard_normal((4, 16, 8, 6)).astype(np.float32)
+    want = np.asarray(jax_apply(jparams, jcfg, jnp.asarray(cond)))
+    with torch.no_grad():
+        got = apply_surrogate(model, torch.from_numpy(cond)).numpy()
+    assert got.shape == want.shape == (4, 16, 8, 6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FWD_ATOL)
+
+    jopt_cfg, opt_cfg = JaxAdamConfig(lr=1e-3), AdamConfig(lr=1e-3)
+    jp, _, jloss = jax_train_step(jparams, jax_adam_init(jparams, jopt_cfg),
+                                  jnp.asarray(cond), jnp.asarray(target), jcfg, jopt_cfg)
+    _, loss = make_update(model, opt_cfg)(
+        adam_init(dict(model.named_parameters()), opt_cfg),
+        torch.from_numpy(cond), torch.from_numpy(target))
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-6)
+    want = params_from_jax(jax.tree.map(np.asarray, jp))
+    diffs = np.concatenate([np.abs(p.detach().numpy() - want[n].numpy()).ravel()
+                            for n, p in model.named_parameters()])
+    # Adam's first step moves each element by about +-lr: a gradient near
+    # zero whose sign differs by rounding moves it by 2 lr
+    assert diffs.max() <= 2e-3 and np.quantile(diffs, 0.99) < 1e-6
