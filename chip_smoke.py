@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs eight paths at full
+tolerance, asserting which variant ran, then runs nine paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -97,7 +97,20 @@ model width:
   compressed-gradient example (``examples/lm_pretrain_torch.py``: kernels
   4 and 1 on every gradient leaf, error feedback checked leaf by leaf) and
   a fixed-rate 14-bit checkpoint of the trained parameters restored bit
-  for bit against ``decode_tree(encode_tree(leaf))``.
+  for bit against ``decode_tree(encode_tree(leaf))``;
+* the SSM and hybrid LM families: ``mamba2-130m`` and ``hymba-1.5b`` at
+  full width and depth (bf16, random weights) each serve 16 requests with
+  continuous batching and in lockstep (8 slots; hymba's prompts up to
+  2,048 tokens, past its 1,024-key window; every hymba prefill launch the
+  wgmma prefill, every decode launch the split-KV decode, none the scalar
+  kernel; mamba2 none at all); two requests served alone against the
+  batch (teacher-forced logits, tokens up to a tie); ``lm_forward``
+  against ``lm_prefill``; a decode step profiled; kernel 5 against its
+  plain version and timed at hymba's shapes (group 5, D 64, the window and
+  none); training at 2 x 4,096 (5 and 3 steps), mamba2's compressed-
+  gradient example (kernels 4 and 1 once a leaf a step) and an FR-14
+  checkpoint; one loss and its gradients with 2 layers in f32 against the
+  CPU.
 
 It prints the card's name and power limit, per run the median step time,
 the summed fetch wait and the store's ``IoStats``, the ensemble's and the
@@ -118,7 +131,10 @@ the scalar variant's, the plain version's, each SDPA backend's (for the
 decode also on the kernel's own function: q upcast to f32 against the f32
 cache) and the bound, the LM training phase's readings (one
 ``lm_training`` JSON line: losses, step median, tokens/s, peak memory,
-the profile, the compressed step, the checkpoint), one ``kernels`` JSON line (launches on the paths, agreement, times,
+the profile, the compressed step, the checkpoint), one ``recurrent_lm``
+JSON line (per family the serving modes, the solo checks, the decode
+profile, training, the CPU check; kernel 5 at hymba's shapes), one
+``kernels`` JSON line (launches on the paths, agreement, times,
 bounds and the library yardstick; kernel 5 also per variant), and as its
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -258,6 +274,34 @@ LM_CPU_LAYERS, LM_CPU_SEQ = 2, 64
 LM_CPU_LOSS_RTOL, LM_CPU_GRAD_RTOL, LM_CPU_Q99 = 1e-5, 1e-4, 1e-6
 LM_FWD_PROMPT = 1024
 LM_LAUNCHER_STEPS = (6, 4)
+# SSM and hybrid LM path (Queue 1 item 11b, families 1 and 2): mamba2-130m and
+# hymba-1.5b at full width and depth (configs/registry.py), bf16, random
+# weights from a seeded generator.  Each serves LM_REQUESTS requests of the
+# seeded workload (prompts REC_PROMPTS, generations LM_NEW) in LM_SLOTS slots
+# with max_seq the longest prompt plus the longest generation, so that
+# hymba's 1,024-key window bites in prefill and in decode, with run and
+# run_lockstep; REC_SOLO of the requests are served again alone (in as many
+# slots, so a decode step has the same shapes): teacher-forced logits alone
+# and in the padded batch to SOLO_F32_ATOL in f32 (the weights cast up), and
+# the served tokens equal up to a near tie in bf16.
+# lm_prefill's last-token logits against lm_forward's on REC_FWD_PROMPT
+# tokens to LOGIT_ATOL.  Training at REC_TRAIN (batch, length, steps),
+# remat "full", Adam as the dense phase; REC_COMP_STEPS steps of the
+# compressed-gradient example at LM_GRAD_BITS and an FR-LM_LOSSY_BITS
+# checkpoint on mamba2-130m.  Card against CPU: one loss and its gradients
+# with LM_CPU_LAYERS layers in f32 on 1 x LM_CPU_SEQ tokens, to the dense
+# phase's limits.  Kernel 5 against its plain version at the hybrid's
+# shapes: group 5, D 64, the window and none, a prefill of the longest
+# prompt and decode rows whose kv_lens cross the window (HYBRID_KV_LENS).
+REC_ARCHS = ("mamba2-130m", "hymba-1.5b")
+REC_PARAMS = {"mamba2-130m": 128_958_912, "hymba-1.5b": 1_640_768_896}
+REC_PROMPTS = {"mamba2-130m": (256, 512, 1024), "hymba-1.5b": (512, 1024, 2048)}
+REC_MAX_SEQ = {"mamba2-130m": 1088, "hymba-1.5b": 2112}
+REC_FWD_PROMPT = {"mamba2-130m": 1024, "hymba-1.5b": 2048}
+REC_TRAIN = {"mamba2-130m": (2, 4096, 5), "hymba-1.5b": (2, 4096, 3)}
+REC_COMP_STEPS, REC_SOLO, REC_PROFILE_STEPS = 3, 2, 10
+SOLO_F32_ATOL = 1e-3
+HYBRID_KV_LENS = (1, 513, 1023, 1024, 1025, 1500, 2048, 2112)
 
 
 class CheckFailed(RuntimeError):
@@ -876,10 +920,27 @@ def main(argv) -> int:
     lm_train = lm_training_path(dev, smi)
     print(f"LM training phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 14. SSM and hybrid LM path at full width: mamba2-130m, hymba-1.5b
+    print(f"recurrent LM phase starts {time.perf_counter() - t_start:.1f} s since start",
+          flush=True)
+    t0 = time.perf_counter()
+    rec = recurrent_lm_path(dev, smi)
+    print(f"recurrent LM phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    hybrid = rec["hymba-1.5b"]["attention"]
+    attn["launches"] += rec["attention"]["launches"]
+    attn["max_abs_err"] = max(attn["max_abs_err"], hybrid["max_abs_err"])
+    for name, n in rec["attention"]["variants"].items():
+        attn["variants"][name]["launches"] += n
+    attn["launches_by_run"]["hymba-1.5b"] = {
+        mode: {k: r[k] for k in ("prefill_launches", "decode_launches")}
+        for mode, r in rec["hymba-1.5b"]["serve"].items()}
+    attn["hybrid"] = hybrid["timings"]
+
     def launches(name):
         return (resident_launches[name] + cert["launches"][name] + ckpt_res["launches"][name]
                 + datagen["launches"][name] + host_launches[name]
-                + serving["launches"][name] + lm_train["launches"][name])
+                + serving["launches"][name] + lm_train["launches"][name]
+                + rec["launches"][name])
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
@@ -902,7 +963,10 @@ def main(argv) -> int:
           f"ms, sweep step median ({len(CERT_MULTIPLES)} candidates) "
           f"{cert['sweep_ms']:.3f} ms; LM train step median "
           f"{lm_train['train']['median_s']:.4f} s, compressed "
-          f"{lm_train['compressed']['median_s']:.4f} s; surrogate serving {serving['qps']:.1f} queries/s "
+          f"{lm_train['compressed']['median_s']:.4f} s; "
+          + "; ".join(f"{n} decode {rec[n]['serve']['run']['decode_tok_s']:.1f} tok/s, train "
+                      f"step {rec[n]['train']['median_s']:.4f} s" for n in REC_ARCHS)
+          + f"; surrogate serving {serving['qps']:.1f} queries/s "
           f"closed loop, fleet step {serving['fleet_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
           f"{attn['timings']['decode']['ms']:.4f} ms; RT_SPEC member on the card "
           f"{datagen['solver']['rt']['graph_s'][1]:.3f} s, produced ratios at {TOLERANCE} "
@@ -1458,6 +1522,32 @@ def fastest(times: dict):
     return ok[name], name
 
 
+def check_attention(what, q, k, v, variant=None, scalar=False, **kw) -> float:
+    """Kernel 5 (the variant ``select_variant`` picks, or with ``scalar``
+    the scalar one) against its plain version on the same inputs, to
+    ``ATTN_ATOL``; requires that exactly one variant ran, ``variant`` if
+    given.  Returns the largest error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    before = dict(fa.VARIANT_LAUNCHES)
+    if scalar:
+        got = fa._launch(q, k, v, causal=kw.get("causal", True), sm_scale=None,
+                         window=kw.get("window"), kv_lens=kw.get("kv_lens"),
+                         variant="scalar")
+    else:
+        got = fa.flash_attention(q, k, v, **kw)
+    ran = [n for n in fa.VARIANTS if fa.VARIANT_LAUNCHES[n] != before[n]]
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_ATOL[q.dtype]
+    require(got.dtype == q.dtype and got.shape == want.shape and err <= tol
+            and len(ran) == 1 and (variant is None or ran[0] == variant),
+            f"flash_attention kernel == plain ({what}; {'/'.join(ran)} ran"
+            f"{'' if variant is None else f', {variant} required'}): max err {err:.3e} "
+            f"<= {tol}")
+    return err
+
+
 def attention_checks(dev, cfg) -> float:
     """Kernel 5 against its plain version on the card: the kernel tests' six
     cases, the new kernels' own cases (windowed, ragged, D = 64, Sq < Sk, the
@@ -1466,8 +1556,6 @@ def attention_checks(dev, cfg) -> float:
     kv_lens, kv_lens at the split edges, GQA groups of 2, 8 and 1, a window,
     Sq = 3), each naming the variant that ran; the scalar variant at the
     main path's shapes too.  Returns the worst error."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(1)
 
     def rn(shape, dt):
@@ -1475,25 +1563,9 @@ def attention_checks(dev, cfg) -> float:
 
     worst = 0.0
 
-    def check(what, q, k, v, variant=None, scalar=False, **kw):
+    def check(*args, **kw):
         nonlocal worst
-        before = dict(fa.VARIANT_LAUNCHES)
-        if scalar:
-            got = fa._launch(q, k, v, causal=kw.get("causal", True), sm_scale=None,
-                             window=kw.get("window"), kv_lens=kw.get("kv_lens"),
-                             variant="scalar")
-        else:
-            got = fa.flash_attention(q, k, v, **kw)
-        ran = [n for n in fa.VARIANTS if fa.VARIANT_LAUNCHES[n] != before[n]]
-        want = ref.flash_attention_ref(q, k, v, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        tol = ATTN_ATOL[q.dtype]
-        require(got.dtype == q.dtype and got.shape == want.shape and err <= tol
-                and len(ran) == 1 and (variant is None or ran[0] == variant),
-                f"flash_attention kernel == plain ({what}; {'/'.join(ran)} ran"
-                f"{'' if variant is None else f', {variant} required'}): max err {err:.3e} "
-                f"<= {tol}")
-        worst = max(worst, err)
+        worst = max(worst, check_attention(*args, **kw))
 
     def case(c, variant=None):
         b, hq, hkv, sq, sk, d, causal, window, dt = c
@@ -1617,7 +1689,7 @@ def attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
     return timings
 
 
-def _replay(lm, params, cfg, reqs, dev):
+def _replay(lm, params, cfg, reqs, dev, max_seq: int = LM_MAX_SEQ):
     """Teacher-forced logits of the served tokens through ``lm_prefill`` and
     ``serve_step``: chunks of LM_SLOTS requests, right-padded prompts,
     per-slot positions.  Returns per chunk ((T, B, V) logits, (T, B) mask of
@@ -1637,7 +1709,7 @@ def _replay(lm, params, cfg, reqs, dev):
             valid[:len(r.output), j] = True
         lens = np.array([len(r.prompt) for r in chunk], np.int32)
         logits, cache = lm.lm_prefill(params, cfg, {"tokens": torch.from_numpy(toks).to(dev)},
-                                      LM_MAX_SEQ, cache_dtype=torch.float32,
+                                      max_seq, cache_dtype=torch.float32,
                                       prompt_lens=torch.from_numpy(lens).to(dev))
         all_logits = [logits]
         for t in range(steps - 1):
@@ -1651,6 +1723,89 @@ def _replay(lm, params, cfg, reqs, dev):
     return out
 
 
+def serve_modes(engine, cfg, prompt_lens, new_tokens) -> dict:
+    """Serve LM_REQUESTS requests of the seeded workload with continuous
+    batching (``run``) and in lockstep, each with kernel 5's counts set to 0
+    just before it; print each mode's rates, latencies and kernel-5
+    launches.  Requires every request back with its tokens in the vocab and
+    every launch of kernel 5 in a prefill or a decode step.  Returns {mode:
+    (requests in submission order, {"prefill", "decode", "variants",
+    "stats"}, the per-slot depths of every decode step)}."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.loadgen import latency_percentiles, lm_workload
+
+    # attribute each launch of kernel 5 (and of each of its variants) to
+    # prefill or decode; keep the per-slot depths of every decode step
+    counts = {"prefill": 0, "decode": 0}
+    variants = {phase: dict.fromkeys(fa.VARIANTS, 0) for phase in counts}
+    depths = []
+
+    def counted(phase, fn):
+        def wrapped(*args):
+            before = fa.LAUNCHES["flash_attention"]
+            before_v = dict(fa.VARIANT_LAUNCHES)
+            out = fn(*args)
+            counts[phase] += fa.LAUNCHES["flash_attention"] - before
+            for name in fa.VARIANTS:
+                variants[phase][name] += fa.VARIANT_LAUNCHES[name] - before_v[name]
+            if phase == "decode":
+                depths.append(np.array(args[2], np.int32))
+            return out
+        return wrapped
+
+    prefill, decode = engine._prefill, engine._decode_step
+    engine._prefill = counted("prefill", prefill)
+    engine._decode_step = counted("decode", decode)
+    runs = {}
+    try:
+        for mode in ("run", "run_lockstep"):
+            engine.stats = {k: type(v)() for k, v in engine.stats.items()}
+            counts.update(prefill=0, decode=0)
+            for phase in variants:
+                variants[phase] = dict.fromkeys(fa.VARIANTS, 0)
+            depths.clear()
+            fa.reset_launches()
+            reqs = lm_workload(cfg.vocab_size, LM_REQUESTS, prompt_lens=prompt_lens,
+                               new_tokens=new_tokens, seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = getattr(engine, mode)(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            pct = latency_percentiles(done)
+            st = engine.stats
+            step_ms = 1e3 * st["decode_seconds"] / max(st["decode_steps"], 1)
+            print(f"serve {cfg.name} {mode}: {len(done)} requests in {wall:.3f} s; decode "
+                  f"{engine.tokens_per_second:.1f} tok/s ({st['tokens']} tokens, "
+                  f"{st['decode_steps']} steps, {st['decode_seconds']:.3f} s, "
+                  f"{step_ms:.3f} ms/step); prefill {engine.prefill_tokens_per_second:.1f} "
+                  f"tok/s ({st['prefill_tokens']} tokens, {st['prefill_seconds']:.3f} s); "
+                  f"latency p50 {pct['p50']:.4f} s p99 {pct['p99']:.4f} s mean "
+                  f"{pct['mean']:.4f} s; slot utilisation {engine.slot_utilization:.4f}; "
+                  f"flash_attention launches prefill {counts['prefill']} "
+                  f"{variants['prefill']} decode {counts['decode']} {variants['decode']}",
+                  flush=True)
+            require(fa.LAUNCHES["flash_attention"] == counts["prefill"] + counts["decode"],
+                    f"every flash_attention launch of {mode} is in prefill or decode")
+            require(len(done) == LM_REQUESTS and all(
+                r.output is not None and len(r.output) == r.max_new_tokens
+                and 0 <= r.output.min() and r.output.max() < cfg.vocab_size for r in done),
+                f"{mode}: every request returned with max_new_tokens tokens in the vocab")
+            order = {id(r): i for i, r in enumerate(reqs)}
+            stats = {"wall_s": wall, "decode_tok_s": engine.tokens_per_second,
+                     "prefill_tok_s": engine.prefill_tokens_per_second,
+                     "decode_step_ms": step_ms, "p50_s": pct["p50"], "p99_s": pct["p99"],
+                     "slot_utilisation": engine.slot_utilization,
+                     "decode_steps": st["decode_steps"], "tokens": st["tokens"]}
+            runs[mode] = (sorted(done, key=lambda r: order[id(r)]),
+                          {**counts, "variants": {ph: dict(c) for ph, c in variants.items()},
+                           "stats": stats},
+                          list(depths))
+    finally:
+        engine._prefill, engine._decode_step = prefill, decode
+    return runs
+
+
 def lm_serving_path(dev, smi: str) -> dict:
     """Serve the seeded workload on the full-width dense LM with continuous
     batching and in lockstep, check the tokens and the kernel against plain
@@ -1660,7 +1815,7 @@ def lm_serving_path(dev, smi: str) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
     from repro_torch.serving import ServeEngine
-    from repro_torch.serving.loadgen import latency_percentiles, lm_workload
+    from repro_torch.serving.loadgen import lm_workload
 
     cfg = get_config(LM_ARCH)
     worst = attention_checks(dev, cfg)
@@ -1682,70 +1837,14 @@ def lm_serving_path(dev, smi: str) -> dict:
     engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
     torch.cuda.synchronize()
 
-    # attribute each launch of kernel 5 (and of each of its variants) to
-    # prefill or decode; keep the per-slot depths of every decode step
-    counts = {"prefill": 0, "decode": 0}
-    variants = {phase: dict.fromkeys(fa.VARIANTS, 0) for phase in counts}
-    depths = []
-
-    def counted(phase, fn):
-        def wrapped(*args):
-            before = fa.LAUNCHES["flash_attention"]
-            before_v = dict(fa.VARIANT_LAUNCHES)
-            out = fn(*args)
-            counts[phase] += fa.LAUNCHES["flash_attention"] - before
-            for name in fa.VARIANTS:
-                variants[phase][name] += fa.VARIANT_LAUNCHES[name] - before_v[name]
-            if phase == "decode":
-                depths.append(np.array(args[2], np.int32))
-            return out
-        return wrapped
-
-    engine._prefill = counted("prefill", engine._prefill)
-    engine._decode_step = counted("decode", engine._decode_step)
-    runs = {}
-    for mode in ("run", "run_lockstep"):
-        engine.stats = {k: type(v)() for k, v in engine.stats.items()}
-        counts.update(prefill=0, decode=0)
-        for phase in variants:
-            variants[phase] = dict.fromkeys(fa.VARIANTS, 0)
-        depths.clear()
-        fa.reset_launches()
-        reqs = lm_workload(cfg.vocab_size, LM_REQUESTS, prompt_lens=LM_PROMPTS,
-                           new_tokens=LM_NEW, seed=0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = getattr(engine, mode)(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        pct = latency_percentiles(done)
-        st = engine.stats
-        print(f"serve {mode}: {len(done)} requests in {wall:.3f} s; decode "
-              f"{engine.tokens_per_second:.1f} tok/s ({st['tokens']} tokens, "
-              f"{st['decode_steps']} steps, {st['decode_seconds']:.3f} s, "
-              f"{1e3 * st['decode_seconds'] / max(st['decode_steps'], 1):.3f} ms/step); "
-              f"prefill {engine.prefill_tokens_per_second:.1f} tok/s "
-              f"({st['prefill_tokens']} tokens, {st['prefill_seconds']:.3f} s); latency "
-              f"p50 {pct['p50']:.4f} s p99 {pct['p99']:.4f} s mean {pct['mean']:.4f} s; "
-              f"slot utilisation {engine.slot_utilization:.4f}; flash_attention launches "
-              f"prefill {counts['prefill']} {variants['prefill']} decode {counts['decode']} "
-              f"{variants['decode']}", flush=True)
-        require(fa.LAUNCHES["flash_attention"] == counts["prefill"] + counts["decode"],
-                f"every flash_attention launch of {mode} is in prefill or decode")
-        require(counts["prefill"] > 0 and counts["decode"] > 0,
+    runs = serve_modes(engine, cfg, LM_PROMPTS, LM_NEW)
+    for mode, (_, c, _) in runs.items():
+        require(c["prefill"] > 0 and c["decode"] > 0,
                 f"flash_attention launched in prefill and in decode ({mode})")
-        require(variants["prefill"]["prefill_wgmma"] == counts["prefill"],
-                f"every prefill launch of {mode} ran prefill_wgmma ({variants['prefill']})")
-        require(variants["decode"]["decode_splitkv"] == counts["decode"],
-                f"every decode launch of {mode} ran decode_splitkv ({variants['decode']})")
-        require(len(done) == LM_REQUESTS and all(
-            r.output is not None and len(r.output) == r.max_new_tokens
-            and 0 <= r.output.min() and r.output.max() < cfg.vocab_size for r in done),
-            f"{mode}: every request returned with max_new_tokens tokens in the vocab")
-        order = {id(r): i for i, r in enumerate(reqs)}
-        runs[mode] = (sorted(done, key=lambda r: order[id(r)]),
-                      {**counts, "variants": {ph: dict(c) for ph, c in variants.items()}},
-                      list(depths))
+        require(c["variants"]["prefill"]["prefill_wgmma"] == c["prefill"],
+                f"every prefill launch of {mode} ran prefill_wgmma ({c['variants']['prefill']})")
+        require(c["variants"]["decode"]["decode_splitkv"] == c["decode"],
+                f"every decode launch of {mode} ran decode_splitkv ({c['variants']['decode']})")
 
     by_mode = [np.concatenate([r.output for r in runs[m][0]]) for m in runs]
     print(f"run vs run_lockstep: {np.mean(by_mode[0] == by_mode[1]):.4f} of "
@@ -2180,6 +2279,414 @@ def lm_training_path(dev, smi: str) -> dict:
         tmp.cleanup()
     res["launches"] = launches
     print(json.dumps({"lm_training": res}), flush=True)
+    return res
+
+
+def window_keys(q_pos: np.ndarray, window) -> int:
+    """Keys a causal (windowed) query at each position attends: sum of
+    min(pos + 1, window)."""
+    q_pos = np.asarray(q_pos, np.int64)
+    return int(np.minimum(q_pos + 1, window or np.iinfo(np.int64).max).sum())
+
+
+def hybrid_attention_checks(dev, cfg) -> float:
+    """Kernel 5 against its plain version at the hybrid's shapes: 25 q heads
+    over 5 KV heads (group 5), D 64, bf16; a prefill of the longest prompt
+    and one of the shortest, with the window and without; decode, bf16 q
+    against the f32 cache, with HYBRID_KV_LENS crossing the window (one row
+    each), with and without it.  Returns the largest
+    error."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    h, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.hdim, cfg.attn_window
+    bf = torch.bfloat16
+
+    def rn(shape, dt=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    worst = 0.0
+    for b, s in ((1, REC_PROMPTS[cfg.name][-1]), (2, REC_PROMPTS[cfg.name][0])):
+        q, k, v = rn((b, h, s, d)), rn((b, hkv, s, d)), rn((b, hkv, s, d))
+        for window in (w, None):
+            worst = max(worst, check_attention(
+                f"hybrid prefill {b}x{h}x{s}x{d} over {hkv} KV heads, window {window}",
+                q, k, v, "prefill_wgmma", window=window))
+    n, ms = len(HYBRID_KV_LENS), REC_MAX_SEQ[cfg.name]
+    ck, cv = rn((n, ms, hkv, d), torch.float32), rn((n, ms, hkv, d), torch.float32)
+    lens = torch.tensor(HYBRID_KV_LENS, dtype=torch.int32, device=dev)
+    q = rn((n, h, 1, d))
+    for window in (w, None):
+        worst = max(worst, check_attention(
+            f"hybrid decode bf16 q ({n},{h},1,{d}) against the f32 cache, window "
+            f"{window}, kv_lens {list(HYBRID_KV_LENS)}", q, ck.transpose(1, 2),
+            cv.transpose(1, 2), "decode_splitkv", kv_lens=lens, window=window))
+    return worst
+
+
+def hybrid_attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
+    """Kernel 5's times at the hybrid's serving shapes with its window: the
+    prefill of the longest prompt and the decode step at the given depths;
+    beside the plain version, each SDPA backend (the window as a mask) and
+    the bound, which counts only the keys inside the window."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    h, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.hdim, cfg.attn_window
+    bf = torch.bfloat16
+    s, ms = REC_PROMPTS[cfg.name][-1], REC_MAX_SEQ[cfg.name]
+    out = {}
+    q = torch.randn((1, h, s, d), generator=g, device=dev).to(bf)
+    k = torch.randn((1, hkv, s, d), generator=g, device=dev).to(bf)
+    v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(bf)
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
+    t = {"variant": fa.select_variant(q, k, v, None, w), "window": w,
+         "shape": [1, h, s, d]}
+    t["ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, window=w), 50)
+    t["eager_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, window=w), reps=50)
+    t["plain_ms"] = graph_ms(lambda: ref.flash_attention_ref(q, k, v, window=w), 5)
+    t["sdpa"] = sdpa_times(q, k, v, reps=20, mask=mask)
+    t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
+    t["bound_ms"], t["bound_by"] = attn_bound_ms(
+        2 * (2 * h * s * d) + 2 * (2 * hkv * s * d), 4 * h * d * window_keys(np.arange(s), w))
+    out["prefill"] = t
+    lens = torch.from_numpy(lens_np).to(dev)
+    q = torch.randn((LM_SLOTS, h, 1, d), generator=g, device=dev).to(bf)
+    ck = torch.randn((LM_SLOTS, ms, hkv, d), generator=g, device=dev)
+    cv = torch.randn((LM_SLOTS, ms, hkv, d), generator=g, device=dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    kpos = torch.arange(ms, device=dev)[None]
+    dmask = ((kpos < lens[:, None]) & (kpos >= lens[:, None] - w))[:, None, None]
+    t = {"variant": fa.select_variant(q, kt, vt, lens, w), "window": w,
+         "shape": [LM_SLOTS, h, 1, d], "kv_lens": lens_np.tolist()}
+    t["ms"] = graph_ms(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens, window=w), 100)
+    t["eager_ms"] = cuda_ms(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens, window=w),
+                            reps=100)
+    t["plain_ms"] = graph_ms(
+        lambda: ref.flash_attention_ref(q, kt, vt, kv_lens=lens, window=w), 20)
+    t["sdpa"] = sdpa_times(q, kt.to(bf).contiguous(), vt.to(bf).contiguous(), reps=100,
+                           mask=dmask)
+    t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
+    keys = window_keys(lens_np - 1, w)
+    t["bound_ms"], t["bound_by"] = attn_bound_ms(keys * hkv * d * 2 * 4 + 2 * (
+        2 * LM_SLOTS * h * d) + 4 * LM_SLOTS, 4 * h * d * keys)
+    out["decode"] = t
+
+    def f(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    for name, t in out.items():
+        print(f"flash_attention hybrid {name} {t['shape']} window {w} (ms per call on the "
+              f"device; eager in brackets): {t['variant']} {f(t['ms'])} "
+              f"({f(t.get('eager_ms'))}), plain {f(t['plain_ms'])}, bound "
+              f"{t['bound_ms']:.5f} ({t['bound_by']}); SDPA with the window as a mask"
+              f"{' on a bf16 copy of the cache' if name == 'decode' else ''}: "
+              + ", ".join(f"{n} refused" if x is None else f"{n} {f(x['ms'])}"
+                          for n, x in t["sdpa"].items()) + f"; {smi}", flush=True)
+    return out
+
+
+def recurrent_family(dev, name: str, smi: str, launches: dict) -> dict:
+    """One family of the SSM and hybrid path at full width (see REC_ARCHS):
+    serve, solo against batched, forward against prefill, a decode step's
+    profile, training, and card against CPU.  Adds the codec kernels'
+    launches to ``launches``; returns the readings."""
+    import dataclasses
+    import importlib.util
+    from repro_torch.compression import (decode_tree, encode_tree, get_codec,
+                                         tree_flatten_with_path, tree_map)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch
+    from repro_torch.models import lm
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving.loadgen import lm_workload
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamConfig
+
+    def flat(tree):
+        return dict(tree_flatten_with_path(tree)[0])
+
+    cfg = get_config(name)
+    res = {"attention": {"launches": 0, "variants": dict.fromkeys(fa.VARIANTS, 0)}}
+    if cfg.hybrid:
+        res["attention"]["max_abs_err"] = hybrid_attention_checks(dev, cfg)
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    leaves = flat(params)
+    n_params = sum(t.numel() for t in leaves.values())
+    print(f"lm: {name} at full width ({cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.ssm_heads} SSM heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
+          f"{cfg.ssm_conv}"
+          + (f", {cfg.num_heads} q heads over {cfg.num_kv_heads} KV heads x {cfg.hdim}, ff "
+             f"{cfg.d_ff}, window {cfg.attn_window}, global layers {cfg.global_attn_layers}"
+             if cfg.hybrid else "")
+          + f", vocab {cfg.vocab_size}), {n_params} parameters "
+          f"({sum(t.numel() * t.element_size() for t in leaves.values())} bytes), init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    require(n_params == lm.param_count(cfg) == REC_PARAMS[name],
+            f"{name}: parameter count == param_count == {REC_PARAMS[name]} ({n_params})")
+    require({t.dtype for k, t in leaves.items() if k.split("/")[-1] in
+             ("ssm_A", "ssm_D", "ssm_dt_bias")} == {torch.float32},
+            f"{name}: ssm_A, ssm_D and ssm_dt_bias are f32 in the bf16 parameters")
+
+    # -- serve: continuous batching and lockstep
+    max_seq = REC_MAX_SEQ[name]
+    engine = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_seq=max_seq, device=dev)
+    engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
+    torch.cuda.synchronize()
+    runs = serve_modes(engine, cfg, REC_PROMPTS[name], LM_NEW)
+    for mode, (_, c, _) in runs.items():
+        v = c["variants"]
+        if cfg.hybrid:
+            require(0 < c["prefill"] == v["prefill"]["prefill_wgmma"]
+                    and 0 < c["decode"] == v["decode"]["decode_splitkv"]
+                    and v["prefill"]["scalar"] == v["decode"]["scalar"] == 0,
+                    f"{name} {mode}: every prefill launch ran prefill_wgmma and every "
+                    f"decode launch decode_splitkv, none the scalar variant ({v})")
+        else:
+            require(c["prefill"] == c["decode"] == 0, f"{name} {mode}: no kernel-5 launch")
+        res["attention"]["launches"] += c["prefill"] + c["decode"]
+        for ph in v:
+            for k, n in v[ph].items():
+                res["attention"]["variants"][k] += n
+    res["serve"] = {mode: {**c["stats"], "prefill_launches": c["prefill"],
+                           "decode_launches": c["decode"]}
+                    for mode, (_, c, _) in runs.items()}
+    served = runs["run"][0]
+    by_mode = [np.concatenate([r.output for r in runs[m][0]]) for m in runs]
+    res["run_vs_lockstep_equal"] = float(np.mean(by_mode[0] == by_mode[1]))
+    print(f"{name} run vs run_lockstep: {res['run_vs_lockstep_equal']:.4f} of "
+          f"{by_mode[0].size} greedy tokens equal", flush=True)
+
+    # -- requests served alone against the batch.  In f32 (the weights cast
+    # up) the teacher-forced logits of a request alone and in its padded
+    # batch of LM_SLOTS must agree to SOLO_F32_ATOL: pads and neighbours do
+    # not reach a row.  In bf16 they differ by rounding in other batch
+    # shapes, amplified through the layers, and a random model's greedy
+    # choice often comes down to a near tie: served alone, a request's
+    # tokens must equal the batch's up to the first step where they part,
+    # and there the two tokens' bf16 logits alone must lie within twice the
+    # largest bf16 teacher-forced difference (a tie).
+    alone = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_seq=max_seq, device=dev)
+    chunk = served[:LM_SLOTS]
+    batch_tf = _replay(lm, params, cfg, chunk, dev, max_seq)[0][0]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = tree_map(torch.Tensor.float, params)
+    batch_tf32 = _replay(lm, p32, cfg32, chunk, dev, max_seq)[0][0]
+    res["solo"] = []
+    for row, r in enumerate(served[:REC_SOLO]):
+        out = alone.run([Request(prompt=r.prompt.copy(),
+                                 max_new_tokens=r.max_new_tokens)])[0].output
+        n = len(r.output)
+        solo_tf = _replay(lm, params, cfg, [r], dev, max_seq)[0][0]
+        diff = float((solo_tf[:n, 0] - batch_tf[:n, row]).abs().max())
+        diff32 = float((_replay(lm, p32, cfg32, [r], dev, max_seq)[0][0][:n, 0]
+                        - batch_tf32[:n, row]).abs().max())
+        part = next((t for t in range(n) if out[t] != r.output[t]), n)
+        gap = 0.0 if part == n else float(
+            (solo_tf[part, 0, int(out[part])] - solo_tf[part, 0, int(r.output[part])]).abs())
+        res["solo"].append({"prompt": len(r.prompt), "tokens": n,
+                            "equal": int(np.sum(out == r.output)), "first_difference": part,
+                            "tie_gap": gap, "teacher_forced_max_abs_diff": diff,
+                            "teacher_forced_max_abs_diff_f32": diff32})
+        print(f"{name} request {row} ({len(r.prompt)} prompt tokens) alone against the "
+              f"batch: {res['solo'][-1]}", flush=True)
+        require(diff32 <= SOLO_F32_ATOL,
+                f"{name}: request {row} alone == in its padded batch, teacher-forced f32 "
+                f"logits: max abs diff {diff32:.2e} <= {SOLO_F32_ATOL}")
+        upto = ("the end" if part == n else
+                f"a tie ({gap:.4f} <= 2 x {diff:.4f}, the bf16 teacher-forced difference)")
+        require(gap <= 2 * diff, f"{name}: request {row} served alone gives the batch's "
+                                 f"tokens ({part} of {n}) up to {upto}")
+    del alone, batch_tf, batch_tf32, p32
+
+    # -- lm_prefill's last-token logits against lm_forward's
+    fa.reset_launches()
+    plen = REC_FWD_PROMPT[name]
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, plen)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        hidden, _ = lm.lm_forward(params, cfg, {"tokens": toks})
+        n_fwd = fa.LAUNCHES["flash_attention"]
+        train_logits = (hidden[:, -1] @ lm._head_weight(params, cfg)).float()
+        del hidden
+        serve_logits, cache = lm.lm_prefill(params, cfg, {"tokens": toks}, plen)
+        del cache
+    n_prefill = fa.LAUNCHES["flash_attention"] - n_fwd
+    err = float((train_logits - serve_logits).abs().max())
+    res["forward_vs_prefill"] = {"tokens": plen, "max_abs_diff": err,
+                                 "kernel5_launches": n_prefill,
+                                 "argmax_equal": bool((train_logits.argmax(-1) ==
+                                                       serve_logits.argmax(-1)).all())}
+    require(n_fwd == 0 and n_prefill == (cfg.num_layers if cfg.hybrid else 0)
+            == fa.VARIANT_LAUNCHES["prefill_wgmma"],
+            f"{name}: lm_forward launched no kernel 5, lm_prefill {n_prefill} (prefill_wgmma, "
+            f"one an attention layer)")
+    require(err <= LOGIT_ATOL, f"{name}: lm_forward's last-token logits == lm_prefill's on "
+                               f"{plen} tokens: max abs diff {err:.4f} <= {LOGIT_ATOL}")
+
+    # -- a decode step's wall, busy share and kernels, at the first chunk's depths
+    chunk = served[:LM_SLOTS]
+    plen = max(len(r.prompt) for r in chunk)
+    ptoks = np.zeros((LM_SLOTS, plen), np.int32)
+    for j, r in enumerate(chunk):
+        ptoks[j, :len(r.prompt)] = r.prompt
+    lens_np = np.array([len(r.prompt) for r in chunk], np.int32)
+    logits, cache = engine._prefill(ptoks, lens_np)
+    cur = logits.argmax(-1).to(torch.int32)
+    depth = torch.from_numpy(lens_np).to(dev)
+
+    def decode_step():
+        out, _ = lm.serve_step(params, cfg, cache, cur, depth)
+        torch.argmax(out, -1).cpu()
+
+    for _ in range(2):
+        decode_step()
+    res["decode_profile"] = profile_lm_steps(decode_step, REC_PROFILE_STEPS)
+    print(f"{name} decode step profile ({LM_SLOTS} slots at depths {lens_np.tolist()}): "
+          f"{res['decode_profile']}; {smi}", flush=True)
+    del cache, engine
+    if cfg.hybrid:
+        depths = runs["run"][2]
+        res["attention"]["timings"] = hybrid_attention_timings(
+            dev, cfg, depths[len(depths) // 2] + 1, smi)
+    torch.cuda.empty_cache()
+
+    # -- training at full width
+    batch_n, seq, steps = REC_TRAIN[name]
+    opt_cfg = AdamConfig(lr=LM_TRAIN_LR, grad_clip=1.0)
+    rng = np.random.default_rng(0)
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = launch.loss_and_grads(params, cfg, launch.make_batch(rng, cfg, batch_n,
+                                                                       seq, dev))
+    g = flat(grads)
+    require(all(bool(torch.isfinite(t).all()) for t in g.values())
+            and bool(torch.isfinite(loss)),
+            f"{name}: every one of {len(g)} gradients is finite on the card "
+            f"(loss {float(loss):.4f})")
+    moved = [k for k in ("ssm_in", "ssm_conv_w", "ssm_A", "ssm_D", "ssm_dt_bias", "ssm_norm",
+                         "ssm_out") + (("wq", "wk", "wv", "wo") if cfg.hybrid else ())
+             if float(g[f"layers/{k}"].float().abs().max()) > 0]
+    require(len(moved) == (11 if cfg.hybrid else 7),
+            f"{name}: the SSM{' and attention' if cfg.hybrid else ''} leaves have nonzero "
+            f"gradients ({moved})")
+    del grads, g
+    opt = launch.adam_init_tree(params)
+    losses, step_s = [], []
+    for _ in range(steps):
+        batch = launch.make_batch(rng, cfg, batch_n, seq, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = launch.train_step(params, opt, batch, cfg, opt_cfg)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    require(fa.LAUNCHES["flash_attention"] == 0, f"{name}: no kernel-5 launch in training")
+    require(all(np.isfinite(losses)), f"{name}: {steps} finite losses")
+    med = statistics.median(step_s[1:] or step_s)
+    res["train"] = {"batch": batch_n, "seq": seq, "losses": losses, "step_s": step_s,
+                    "median_s": med, "tokens_per_s": batch_n * seq / med,
+                    "max_memory_allocated": peak}
+    print(f"{name} training: {steps} steps of {batch_n} x {seq}, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; step median {med:.4f} s (first {step_s[0]:.4f} s), "
+          f"{batch_n * seq / med:.1f} tokens/s; peak {peak / 1e9:.2f} GB; {smi}", flush=True)
+
+    if not cfg.hybrid:
+        # -- the compressed-gradient example's step and a lossy checkpoint
+        spec = importlib.util.spec_from_file_location(
+            "lm_pretrain_torch", ROOT / "examples" / "lm_pretrain_torch.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        comp_step = example.make_step(cfg, opt_cfg, LM_GRAD_BITS)
+        residual = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        n_leaves, comp_s, comp_launches, comp_losses = len(flat(params)), [], [], []
+        for _ in range(REC_COMP_STEPS):
+            batch = launch.make_batch(rng, cfg, batch_n, seq, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (params, opt, residual, loss, _), got = count_launches(
+                launches, lambda: comp_step(params, opt, residual, batch))
+            comp_losses.append(float(loss))
+            comp_s.append(time.perf_counter() - t0)
+            comp_launches.append(got)
+        require(all(c["zfp_encode_blocks"] == c["zfp_decode_blocks_fa"] == n_leaves
+                    for c in comp_launches) and all(np.isfinite(comp_losses)),
+                f"{name}: kernels 4 and 1 launched once a leaf ({n_leaves}) in every "
+                f"compressed step, finite losses ({comp_launches})")
+        res["compressed"] = {"step_s": comp_s, "median_s": statistics.median(comp_s),
+                             "losses": comp_losses, "launches_per_step": comp_launches}
+        print(f"{name} compressed step ({LM_GRAD_BITS} bits): median "
+              f"{res['compressed']['median_s']:.4f} s; launches a step {comp_launches[-1]}",
+              flush=True)
+        del residual
+        tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_rec_")
+        try:
+            path, _ = count_launches(launches, lambda: ckpt.save_checkpoint(
+                tmp.name, steps, {"params": params}, lossy_bits=LM_LOSSY_BITS))
+            (state, meta), _ = count_launches(launches, lambda: ckpt.restore_checkpoint(
+                path, {"params": params}))
+        finally:
+            tmp.cleanup()
+        codec = get_codec("fixed_rate", bits_per_value=LM_LOSSY_BITS)
+        enc, tmeta = encode_tree(codec, {"params": params}, min_size=ckpt.MIN_LOSSY_SIZE)
+        want = decode_tree(enc, tmeta, codec=codec)
+        got = list(flat(state).values())
+        orig = list(flat({"params": params}).values())
+        require(len(got) == len(want) == len(orig) and all(
+            a.shape == o.shape and a.dtype == o.dtype and torch.equal(a, w)
+            for a, w, o in zip(got, want, orig)),
+            f"{name}: the FR-{LM_LOSSY_BITS} checkpoint restores every leaf, equal to "
+            f"decode_tree(encode_tree(leaf)) bit for bit")
+        res["checkpoint"] = {"raw_bytes": meta["raw_bytes"],
+                             "stored_bytes": meta["stored_bytes"]}
+        del state, want, got, enc
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # -- card against CPU: one loss and its gradients, 2 layers, f32
+    cfg2 = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS, param_dtype="float32")
+    p_card = lm.init_lm(torch.Generator(device=dev).manual_seed(1), cfg2)
+    p_cpu = tree_map(lambda t: t.cpu(), p_card)
+    b_card = launch.make_batch(np.random.default_rng(1), cfg2, 1, LM_CPU_SEQ, dev)
+    l_card, g_card = launch.loss_and_grads(p_card, cfg2, b_card)
+    l_cpu, g_cpu = launch.loss_and_grads(p_cpu, cfg2, {k: v.cpu() for k, v in b_card.items()})
+    g_card, g_cpu = flat(g_card), flat(g_cpu)
+    grad_err = max(float((g_card[k].cpu() - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                   for k, g in g_cpu.items())
+    res["cpu_check"] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+                        "grad_err": grad_err}
+    print(f"{name} card vs CPU, loss and gradients at full width, {LM_CPU_LAYERS} layers, "
+          f"f32, 1 x {LM_CPU_SEQ}: {res['cpu_check']}", flush=True)
+    require(abs(float(l_card) - float(l_cpu)) <= LM_CPU_LOSS_RTOL * abs(float(l_cpu)),
+            f"{name}: loss on the card {float(l_card):.7f} == CPU {float(l_cpu):.7f} "
+            f"(rtol {LM_CPU_LOSS_RTOL})")
+    require(grad_err <= LM_CPU_GRAD_RTOL, f"{name}: every gradient on the card == CPU "
+                                          f"(worst {grad_err:.2e} of its tensor's max <= "
+                                          f"{LM_CPU_GRAD_RTOL})")
+    del p_card, p_cpu, g_card, g_cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def recurrent_lm_path(dev, smi: str) -> dict:
+    """The SSM and hybrid families at full width, one after the other
+    (:func:`recurrent_family`); returns their readings, the codec kernels'
+    launches and kernel 5's on the path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import zfp_codec
+    res = {"launches": dict.fromkeys(zfp_codec.LAUNCHES, 0),
+           "attention": {"launches": 0, "variants": dict.fromkeys(fa.VARIANTS, 0)}}
+    for name in REC_ARCHS:
+        t0 = time.perf_counter()
+        r = recurrent_family(dev, name, smi, res["launches"])
+        r["seconds"] = time.perf_counter() - t0
+        res[name] = r
+        res["attention"]["launches"] += r["attention"]["launches"]
+        for k, n in r["attention"]["variants"].items():
+            res["attention"]["variants"][k] += n
+    print(json.dumps({"recurrent_lm": res}, default=str), flush=True)
     return res
 
 

@@ -53,12 +53,15 @@ def adam_init_tree(params) -> AdamState:
 
 def loss_and_grads(params, cfg: ArchConfig, batch):
     """``(loss, grads)`` of :func:`lm.lm_loss` at ``params``, grads a tree
-    like ``params``; ``params`` is not changed."""
+    like ``params``; ``params`` is not changed.  A leaf the loss does not
+    use (a pure SSM layer's ``ln2``) gets a zero gradient, as under
+    ``jax.grad``."""
     pairs, treedef = tree_flatten_with_path(params)
     leaves = [p.detach().requires_grad_() for _, p in pairs]
     loss = lm.lm_loss(treedef.unflatten(leaves), cfg, batch)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), treedef.unflatten(list(grads))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), treedef.unflatten(grads)
 
 
 def apply_adam(grads, opt: AdamState, params, opt_cfg: AdamConfig):

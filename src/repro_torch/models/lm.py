@@ -1,29 +1,38 @@
-"""Dense decoder LM, serving and training: the dense family of
-``repro/models/lm.py``.
+"""Decoder LMs, serving and training: the dense, SSM (Mamba2 SSD) and
+hybrid (Hymba) families of ``repro/models/lm.py``.
 
 Parameters are a plain dictionary in the JAX package's layout: ``embed``
 (V, D), ``final_norm`` (D,), ``lm_head`` (D, V) unless embeddings are tied,
 and ``layers``, a dictionary of stacked (L, ...) tensors (``ln1``, ``ln2``,
 ``wq`` (D, H, Dh), ``wk``/``wv`` (D, Hkv, Dh), ``wo`` (H, Dh, D), optional
-``bq``/``bk``/``bv``, ``w_gate``/``w_up`` (D, F), ``w_down`` (F, D)).  The
-layer scan becomes a Python loop over ``l``.
+``bq``/``bk``/``bv``, ``w_gate``/``w_up`` (D, F), ``w_down`` (F, D); the
+Mamba2 block's ``ssm_in`` (D, 2 di + 2 N + nh), ``ssm_conv_w`` (K, di + 2
+N), ``ssm_norm`` (di,), ``ssm_out`` (di, D), and ``ssm_A``, ``ssm_D``,
+``ssm_dt_bias`` (nh,), which are f32 whatever the config's dtype).  A pure
+SSM layer has no attention and no MLP; a hybrid layer has both branches.
+The layer scan becomes a Python loop over ``l``.
 
 Serving attention (a KV cache) goes through
 :func:`repro_torch.kernels.ops.flash_attention`: the CUDA kernel on the
-card, its plain version on the CPU.  The KV cache is a dictionary of (L, B,
-max_seq, Hkv, Dh) tensors, written in place (the JAX functions return
-updated copies); attention reads it through strided views, with per-row key
-lengths ``pos + 1`` where slots sit at their own depths.
+card, its plain version on the CPU.  The hybrid's local layers attend in a
+sliding window of ``attn_window`` keys, its ``global_attn_layers`` without
+one.  The cache is a dictionary of stacked tensors written in place (the
+JAX functions return updated copies): ``k``/``v`` (L, B, max_seq, Hkv, Dh),
+read through strided views with per-row key lengths ``pos + 1`` where slots
+sit at their own depths; for the SSM and hybrid families ``conv`` (L, B,
+K - 1, di + 2 N), the last K - 1 inputs of the causal convolution, and
+``ssm`` (L, B, nh, P, N), the recurrent state, always f32.
 
 The training forward (:func:`lm_forward`, :func:`lm_loss`) has no cache and
 runs :func:`attention_train`, plain PyTorch that autograd differentiates,
-as the JAX package's training runs its jnp ``attention``.  The layer loop
-checkpoints per layer as the config's ``remat`` asks; the loss is chunked
-over the sequence with each chunk checkpointed.
+as the JAX package's training runs its jnp ``attention``; the SSD scan is
+plain PyTorch in both packages.  The layer loop checkpoints per layer as
+the config's ``remat`` asks; the loss is chunked over the sequence with
+each chunk checkpointed.
 
 Left out, because they are identities without a mesh: ``_constrain``,
 ``_reduce_barrier``, ``_gather_weights`` and the constraint-mesh setters.
-The MoE, SSM, hybrid, encoder-decoder and frontend families raise
+The MoE, encoder-decoder and frontend families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -50,17 +59,19 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise for the families this port does not serve yet."""
-    for cond, what in ((cfg.num_experts > 0, "MoE"), (cfg.hybrid, "hybrid"),
-                       (cfg.family == "ssm", "SSM"),
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for the families this port does not run yet."""
+    for cond, what in ((cfg.num_experts > 0, "MoE"),
                        (cfg.encoder_layers > 0, "encoder-decoder"),
                        (cfg.frontend != "none", "VLM / audio frontend")):
         if cond:
             raise NotImplementedError(
                 f"{cfg.name}: the {what} family is not ported yet (ROADMAP Queue 1 "
-                f"item 11b); the port runs the dense family only")
-    if cfg.family != "dense":
+                f"item 11b); the port runs the {', '.join(PORTED_FAMILIES)} families")
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP Queue 1 item 11b)")
 
@@ -69,26 +80,42 @@ def check_dense(cfg: ArchConfig) -> None:
 # parameters
 # ===========================================================================
 
+# f32 whatever the config's dtype (lm.py:90-95)
+_F32_LEAVES = ("ssm_A", "ssm_D", "ssm_dt_bias")
+
+
 def _layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of one layer's leaves (lm.py:47): attention and the SwiGLU
+    MLP unless the family is "ssm", the Mamba2 block for "ssm" and the
+    hybrid."""
     d, hd = cfg.d_model, cfg.hdim
     h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
-    shapes = {"ln1": (d,), "ln2": (d,), "wq": (d, h, hd), "wk": (d, hkv, hd),
-              "wv": (d, hkv, hd), "wo": (h, hd, d),
-              "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
-    if cfg.qkv_bias:
-        shapes.update(bq=(h, hd), bk=(hkv, hd), bv=(hkv, hd))
+    shapes = {"ln1": (d,), "ln2": (d,)}
+    if cfg.family != "ssm":
+        shapes.update(wq=(d, h, hd), wk=(d, hkv, hd), wv=(d, hkv, hd), wo=(h, hd, d),
+                      w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+        if cfg.qkv_bias:
+            shapes.update(bq=(h, hd), bk=(hkv, hd), bv=(hkv, hd))
+    if cfg.family == "ssm" or cfg.hybrid:
+        nh, p, n, k = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+        di = nh * p
+        shapes.update(ssm_in=(d, 2 * di + 2 * n + nh), ssm_conv_w=(k, di + 2 * n),
+                      ssm_A=(nh,), ssm_D=(nh,), ssm_dt_bias=(nh,), ssm_norm=(di,),
+                      ssm_out=(di, d))
     return shapes
 
 
 def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
             device: DeviceLike = None) -> Params:
     """Random parameters with the JAX package's shapes, scales and stacked
-    (L, ...) layout: N(0, 1/fan_in) matrices (fan_in = H*Dh for ``wo``),
-    N(0, 0.02^2) embeddings, ones for norms, zeros for biases, drawn in f32
-    from ``gen`` and cast to the config's dtype.  ``gen`` is a seeded
+    (L, ...) layout: N(0, 1/fan_in) matrices (fan_in = H*Dh for ``wo``, K
+    for ``ssm_conv_w``), N(0, 0.02^2) embeddings, ones for norms, zeros for
+    biases, drawn in f32 from ``gen`` and cast to the config's dtype; the
+    SSM's ``ssm_A`` = log(linspace(1, 16, nh)), ``ssm_D`` = 1 and
+    ``ssm_dt_bias`` = -4 in f32 (lm.py:90-95).  ``gen`` is a seeded
     ``torch.Generator`` (its device is used) or a seed, for a generator on
     ``device`` (the card unless ``device="cpu"``)."""
-    check_dense(cfg)
+    check_ported(cfg)
     if isinstance(gen, torch.Generator):
         dev = gen.device
         if device is not None and torch.device(device).type != dev.type:
@@ -110,8 +137,15 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
     layers = {}
     for name, shape in sorted(_layer_param_shapes(cfg).items()):
         full = (n_l,) + shape
-        if name.startswith("ln"):
+        if name.startswith("ln") or name == "ssm_norm":
             layers[name] = torch.ones(full, dtype=dt, device=dev)
+        elif name == "ssm_A":
+            a = torch.log(torch.linspace(1.0, 16.0, shape[0], dtype=torch.float32,
+                                         device=dev))
+            layers[name] = a.expand(full).clone()
+        elif name in _F32_LEAVES:
+            layers[name] = torch.full(full, -4.0 if name == "ssm_dt_bias" else 1.0,
+                                      dtype=torch.float32, device=dev)
         elif name.startswith("b"):
             layers[name] = torch.zeros(full, dtype=dt, device=dev)
         else:
@@ -139,17 +173,17 @@ def params_from_jax(tree, device: DeviceLike = None) -> Params:
 
 
 def param_count(cfg: ArchConfig) -> int:
-    """Analytic parameter count (dense family)."""
-    check_dense(cfg)
+    """Analytic parameter count (lm.py:879)."""
+    check_ported(cfg)
     per_layer = sum(math.prod(s) for s in _layer_param_shapes(cfg).values())
     n = per_layer * cfg.num_layers + cfg.d_model        # + final_norm
     return n + cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
 
 
 def active_param_count(cfg: ArchConfig) -> int:
-    """Parameters active per token: :func:`param_count` for the dense
-    family (lm.py:894).  Only routed experts would count for MoE, which is
-    not ported yet (ROADMAP Queue 1 item 11b)."""
+    """Parameters active per token: :func:`param_count` for the dense, SSM
+    and hybrid families (lm.py:894).  Only routed experts would count for
+    MoE, which is not ported yet (ROADMAP Queue 1 item 11b)."""
     if cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: the MoE family is not ported yet (ROADMAP Queue 1 item "
@@ -244,6 +278,158 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+# ===========================================================================
+# Mamba2 SSD (chunked; the inter-chunk state carried by a Python loop)
+# ===========================================================================
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """dA: (..., L) -> (..., L, L) lower-triangular segment sums, -inf above
+    the diagonal (lm.py:388).  The entries above are differences of finite
+    cumulative sums replaced by -inf, so ``exp`` of the result is 0 there
+    and its gradient too: no inf - inf, forward or backward."""
+    n = dA.shape[-1]
+    cs = torch.cumsum(dA, -1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((n, n), dtype=torch.bool, device=dA.device).tril()
+    return torch.where(mask, seg, -math.inf)
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, chunk: int = 256,
+             init_state: Optional[torch.Tensor] = None):
+    """Chunked SSD (lm.py:397).  xh: (B, S, H, P); dt: (B, S, H) f32, after
+    softplus; A_log: (H,); Bm/Cm: (B, S, N).  Returns (y (B, S, H, P) in
+    xh's dtype, final state (B, H, P, N) f32).
+
+    Chunks of ``c = min(chunk, S)`` tokens, ``S // c`` of them, as the
+    reference reshapes: S must be at most ``chunk`` or a multiple of it.
+    What does not depend on the carried state (the within-chunk decays, the
+    diagonal blocks, each chunk's own contribution to the state) is
+    computed for every chunk at once; the state goes from chunk to chunk in
+    a Python loop, the reference's ``lax.scan``, with the same update
+    ``state * exp(total) + s_new``.  Every product is a two-operand batched
+    matmul: the decays are folded into one operand first, so no
+    (B, c, N, H, P) intermediate is made."""
+    b, s, h, p = xh.shape
+    n = Bm.shape[-1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"ssd_scan: S = {s} must be at most the chunk ({chunk}) or a "
+                         f"multiple of it (the reference reshapes S into S // chunk "
+                         f"chunks)")
+    nc = s // c
+    a = -torch.exp(A_log.float())                                   # (H,) negative
+    dA = (dt * a).reshape(b, nc, c, h)
+    cum = torch.cumsum(dA, dim=2)                                   # (B, NC, c, H)
+    L = torch.exp(_segsum(dA.transpose(2, 3)))                      # (B, NC, H, c, c)
+    xw = (xh * dt[..., None]).float().reshape(b, nc, c, h, p)       # weighted by dt
+    bc = Bm.reshape(b, nc, c, n)
+    cc = Cm.reshape(b, nc, c, n)
+    # diagonal (intra-chunk): y[i] = sum_j<=i C_i.B_j L_ij x_j
+    cb = cc @ bc.transpose(-1, -2)                                  # (B, NC, c, c)
+    m = cb[:, :, None].float() * L                                  # (B, NC, H, c, c)
+    y = (m @ xw.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)      # (B, NC, c, H, P)
+    # each chunk's own state: sum_i B_i (x_i decayed to the chunk's end)
+    tot = cum[:, :, -1]                                             # (B, NC, H)
+    decay_out = torch.exp(tot[:, :, None] - cum)                    # (B, NC, c, H)
+    xd = (xw * decay_out[..., None]).reshape(b, nc, c, h * p)
+    s_new = (xd.transpose(-1, -2) @ bc.float()).reshape(b, nc, h, p, n)
+    # the carried state, chunk to chunk
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
+             if init_state is None else init_state)
+    decay_tot = torch.exp(tot)
+    before = []
+    for k in range(nc):
+        before.append(state)
+        state = state * decay_tot[:, k, :, None, None] + s_new[:, k]
+    before = torch.stack(before, 1)                                 # (B, NC, H, P, N)
+    # inter-chunk: the carried state seen through C, decayed into the chunk
+    y_off = cc.float() @ before.reshape(b, nc, h * p, n).transpose(-1, -2)
+    y = y + y_off.reshape(b, nc, c, h, p) * torch.exp(cum)[..., None]
+    return y.reshape(b, s, h, p).to(xh.dtype), state
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 conv_state: Optional[torch.Tensor] = None):
+    """Depthwise causal convolution (lm.py:442).  x: (B, S, C); w: (K, C).
+    Returns (y, new state (B, K-1, C)).  The reference's sum of K shifted
+    products, starting from 0 and in x's dtype, in its order."""
+    k = w.shape[0]
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    return y, xp[:, -(k - 1):, :]
+
+
+def ssm_block(lp: Params, x: torch.Tensor, cfg: ArchConfig,
+              conv_state: Optional[torch.Tensor] = None,
+              ssm_state: Optional[torch.Tensor] = None, chunk: int = 256,
+              pad_mask: Optional[torch.Tensor] = None):
+    """Mamba2 block (lm.py:455).  x: (B, S, D).  Returns (y, (conv state,
+    ssm state)).
+
+    ``pad_mask`` (B, S) bool, True at real tokens: pads contribute nothing
+    to the recurrent state (the conv input and ``dt`` are zeroed there) and
+    the conv window returned ends at each row's last real token, so every
+    row's state equals a solo prefill of its prompt.  One token with a
+    state is the decode step, a direct state update; otherwise
+    :func:`ssd_scan`.  ``dt``'s softplus, the state and ``y`` are f32 until
+    ``y`` is cast to x's dtype before the gated norm, as in the reference."""
+    nh, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    di = nh * p
+    bsz, s, d = x.shape
+    zxbcdt = (x.reshape(bsz * s, d) @ lp["ssm_in"]).reshape(bsz, s, -1)
+    z, xin, bm, cm, dt = torch.split(zxbcdt, [di, di, n, n, nh], dim=-1)
+    xbc = torch.cat([xin, bm, cm], -1)
+    if pad_mask is not None:
+        xbc = torch.where(pad_mask[..., None], xbc, torch.zeros((), dtype=xbc.dtype,
+                                                                  device=xbc.device))
+    xbc_in = xbc
+    xbc, new_conv = _causal_conv(xbc, lp["ssm_conv_w"], conv_state)
+    if pad_mask is not None:
+        # the window that ends at each row's last real token: columns
+        # [len, len + K - 1) of the input extended on the left by the state
+        kk = lp["ssm_conv_w"].shape[0]
+        lens = pad_mask.sum(1)
+        prefix = (torch.zeros_like(xbc_in[:, :kk - 1]) if conv_state is None
+                  else conv_state.to(xbc_in.dtype))
+        xp = torch.cat([prefix, xbc_in], 1)
+        cols = lens[:, None] + torch.arange(kk - 1, device=x.device)[None]
+        new_conv = torch.gather(xp, 1, cols[:, :, None].expand(-1, -1, xp.shape[2]))
+    xbc = F.silu(xbc)
+    xin, bm, cm = torch.split(xbc, [di, n, n], dim=-1)
+    dt = softplus(dt.float() + lp["ssm_dt_bias"])
+    if pad_mask is not None:
+        # dt = 0 freezes the state through pads: exp(0 * a) = 1, x * dt = 0
+        dt = torch.where(pad_mask[..., None], dt, torch.zeros((), device=dt.device))
+    xh = xin.reshape(bsz, s, nh, p)
+    if s == 1 and ssm_state is not None:
+        a = -torch.exp(lp["ssm_A"].float())
+        dA = torch.exp(dt[:, 0] * a)                                  # (B, H)
+        xw = (xh[:, 0] * dt[:, 0, :, None]).float()                   # (B, H, P)
+        upd = xw[..., None] * bm[:, 0].float()[:, None, None, :]
+        state = ssm_state * dA[:, :, None, None] + upd
+        y = (state @ cm[:, 0].float()[:, None, :, None])[..., 0]      # (B, H, P)
+        y = y[:, None]
+        final_state = state
+    else:
+        y, final_state = ssd_scan(xh, dt, lp["ssm_A"], bm, cm, chunk,
+                                  init_state=ssm_state)
+    y = y + xh.float() * lp["ssm_D"][None, None, :, None]
+    y = y.reshape(bsz, s, di).to(x.dtype)
+    y = rmsnorm(lp["ssm_norm"], y * F.silu(z), cfg.norm_eps)
+    out = (y.reshape(bsz * s, di) @ lp["ssm_out"]).reshape(bsz, s, -1)
+    return out, (new_conv, final_state)
+
+
 # ===========================================================================
 # transformer layers
 # ===========================================================================
@@ -271,18 +457,33 @@ def _as_positions(pos, b: int, s: int, device) -> torch.Tensor:
     return start[:, None] + torch.arange(s, dtype=torch.int32, device=device)[None]
 
 
+def _global_flags(cfg: ArchConfig) -> Tuple[bool, ...]:
+    """Per layer: does it attend globally (lm.py:674)?"""
+    return tuple(i in cfg.global_attn_layers for i in range(cfg.num_layers))
+
+
+def _window(cfg: ArchConfig, is_global: bool) -> Optional[int]:
+    """The attention window of a layer (lm.py:582, 290): none on a hybrid's
+    global layers (the reference's ``window_dyn`` of 2**30), else
+    ``attn_window`` (0: none)."""
+    if cfg.hybrid and cfg.attn_window and is_global:
+        return None
+    return cfg.attn_window or None
+
+
 def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
                causal: bool = True, kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]]
-               = None, cache_pos=None):
+               = None, cache_pos=None, is_global: bool = False):
     """Self-attention sublayer.  Returns (y, (k, v)): the fresh k, v without a
     cache, else the cache tensors (B, max_seq, Hkv, Dh), written in place at
     ``cache_pos`` (a scalar, or (B,) per-slot positions).  Without a cache
     this is the training forward and attends through :func:`attention_train`;
-    with one, through the serving kernel (:func:`attention`)."""
+    with one, through the serving kernel (:func:`attention`).  The window is
+    :func:`_window`'s for ``is_global``."""
     q, k, v = _project_qkv(lp, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    window = cfg.attn_window or None
+    window = _window(cfg, is_global)
     if kv_cache is not None:
         ck, cv = kv_cache
         b, s = x.shape[:2]
@@ -320,20 +521,39 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
 
 
 def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
-                  cache: Optional[Cache] = None, cache_pos=None):
-    """One dense decoder layer.  Returns (x, cache): ``cache`` is the layer's
-    {"k", "v"} written in place (or {} without a cache).  The reference's
-    third result, the MoE auxiliary loss, is 0 for the dense family."""
-    check_dense(cfg)
+                  is_global: bool = False, cache: Optional[Cache] = None, cache_pos=None,
+                  pad_mask: Optional[torch.Tensor] = None):
+    """One decoder layer (lm.py:568).  Returns (x, cache): ``cache`` is the
+    layer's slice of the cache ({"k", "v"}, {"conv", "ssm"} or all four),
+    written in place (or {} without a cache).  An SSM layer is ``x +
+    ssm(ln1(x))``; a hybrid layer ``x + 0.5 * (attn + ssm)`` of the same
+    ``ln1(x)``; every family but the pure SSM then adds the SwiGLU MLP of
+    ``ln2(x)``.
+    ``pad_mask`` (B, S) marks the real tokens of a right-padded prefill for
+    the SSM's state.  The reference's third result, the MoE auxiliary loss,
+    is 0 for these families."""
+    check_ported(cfg)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    y, kv = attn_block(lp, h, cfg, positions,
-                       kv_cache=None if cache is None else (cache["k"], cache["v"]),
-                       cache_pos=cache_pos)
-    new_cache = {} if cache is None else {"k": kv[0], "v": kv[1]}
-    x = x + y
+    new_cache: Cache = {}
+    if cfg.family != "ssm":
+        y_attn, kv = attn_block(lp, h, cfg, positions, is_global=is_global,
+                                kv_cache=None if cache is None else (cache["k"], cache["v"]),
+                                cache_pos=cache_pos)
+        if cache is not None:
+            new_cache.update(k=kv[0], v=kv[1])
+    if cfg.family == "ssm" or cfg.hybrid:
+        y_ssm, (conv_s, ssm_s) = ssm_block(
+            lp, h, cfg, conv_state=None if cache is None else cache["conv"],
+            ssm_state=None if cache is None else cache["ssm"], pad_mask=pad_mask)
+        if cache is not None:
+            cache["conv"].copy_(conv_s)
+            cache["ssm"].copy_(ssm_s)
+            new_cache.update(conv=cache["conv"], ssm=cache["ssm"])
+    if cfg.family == "ssm":
+        return x + y_ssm, new_cache
+    x = x + (0.5 * (y_attn + y_ssm) if cfg.hybrid else y_attn)
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
-    return x, new_cache
+    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), new_cache
 
 
 # ===========================================================================
@@ -370,10 +590,12 @@ def _remat(f, cfg: ArchConfig):
 def run_decoder_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop of the training forward (lm.py:695), each layer under
-    the config's remat; returns (x, total aux), the aux a 0-d f32 zero for
-    the dense family."""
+    the config's remat, the hybrid's global layers flagged; returns (x,
+    total aux), the aux a 0-d f32 zero for the ported families."""
+    flags = _global_flags(cfg)
+
     def body(h, i):
-        return decoder_layer(_layer(params, i), h, cfg, positions)[0]
+        return decoder_layer(_layer(params, i), h, cfg, positions, is_global=flags[i])[0]
 
     body = _remat(body, cfg)
     for i in range(cfg.num_layers):
@@ -385,7 +607,7 @@ def lm_forward(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
                                                                   torch.Tensor]:
     """Full causal forward (lm.py:712) -> (final-normed hidden (B, S, D),
     aux)."""
-    check_dense(cfg)
+    check_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     x, aux = run_decoder_stack(params, cfg, x, positions)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -421,7 +643,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch,
 
 
 # ===========================================================================
-# serving (KV cache decode)
+# serving (KV and SSM cache decode)
 # ===========================================================================
 
 def _embed_inputs(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
@@ -442,20 +664,41 @@ def _layer(params: Params, i: int) -> Params:
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                device: DeviceLike = None) -> Cache:
-    """Stacked (L, B, max_seq, Hkv, Dh) zero caches for k and v."""
-    check_dense(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hdim)
+    """Stacked zero caches with a leading L axis (lm.py:775): ``k``, ``v``
+    (L, B, max_seq, Hkv, Dh) unless the family is "ssm"; for the SSM and
+    the hybrid ``conv`` (L, B, K - 1, di + 2 N) in ``dtype`` and ``ssm``
+    (L, B, nh, P, N) in f32 whatever ``dtype`` is."""
+    check_ported(cfg)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    l = cfg.num_layers
+    cache: Cache = {}
+    if cfg.family != "ssm":
+        shape = (l, batch, max_seq, cfg.num_kv_heads, cfg.hdim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.family == "ssm" or cfg.hybrid:
+        nh, p, n, k = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+        cache["conv"] = torch.zeros((l, batch, k - 1, nh * p + 2 * n), dtype=dtype,
+                                    device=dev)
+        cache["ssm"] = torch.zeros((l, batch, nh, p, n), dtype=torch.float32, device=dev)
+    return cache
 
 
 def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-                cache: Cache, cache_pos) -> torch.Tensor:
+                cache: Cache, cache_pos, pad_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """The layer loop of prefill and decode, each layer's cache slice
+    written in place.  The reference returns the conv window in the
+    activations' dtype whatever the cache's (lm.py:452, 594), so the conv
+    cache takes x's dtype here first: exact for a bf16 model's f32 cache,
+    and an f32 model's window is not rounded by a bf16 cache."""
+    if "conv" in cache and cache["conv"].dtype != x.dtype:
+        cache["conv"] = cache["conv"].to(x.dtype)
+    flags = _global_flags(cfg)
     for i in range(cfg.num_layers):
-        x, _ = decoder_layer(_layer(params, i), x, cfg, positions,
-                                cache={"k": cache["k"][i], "v": cache["v"][i]},
-                                cache_pos=cache_pos)
+        x, _ = decoder_layer(_layer(params, i), x, cfg, positions, is_global=flags[i],
+                             cache={k: v[i] for k, v in cache.items()},
+                             cache_pos=cache_pos, pad_mask=pad_mask)
     return x
 
 
@@ -470,18 +713,21 @@ def lm_prefill(params: Params, cfg: ArchConfig, batch, max_seq: int,
     """Run the prompt, return (last-token logits (B, V) f32, cache).
 
     ``prompt_lens`` (B,) serves a RIGHT-padded mixed-length batch: logits
-    come from each row's own last real token, pad embeddings are zeroed, and
-    causal masking keeps real queries off the trailing pads (lm.py:794)."""
-    check_dense(cfg)
+    come from each row's own last real token, pad embeddings are zeroed,
+    causal masking keeps real queries off the trailing pads, and the SSM
+    state is pad-masked, so every row's cache equals a solo prefill of its
+    prompt (lm.py:794)."""
+    check_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
+    pad_mask = None
     if prompt_lens is not None:
         prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int64, device=x.device)
         pad_mask = torch.arange(s, device=x.device)[None] < prompt_lens[:, None]
         x = torch.where(pad_mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
     cache = init_cache(cfg, b, max_seq, cache_dtype, device=x.device)
-    x = _run_layers(params, cfg, x, positions, cache, 0)
+    x = _run_layers(params, cfg, x, positions, cache, 0, pad_mask)
     if prompt_lens is None:
         x = x[:, -1:]
     else:                       # each row's own last real token
@@ -494,7 +740,7 @@ def serve_step(params: Params, cfg: ArchConfig, cache: Cache, tokens: torch.Tens
     """One decode step.  tokens: (B,) int; pos: a scalar (uniform depth) or a
     (B,) tensor of per-slot depths.  Writes the cache in place; returns
     (logits (B, V) f32, cache)."""
-    check_dense(cfg)
+    check_ported(cfg)
     x = params["embed"][tokens.long()][:, None]
     positions = _as_positions(pos, x.shape[0], 1, x.device)
     if not _is_scalar(pos):
