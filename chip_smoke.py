@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs nine paths at full
+tolerance, asserting which variant ran, then runs ten paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -92,8 +92,8 @@ model width:
   gradient, the updated parameters); ``internlm2-1.8b`` at full width and
   depth (bf16, remat "full", batch 2 x 4,096): every gradient finite and
   the attention weights' nonzero with no kernel-5 launch under autograd,
-  ``lm_forward`` against ``lm_prefill`` (kernel 5) on 1,024 tokens, 10
-  timed and 3 profiled steps of ``train_step``, 3 steps of the
+  ``lm_forward`` against ``lm_prefill`` (kernel 5) on 1,024 tokens, 5
+  timed and 1 profiled step of ``train_step``, 3 steps of the
   compressed-gradient example (``examples/lm_pretrain_torch.py``: kernels
   4 and 1 on every gradient leaf, error feedback checked leaf by leaf) and
   a fixed-rate 14-bit checkpoint of the trained parameters restored bit
@@ -110,7 +110,22 @@ model width:
   none); training at 2 x 4,096 (5 and 3 steps), mamba2's compressed-
   gradient example (kernels 4 and 1 once a leaf a step) and an FR-14
   checkpoint; one loss and its gradients with 2 layers in f32 against the
-  CPU.
+  CPU;
+* the MoE LM family: ``qwen3-moe-30b-a3b`` at full width and depth (bf16,
+  random weights, 30.5 B parameters) serves 16 requests with continuous
+  batching and in lockstep at its capacity factor (8 slots, prompts of
+  128 and 1,024 tokens; every prefill launch the wgmma prefill, every
+  decode launch the split-KV decode); two requests alone against the
+  batch with lossless dispatch (tokens up to a tie); a decode step
+  profiled beside the bound of reading every expert; a 1,024-token
+  prefill timed; ``lm_forward`` against ``lm_prefill``; on the card a tied
+  router picking experts 0..k-1 and dropping the tokens past capacity,
+  and a prefill group off the reference's ``moe_group`` rule raising its
+  ``ValueError``; training at full width with 2 layers (2 x 4,096); one
+  loss and its gradients with 1 layer in f32 against the CPU;
+  ``arctic-480b`` at full width with 2 layers (its dense residual MLP and
+  56/8 GQA) against its prefill and serving 4 requests; kernel 5 against
+  its plain version and timed at both models' groups (8 and 7).
 
 It prints the card's name and power limit, per run the median step time,
 the summed fetch wait and the store's ``IoStats``, the ensemble's and the
@@ -133,8 +148,10 @@ cache) and the bound, the LM training phase's readings (one
 ``lm_training`` JSON line: losses, step median, tokens/s, peak memory,
 the profile, the compressed step, the checkpoint), one ``recurrent_lm``
 JSON line (per family the serving modes, the solo checks, the decode
-profile, training, the CPU check; kernel 5 at hymba's shapes), one
-``kernels`` JSON line (launches on the paths, agreement, times,
+profile, training, the CPU check; kernel 5 at hymba's shapes), one ``moe_lm`` JSON line
+(the serving modes, the decode profile and its bounds, the solo and
+tied-router checks, training, the CPU check, arctic's readings, kernel 5
+at both groups), one ``kernels`` JSON line (launches on the paths, agreement, times,
 bounds and the library yardstick; kernel 5 also per variant), and as its
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -149,7 +166,9 @@ these (before and after a change, in one run on one card).
 from __future__ import annotations
 
 import functools
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -267,7 +286,12 @@ TRACE_STEPS = 10
 # gradient near zero whose sign rounding flips moves it by 2 lr).  The
 # training forward against lm_prefill (kernel 5) on LM_FWD_PROMPT tokens:
 # last-token logits to LOGIT_ATOL (bf16 through 24 layers, as the replay)
-LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_PROFILE = 2, 4096, 10, 3
+# (LM_TRAIN_STEPS cut from 10 to 5 and LM_TRAIN_PROFILE from 3 to 1, and the
+# serving phase's profiled decode steps LM_PROFILE_STEPS from 10 to 3, so
+# that the script with the MoE phase stays within its time limit: the
+# profiler's parse of a window grows with its operator calls)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_PROFILE = 2, 4096, 5, 1
+LM_PROFILE_STEPS = 3
 LM_TRAIN_LR = 3e-4
 LM_COMP_STEPS, LM_GRAD_BITS, LM_LOSSY_BITS = 3, 12, 14
 LM_CPU_LAYERS, LM_CPU_SEQ = 2, 64
@@ -299,9 +323,52 @@ REC_PROMPTS = {"mamba2-130m": (256, 512, 1024), "hymba-1.5b": (512, 1024, 2048)}
 REC_MAX_SEQ = {"mamba2-130m": 1088, "hymba-1.5b": 2112}
 REC_FWD_PROMPT = {"mamba2-130m": 1024, "hymba-1.5b": 2048}
 REC_TRAIN = {"mamba2-130m": (2, 4096, 5), "hymba-1.5b": (2, 4096, 3)}
-REC_COMP_STEPS, REC_SOLO, REC_PROFILE_STEPS = 3, 2, 10
+# (REC_SOLO cut from 2 requests to 1 and REC_PROFILE_STEPS from 10 to 3,
+# after the dense phase's cuts, so that the script with the MoE phase stays
+# within its time limit)
+REC_COMP_STEPS, REC_SOLO, REC_PROFILE_STEPS = 3, 1, 3
 SOLO_F32_ATOL = 1e-3
 HYBRID_KV_LENS = (1, 513, 1023, 1024, 1025, 1500, 2048, 2112)
+# MoE LM path (Queue 1 item 11b, family 3): qwen3-moe-30b-a3b at full width
+# and depth (configs/registry.py:61-68; 30,532,110,336 parameters, 61.06 GB
+# in bf16), random weights from a seeded generator.  It serves LM_REQUESTS
+# requests of the seeded workload (prompts MOE_PROMPTS, so that every
+# prefill group of run and run_lockstep holds at most moe_group tokens or a
+# multiple of it, as the reference's reshape demands; generations LM_NEW)
+# in LM_SLOTS slots, max_seq LM_MAX_SEQ, at the config's capacity factor,
+# with run and run_lockstep.  MOE_SOLO requests of MOE_SOLO_NEW tokens alone
+# against the batch with lossless dispatch (capacity_factor E / k): tokens
+# equal up to a bf16 tie, as the recurrent phase holds them.
+# MOE_PROFILE_STEPS decode steps profiled (reduced from 10: a step makes
+# about 27,000 operator calls, and the profiler's parse of them dominated
+# the phase) beside the bound of reading the step's weights (every expert:
+# the dense dispatch multiplies all E experts x cap rows); one prefill of
+# MOE_PROMPTS[-1] tokens timed; lm_forward against lm_prefill.  Training at
+# full width with MOE_TRAIN_LAYERS layers (reduced from 48: Adam's step
+# holds about 30 bytes a parameter at its peak, the bf16 parameters, bf16
+# and f32 gradients, the clip's f32 copies, the old and the new f32
+# moments, so 4 layers' 3.11e9 parameters would need 93 GB), MOE_TRAIN
+# (batch, length: train_4k's global batch 256 -> 2, and 1 where the peak
+# passes MOE_PEAK_LIMIT), a warm-up and MOE_TRAIN_STEPS timed steps; card
+# against CPU with 1 layer in f32 on 1 x LM_CPU_SEQ tokens: the loss to
+# LM_CPU_LOSS_RTOL, every gradient to MOE_CPU_GRAD_ULPS bf16 ulps of its
+# tensor's largest magnitude (the dispatch rounds tokens and cotangents to
+# bf16, so f32 noise moves a value at a rounding midpoint by one bf16 ulp;
+# tests/test_torch_lm_moe.py shows the JAX package differing from itself
+# so).  arctic-480b at full width with ARCTIC_LAYERS layers (reduced from
+# 35; 27,780,221,952 parameters, 55.56 GB): lm_forward against lm_prefill,
+# ARCTIC_REQUESTS requests through run.  Kernel 5 against its plain version
+# and timed at both models' groups (8 and 7, D 128).  The tied-router check
+# holds MOE_TIED_ULPS bf16 ulps of the output's largest magnitude against
+# the experts applied one by one.
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b")
+MOE_PARAMS = 30_532_110_336
+MOE_PROMPTS = (128, 1024)
+MOE_SOLO, MOE_SOLO_NEW, MOE_PROFILE_STEPS = 2, 16, 3
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 2, 1_868_572_672
+MOE_TRAIN, MOE_TRAIN_STEPS, MOE_PEAK_LIMIT = (2, 4096), 3, 75e9
+MOE_CPU_GRAD_ULPS, MOE_TIED_ULPS = 1, 4
+ARCTIC_LAYERS, ARCTIC_PARAMS, ARCTIC_REQUESTS = 2, 27_780_221_952, 4
 
 
 class CheckFailed(RuntimeError):
@@ -515,8 +582,10 @@ def print_profile(prof, wall_ms: float, per: int, unit: str):
     from a torch.profiler run over ``per`` units of work; returns the
     kernels per unit (None where the profiler recorded no device time)."""
     from torch.autograd import DeviceType
+    # one aggregation (each call of key_averages parses the whole trace);
     # kernels only: operator rows repeat their kernels' device time
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
         print(f"profile: {wall_ms:.3f} ms/{unit} wall; the profiler recorded no "
@@ -530,7 +599,7 @@ def print_profile(prof, wall_ms: float, per: int, unit: str):
         ms = e.self_device_time_total / 1e3 / per
         print(f"  {ms:8.4f} ms/{unit} {e.count / per:6.0f}x  {100 * ms / busy_ms:5.1f}%  "
               f"{e.key[:90]}")
-    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host = [e for e in averages if e.device_type == DeviceType.CPU]
     print(f"  host: {sum(e.count for e in host) / per:.0f} operator calls/{unit}; most "
           f"self CPU time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
@@ -665,7 +734,7 @@ def decode_indices_kernels(store, idx: torch.Tensor):
     return events or None
 
 
-def profile_serving(engine, lm, cache, cur, pos, steps: int = 10) -> None:
+def profile_serving(engine, lm, cache, cur, pos, steps: int = LM_PROFILE_STEPS) -> None:
     """Trace ``steps`` full-width decode steps of the engine (8 slots at the
     depths ``pos``), each with its argmax read back, and one prefill of the
     longest prompt; print where the device time goes."""
@@ -936,6 +1005,25 @@ def main(argv) -> int:
         for mode, r in rec["hymba-1.5b"]["serve"].items()}
     attn["hybrid"] = hybrid["timings"]
 
+    # -- 15. MoE LM path: qwen3-moe-30b-a3b at full width, arctic-480b's
+    # dense residual at 2 layers
+    torch.cuda.empty_cache()
+    print(f"MoE LM phase starts {time.perf_counter() - t_start:.1f} s since start",
+          flush=True)
+    t0 = time.perf_counter()
+    moe = moe_lm_path(dev, smi)
+    print(f"MoE LM phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    attn["launches"] += moe["attention"]["launches"]
+    attn["max_abs_err"] = max(attn["max_abs_err"], moe["attention"]["max_abs_err"])
+    for name, n in moe["attention"]["variants"].items():
+        attn["variants"][name]["launches"] += n
+    attn["launches_by_run"][MOE_ARCHS[0]] = {
+        mode: {k: r[k] for k in ("prefill_launches", "decode_launches")}
+        for mode, r in moe["serve"].items()}
+    attn["launches_by_run"][MOE_ARCHS[1]] = {
+        "run": {k: moe["arctic_serve"][k] for k in ("prefill_launches", "decode_launches")}}
+    attn["moe"] = moe["attention"]["timings"]
+
     def launches(name):
         return (resident_launches[name] + cert["launches"][name] + ckpt_res["launches"][name]
                 + datagen["launches"][name] + host_launches[name]
@@ -966,6 +1054,8 @@ def main(argv) -> int:
           f"{lm_train['compressed']['median_s']:.4f} s; "
           + "; ".join(f"{n} decode {rec[n]['serve']['run']['decode_tok_s']:.1f} tok/s, train "
                       f"step {rec[n]['train']['median_s']:.4f} s" for n in REC_ARCHS)
+          + f"; {MOE_ARCHS[0]} decode {moe['serve']['run']['decode_tok_s']:.1f} tok/s, train "
+          f"step ({MOE_TRAIN_LAYERS} layers) {moe['train']['median_s']:.4f} s"
           + f"; surrogate serving {serving['qps']:.1f} queries/s "
           f"closed loop, fleet step {serving['fleet_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
           f"{attn['timings']['decode']['ms']:.4f} ms; RT_SPEC member on the card "
@@ -1723,9 +1813,11 @@ def _replay(lm, params, cfg, reqs, dev, max_seq: int = LM_MAX_SEQ):
     return out
 
 
-def serve_modes(engine, cfg, prompt_lens, new_tokens) -> dict:
-    """Serve LM_REQUESTS requests of the seeded workload with continuous
-    batching (``run``) and in lockstep, each with kernel 5's counts set to 0
+def serve_modes(engine, cfg, prompt_lens, new_tokens, n_requests: int = LM_REQUESTS,
+                modes=("run", "run_lockstep")) -> dict:
+    """Serve ``n_requests`` requests of the seeded workload with continuous
+    batching (``run``) and in lockstep (or the given ``modes``), each with
+    kernel 5's counts set to 0
     just before it; print each mode's rates, latencies and kernel-5
     launches.  Requires every request back with its tokens in the vocab and
     every launch of kernel 5 in a prefill or a decode step.  Returns {mode:
@@ -1758,14 +1850,14 @@ def serve_modes(engine, cfg, prompt_lens, new_tokens) -> dict:
     engine._decode_step = counted("decode", decode)
     runs = {}
     try:
-        for mode in ("run", "run_lockstep"):
+        for mode in modes:
             engine.stats = {k: type(v)() for k, v in engine.stats.items()}
             counts.update(prefill=0, decode=0)
             for phase in variants:
                 variants[phase] = dict.fromkeys(fa.VARIANTS, 0)
             depths.clear()
             fa.reset_launches()
-            reqs = lm_workload(cfg.vocab_size, LM_REQUESTS, prompt_lens=prompt_lens,
+            reqs = lm_workload(cfg.vocab_size, n_requests, prompt_lens=prompt_lens,
                                new_tokens=new_tokens, seed=0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1787,7 +1879,7 @@ def serve_modes(engine, cfg, prompt_lens, new_tokens) -> dict:
                   flush=True)
             require(fa.LAUNCHES["flash_attention"] == counts["prefill"] + counts["decode"],
                     f"every flash_attention launch of {mode} is in prefill or decode")
-            require(len(done) == LM_REQUESTS and all(
+            require(len(done) == n_requests and all(
                 r.output is not None and len(r.output) == r.max_new_tokens
                 and 0 <= r.output.min() and r.output.max() < cfg.vocab_size for r in done),
                 f"{mode}: every request returned with max_new_tokens tokens in the vocab")
@@ -1802,7 +1894,10 @@ def serve_modes(engine, cfg, prompt_lens, new_tokens) -> dict:
                            "stats": stats},
                           list(depths))
     finally:
-        engine._prefill, engine._decode_step = prefill, decode
+        # back to the class's methods: bound methods kept on the instance
+        # would make a cycle that holds the engine's parameters until the
+        # next garbage collection
+        del engine._prefill, engine._decode_step
     return runs
 
 
@@ -1946,8 +2041,8 @@ def run_launcher(steps: int, ckpt_dir: str) -> str:
 
 def profile_lm_steps(step, steps: int) -> dict:
     """Trace ``steps`` calls of ``step`` with torch.profiler: wall ms a step
-    (profiler on), device busy ms and share, kernels a step and the five
-    kernels that take most device time."""
+    (profiler on), device busy ms and share, kernels and host operator
+    calls a step and the five kernels that take most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1957,12 +2052,13 @@ def profile_lm_steps(step, steps: int) -> dict:
             step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()      # one aggregation: each call parses the trace
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
         print("LM training profile: the profiler recorded no device time")
         return {"wall_ms": wall_ms, "busy_ms": None, "busy_share": None,
-                "kernels": None, "top": [], "by_kind_ms": None}
+                "kernels": None, "operator_calls": None, "top": [], "by_kind_ms": None}
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     top = [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3 / steps,
             "count": e.count / steps}
@@ -1976,8 +2072,10 @@ def profile_lm_steps(step, steps: int) -> dict:
         kind = ("other" if not ("gemm" in name or "nvjet" in name) else
                 "gemm_f32" if ("sgemm" in name or "f32f32" in name) else "gemm_other")
         kinds[kind] += e.self_device_time_total / 1e3 / steps
+    host = [e for e in averages if e.device_type == DeviceType.CPU]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-            "kernels": sum(e.count for e in events) / steps, "top": top,
+            "kernels": sum(e.count for e in events) / steps,
+            "operator_calls": sum(e.count for e in host) / steps, "top": top,
             "by_kind_ms": kinds}
 
 
@@ -2289,58 +2387,58 @@ def window_keys(q_pos: np.ndarray, window) -> int:
     return int(np.minimum(q_pos + 1, window or np.iinfo(np.int64).max).sum())
 
 
-def hybrid_attention_checks(dev, cfg) -> float:
-    """Kernel 5 against its plain version at the hybrid's shapes: 25 q heads
-    over 5 KV heads (group 5), D 64, bf16; a prefill of the longest prompt
-    and one of the shortest, with the window and without; decode, bf16 q
-    against the f32 cache, with HYBRID_KV_LENS crossing the window (one row
-    each), with and without it.  Returns the largest
-    error."""
-    g = torch.Generator(device=dev).manual_seed(3)
-    h, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.hdim, cfg.attn_window
+def group_attention_checks(dev, cfg, prefills, kv_lens, max_seq: int, windows, seed: int,
+                           what: str) -> float:
+    """Kernel 5 against its plain version at a model's shapes (its q heads
+    over its KV heads, its head dim; bf16): prefills of the given (batch,
+    length) and decode, bf16 q against the f32 cache of ``max_seq``
+    positions, one row per ``kv_lens`` entry, each with every window of
+    ``windows``.  Returns the largest error."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
     bf = torch.bfloat16
 
     def rn(shape, dt=bf):
         return torch.randn(shape, generator=g, device=dev).to(dt)
 
     worst = 0.0
-    for b, s in ((1, REC_PROMPTS[cfg.name][-1]), (2, REC_PROMPTS[cfg.name][0])):
+    for b, s in prefills:
         q, k, v = rn((b, h, s, d)), rn((b, hkv, s, d)), rn((b, hkv, s, d))
-        for window in (w, None):
+        for window in windows:
             worst = max(worst, check_attention(
-                f"hybrid prefill {b}x{h}x{s}x{d} over {hkv} KV heads, window {window}",
+                f"{what} prefill {b}x{h}x{s}x{d} over {hkv} KV heads, window {window}",
                 q, k, v, "prefill_wgmma", window=window))
-    n, ms = len(HYBRID_KV_LENS), REC_MAX_SEQ[cfg.name]
-    ck, cv = rn((n, ms, hkv, d), torch.float32), rn((n, ms, hkv, d), torch.float32)
-    lens = torch.tensor(HYBRID_KV_LENS, dtype=torch.int32, device=dev)
+    n = len(kv_lens)
+    ck, cv = rn((n, max_seq, hkv, d), torch.float32), rn((n, max_seq, hkv, d), torch.float32)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     q = rn((n, h, 1, d))
-    for window in (w, None):
+    for window in windows:
         worst = max(worst, check_attention(
-            f"hybrid decode bf16 q ({n},{h},1,{d}) against the f32 cache, window "
-            f"{window}, kv_lens {list(HYBRID_KV_LENS)}", q, ck.transpose(1, 2),
+            f"{what} decode bf16 q ({n},{h},1,{d}) against the f32 cache, window "
+            f"{window}, kv_lens {list(kv_lens)}", q, ck.transpose(1, 2),
             cv.transpose(1, 2), "decode_splitkv", kv_lens=lens, window=window))
     return worst
 
 
-def hybrid_attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
-    """Kernel 5's times at the hybrid's serving shapes with its window: the
-    prefill of the longest prompt and the decode step at the given depths;
-    beside the plain version, each SDPA backend (the window as a mask) and
-    the bound, which counts only the keys inside the window."""
+def group_attention_timings(dev, cfg, s: int, max_seq: int, lens_np: np.ndarray, smi: str,
+                            window, seed: int, what: str) -> dict:
+    """Kernel 5's times at a model's serving shapes: the prefill of ``s``
+    tokens and the decode step of LM_SLOTS slots at the given depths (the
+    f32 cache of ``max_seq`` positions), with ``window`` (None: causal
+    only); beside the plain version, each SDPA backend (a window as a mask)
+    and the bound, which counts only the keys each query attends."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    g = torch.Generator(device=dev).manual_seed(4)
-    h, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.hdim, cfg.attn_window
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.hdim, window
     bf = torch.bfloat16
-    s, ms = REC_PROMPTS[cfg.name][-1], REC_MAX_SEQ[cfg.name]
     out = {}
     q = torch.randn((1, h, s, d), generator=g, device=dev).to(bf)
     k = torch.randn((1, hkv, s, d), generator=g, device=dev).to(bf)
     v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(bf)
     pos = torch.arange(s, device=dev)
-    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
-    t = {"variant": fa.select_variant(q, k, v, None, w), "window": w,
-         "shape": [1, h, s, d]}
+    mask = None if w is None else (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
+    t = {"variant": fa.select_variant(q, k, v, None, w), "window": w, "shape": [1, h, s, d]}
     t["ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, window=w), 50)
     t["eager_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, window=w), reps=50)
     t["plain_ms"] = graph_ms(lambda: ref.flash_attention_ref(q, k, v, window=w), 5)
@@ -2351,11 +2449,14 @@ def hybrid_attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
     out["prefill"] = t
     lens = torch.from_numpy(lens_np).to(dev)
     q = torch.randn((LM_SLOTS, h, 1, d), generator=g, device=dev).to(bf)
-    ck = torch.randn((LM_SLOTS, ms, hkv, d), generator=g, device=dev)
-    cv = torch.randn((LM_SLOTS, ms, hkv, d), generator=g, device=dev)
+    ck = torch.randn((LM_SLOTS, max_seq, hkv, d), generator=g, device=dev)
+    cv = torch.randn((LM_SLOTS, max_seq, hkv, d), generator=g, device=dev)
     kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-    kpos = torch.arange(ms, device=dev)[None]
-    dmask = ((kpos < lens[:, None]) & (kpos >= lens[:, None] - w))[:, None, None]
+    kpos = torch.arange(max_seq, device=dev)[None]
+    dmask = kpos < lens[:, None]
+    if w is not None:
+        dmask = dmask & (kpos >= lens[:, None] - w)
+    dmask = dmask[:, None, None]
     t = {"variant": fa.select_variant(q, kt, vt, lens, w), "window": w,
          "shape": [LM_SLOTS, h, 1, d], "kv_lens": lens_np.tolist()}
     t["ms"] = graph_ms(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens, window=w), 100)
@@ -2366,6 +2467,9 @@ def hybrid_attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
     t["sdpa"] = sdpa_times(q, kt.to(bf).contiguous(), vt.to(bf).contiguous(), reps=100,
                            mask=dmask)
     t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
+    # the kernel's own function: bf16 q upcast to f32 against the f32 cache
+    t["sdpa_same"] = sdpa_times(q, kt, vt, reps=100, mask=dmask, q_dtype=torch.float32)
+    t["same_library_ms"], t["same_library_backend"] = fastest(t["sdpa_same"])
     keys = window_keys(lens_np - 1, w)
     t["bound_ms"], t["bound_by"] = attn_bound_ms(keys * hkv * d * 2 * 4 + 2 * (
         2 * LM_SLOTS * h * d) + 4 * LM_SLOTS, 4 * h * d * keys)
@@ -2375,13 +2479,19 @@ def hybrid_attention_timings(dev, cfg, lens_np: np.ndarray, smi: str) -> dict:
         return "not measured" if x is None else f"{x:.4f}"
 
     for name, t in out.items():
-        print(f"flash_attention hybrid {name} {t['shape']} window {w} (ms per call on the "
-              f"device; eager in brackets): {t['variant']} {f(t['ms'])} "
+        print(f"flash_attention {what} {name} {t['shape']} over {hkv} KV heads, window {w} "
+              f"(ms per call on the device; eager in brackets): {t['variant']} {f(t['ms'])} "
               f"({f(t.get('eager_ms'))}), plain {f(t['plain_ms'])}, bound "
-              f"{t['bound_ms']:.5f} ({t['bound_by']}); SDPA with the window as a mask"
+              f"{t['bound_ms']:.5f} ({t['bound_by']}); SDPA"
+              f"{'' if w is None else ' with the window as a mask'}"
               f"{' on a bf16 copy of the cache' if name == 'decode' else ''}: "
               + ", ".join(f"{n} refused" if x is None else f"{n} {f(x['ms'])}"
-                          for n, x in t["sdpa"].items()) + f"; {smi}", flush=True)
+                          for n, x in t["sdpa"].items())
+              + ("" if "sdpa_same" not in t else
+                 "; SDPA on the same function (q upcast to f32, the f32 cache): "
+                 + ", ".join(f"{n} refused" if x is None else f"{n} {f(x['ms'])}"
+                             for n, x in t["sdpa_same"].items()))
+              + f"; {smi}", flush=True)
     return out
 
 
@@ -2409,7 +2519,11 @@ def recurrent_family(dev, name: str, smi: str, launches: dict) -> dict:
     cfg = get_config(name)
     res = {"attention": {"launches": 0, "variants": dict.fromkeys(fa.VARIANTS, 0)}}
     if cfg.hybrid:
-        res["attention"]["max_abs_err"] = hybrid_attention_checks(dev, cfg)
+        # group 5, D 64: the longest and the shortest prompts' prefills and
+        # decode rows whose kv_lens cross the window, with it and without
+        res["attention"]["max_abs_err"] = group_attention_checks(
+            dev, cfg, ((1, REC_PROMPTS[name][-1]), (2, REC_PROMPTS[name][0])),
+            HYBRID_KV_LENS, REC_MAX_SEQ[name], (cfg.attn_window, None), 3, "hybrid")
     t0 = time.perf_counter()
     params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
@@ -2549,8 +2663,9 @@ def recurrent_family(dev, name: str, smi: str, launches: dict) -> dict:
     del cache, engine
     if cfg.hybrid:
         depths = runs["run"][2]
-        res["attention"]["timings"] = hybrid_attention_timings(
-            dev, cfg, depths[len(depths) // 2] + 1, smi)
+        res["attention"]["timings"] = group_attention_timings(
+            dev, cfg, REC_PROMPTS[name][-1], max_seq, depths[len(depths) // 2] + 1, smi,
+            cfg.attn_window, 4, "hybrid")
     torch.cuda.empty_cache()
 
     # -- training at full width
@@ -2687,6 +2802,384 @@ def recurrent_lm_path(dev, smi: str) -> dict:
         for k, n in r["attention"]["variants"].items():
             res["attention"]["variants"][k] += n
     print(json.dumps({"recurrent_lm": res}, default=str), flush=True)
+    return res
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in bf16 ulps of want's largest magnitude."""
+    got, want = got.float(), want.float()
+    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+    return float((got - want).abs().max()) / ulp
+
+
+def moe_tied_router_check(dev, cfg, lp) -> dict:
+    """On the card: with a zero router every score ties, so every token
+    takes experts 0..k-1 (``jax.lax.top_k``'s order), each at weight 1/k;
+    the experts' queues fill in token order, so the first ``cap`` tokens
+    are kept and the rest dropped (y = 0).  The kept rows against the k
+    experts applied one by one."""
+    from repro_torch.models import lm
+    e, k, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
+    n = 64
+    cap = max(math.ceil(n * k / e * cfg.capacity_factor), 4)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((1, n, d), generator=g, device=dev).to(torch.bfloat16)
+    _, ids = lm.top_k(torch.full((n, e), 1.0 / e, device=dev), k)
+    tied = {**lp, "router": torch.zeros_like(lp["router"])}
+    with torch.no_grad():
+        y, _ = lm.moe_block(tied, x, cfg)
+        want = sum(((torch.nn.functional.silu(x[0, :cap] @ lp["e_gate"][j])
+                     * (x[0, :cap] @ lp["e_up"][j])) @ lp["e_down"][j]).float() / k
+                   for j in range(k))
+    ulps = bf16_ulps(y[0, :cap], want)
+    res = {"tokens": n, "cap": cap, "experts": ids[0].tolist(), "kept_vs_one_by_one_ulps": ulps}
+    print(f"tied router on the card: {res}", flush=True)
+    require(bool((ids == torch.arange(k, device=dev)).all()),
+            f"a tied router picks experts 0..{k - 1} for every token, as jax.lax.top_k")
+    require(not bool(y[0, cap:].any()) and bool(y[0, :cap].abs().amax(-1).gt(0).all()),
+            f"tokens past the experts' capacity ({cap}) are dropped (y = 0), the first {cap} "
+            f"kept")
+    require(ulps <= MOE_TIED_ULPS, f"kept rows == the {k} experts applied one by one at "
+                                   f"weight 1/{k}: {ulps:.2f} <= {MOE_TIED_ULPS} bf16 ulps")
+    return res
+
+
+def moe_lm_path(dev, smi: str) -> dict:
+    """The MoE family at full width (see MOE_ARCHS): qwen3 served, checked
+    alone against batched, profiled and trained; arctic's dense residual at
+    2 layers; kernel 5 at their groups.  Returns the readings and kernel
+    5's launches on the path."""
+    import dataclasses
+    from repro_torch.compression import tree_flatten_with_path, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch
+    from repro_torch.models import lm
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving.loadgen import lm_workload
+    from repro_torch.train.optimizer import AdamConfig
+
+    def flat(tree):
+        return dict(tree_flatten_with_path(tree)[0])
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def init(c, what):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p = lm.init_lm(gen(0), c)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in flat(p).values())
+        print(f"lm: {c.name} at full width ({c.num_layers} layers{what}, d {c.d_model}, "
+              f"{c.num_heads} q heads over {c.num_kv_heads} KV heads x {c.hdim}, "
+              f"{c.num_experts} experts of ff {c.d_ff}, top {c.experts_per_token}, dense "
+              f"residual {c.moe_dense_ff or 'none'}, vocab {c.vocab_size}), {n} parameters "
+              f"({sum(t.numel() * t.element_size() for t in flat(p).values())} bytes), init "
+              f"{time.perf_counter() - t0:.2f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        return p, n
+
+    def forward_vs_prefill(params, c):
+        fa.reset_launches()
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, c.vocab_size, (1, MOE_PROMPTS[-1])).astype(np.int32)).to(dev)
+        with torch.no_grad():
+            hidden, _ = lm.lm_forward(params, c, {"tokens": toks})
+            n_fwd = fa.LAUNCHES["flash_attention"]
+            train_logits = (hidden[:, -1] @ lm._head_weight(params, c)).float()
+            del hidden
+            serve_logits, cache = lm.lm_prefill(params, c, {"tokens": toks}, MOE_PROMPTS[-1])
+            del cache
+        out = {"tokens": MOE_PROMPTS[-1],
+               "max_abs_diff": float((train_logits - serve_logits).abs().max()),
+               "argmax_equal": bool((train_logits.argmax(-1) == serve_logits.argmax(-1)).all()),
+               "kernel5_launches": fa.LAUNCHES["flash_attention"] - n_fwd}
+        print(f"{c.name} lm_forward vs lm_prefill on {MOE_PROMPTS[-1]} tokens: {out}", flush=True)
+        require(bool(torch.isfinite(train_logits).all() and torch.isfinite(serve_logits).all()),
+                f"{c.name}: lm_forward's and lm_prefill's logits are finite")
+        require(n_fwd == 0 and out["kernel5_launches"] == c.num_layers
+                == fa.VARIANT_LAUNCHES["prefill_wgmma"],
+                f"{c.name}: lm_forward launched no kernel 5, lm_prefill one prefill_wgmma a "
+                f"layer ({out['kernel5_launches']})")
+        return out
+
+    res = {"attention": {"launches": 0, "variants": dict.fromkeys(fa.VARIANTS, 0)},
+           "seconds": {}}
+    t_section = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - t_section[0]
+        t_section[0] = now
+
+    def add_launches(runs, name):
+        for mode, (_, c, _) in runs.items():
+            v = c["variants"]
+            require(0 < c["prefill"] == v["prefill"]["prefill_wgmma"]
+                    and 0 < c["decode"] == v["decode"]["decode_splitkv"]
+                    and v["prefill"]["scalar"] == v["decode"]["scalar"] == 0,
+                    f"{name} {mode}: every prefill launch ran prefill_wgmma and every decode "
+                    f"launch decode_splitkv, none the scalar variant ({v})")
+            res["attention"]["launches"] += c["prefill"] + c["decode"]
+            for ph in v:
+                for k, n in v[ph].items():
+                    res["attention"]["variants"][k] += n
+
+    cfg = get_config(MOE_ARCHS[0])
+    acfg = dataclasses.replace(get_config(MOE_ARCHS[1]), num_layers=ARCTIC_LAYERS)
+    res["attention"]["max_abs_err"] = max(
+        group_attention_checks(dev, c, ((1, MOE_PROMPTS[-1]),), CHECK_KV_LENS, LM_MAX_SEQ,
+                               (None,), seed, c.name)
+        for c, seed in ((cfg, 5), (acfg, 6)))
+    print(f"MoE phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at its start",
+          flush=True)
+    section("kernel5_checks")
+
+    # -- qwen3-moe-30b-a3b at full width and depth: serve
+    params, n_params = init(cfg, "")
+    require(n_params == lm.param_count(cfg) == MOE_PARAMS,
+            f"{cfg.name}: parameter count == param_count == {MOE_PARAMS} ({n_params})")
+    engine = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=dev)
+    engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
+    torch.cuda.synchronize()
+    runs = serve_modes(engine, cfg, MOE_PROMPTS, LM_NEW)
+    add_launches(runs, cfg.name)
+    res["serve"] = {mode: {**c["stats"], "prefill_launches": c["prefill"],
+                           "decode_launches": c["decode"], "variants": c["variants"]}
+                    for mode, (_, c, _) in runs.items()}
+    by_mode = [np.concatenate([r.output for r in runs[m][0]]) for m in runs]
+    res["run_vs_lockstep_equal"] = float(np.mean(by_mode[0] == by_mode[1]))
+    res["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"{cfg.name} run vs run_lockstep: {res['run_vs_lockstep_equal']:.4f} of "
+          f"{by_mode[0].size} greedy tokens equal; peak "
+          f"{res['serve_peak_bytes'] / 1e9:.2f} GB", flush=True)
+
+    section("qwen3_init_and_serve")
+
+    # -- a decode step's wall, busy share, kernels and operator calls, at the
+    # first chunk's depths, beside the bound of reading its weights
+    served = runs["run"][0]
+    chunk = served[:LM_SLOTS]
+    plen = max(len(r.prompt) for r in chunk)
+    ptoks = np.zeros((LM_SLOTS, plen), np.int32)
+    for j, r in enumerate(chunk):
+        ptoks[j, :len(r.prompt)] = r.prompt
+    lens_np = np.array([len(r.prompt) for r in chunk], np.int32)
+    logits, cache = engine._prefill(ptoks, lens_np)
+    cur = logits.argmax(-1).to(torch.int32)
+    depth = torch.from_numpy(lens_np).to(dev)
+
+    def decode_step():
+        out, _ = lm.serve_step(params, cfg, cache, cur, depth)
+        torch.argmax(out, -1).cpu()
+
+    for _ in range(2):
+        decode_step()
+    prof = profile_lm_steps(decode_step, MOE_PROFILE_STEPS)
+    shapes = lm._layer_param_shapes(cfg)
+    expert_bytes = 2 * cfg.num_layers * sum(math.prod(shapes[w]) for w in lm._EXPERT_LEAVES)
+    weight_bytes = 2 * (lm.param_count(cfg) - cfg.vocab_size * cfg.d_model)   # embed: 8 rows
+    prof.update(expert_bytes=expert_bytes, expert_bound_ms=1e3 * expert_bytes / HBM_BYTES_PER_S,
+                weight_bytes=weight_bytes, weight_bound_ms=1e3 * weight_bytes / HBM_BYTES_PER_S)
+    res["decode_profile"] = prof
+    print(f"{cfg.name} decode step profile ({LM_SLOTS} slots at depths {lens_np.tolist()}): "
+          f"{prof}; {smi}", flush=True)
+    del cache
+
+    # -- one prefill of MOE_PROMPTS[-1] tokens, timed
+    prompt = np.arange(MOE_PROMPTS[-1], dtype=np.int32)[None] % cfg.vocab_size
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine._prefill(prompt, np.array([MOE_PROMPTS[-1]]))
+        torch.argmax(logits, -1).cpu()
+        times.append(time.perf_counter() - t0)
+        del cache
+    res["prefill_1024_ms"] = 1e3 * statistics.median(times[1:])
+    print(f"{cfg.name} one prefill of {MOE_PROMPTS[-1]} tokens: median "
+          f"{res['prefill_1024_ms']:.2f} ms of {len(times) - 1} (first {1e3 * times[0]:.2f}); "
+          f"{smi}", flush=True)
+    res["forward_vs_prefill"] = forward_vs_prefill(params, cfg)
+
+    section("qwen3_profile_prefill_forward")
+
+    # -- alone against batched with lossless dispatch (capacity_factor E / k)
+    lossless = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    leng = ServeEngine(params, lossless, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=dev)
+    reqs = lm_workload(cfg.vocab_size, MOE_SOLO, prompt_lens=(MOE_PROMPTS[0],),
+                       new_tokens=(MOE_SOLO_NEW,), seed=3)
+    done = leng.run(reqs)
+    order = {id(r): i for i, r in enumerate(reqs)}
+    done = sorted(done, key=lambda r: order[id(r)])
+    res["solo"] = []
+    for row, r in enumerate(done):
+        out = leng.run([Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens)])[0]
+        n = len(r.output)
+        part = next((t for t in range(n) if out.output[t] != r.output[t]), n)
+        gap = diff = 0.0
+        if part < n:        # parted: the batch's tokens teacher-forced, alone and batched
+            solo_tf = _replay(lm, params, lossless, [r], dev)[0][0]
+            batch_tf = _replay(lm, params, lossless, done, dev)[0][0]
+            diff = float((solo_tf[:n, 0] - batch_tf[:n, row]).abs().max())
+            gap = float((solo_tf[part, 0, int(out.output[part])]
+                         - solo_tf[part, 0, int(r.output[part])]).abs())
+            del solo_tf, batch_tf
+        res["solo"].append({"prompt": len(r.prompt), "tokens": n,
+                            "equal": int(np.sum(out.output == r.output)),
+                            "first_difference": part, "tie_gap": gap,
+                            "teacher_forced_max_abs_diff": diff})
+        print(f"{cfg.name} request {row} alone against the batch, lossless dispatch: "
+              f"{res['solo'][-1]}", flush=True)
+        upto = ("the end" if part == n else
+                f"a tie ({gap:.4f} <= 2 x {diff:.4f}, the bf16 teacher-forced difference)")
+        require(gap <= 2 * diff, f"{cfg.name}: request {row} served alone gives the batch's "
+                                 f"tokens ({part} of {n}) up to {upto}")
+    del leng
+
+    # -- a tied router on the card, and the reference's group rule
+    res["tied_router"] = moe_tied_router_check(
+        dev, cfg, {k: v[0] for k, v in params["layers"].items()})
+    rng = np.random.default_rng(4)
+    plen = cfg.moe_group // 2          # three prompts: 1,536 tokens, not a multiple
+    three = [Request(rng.integers(0, cfg.vocab_size, plen).astype(np.int32), max_new_tokens=2)
+             for _ in range(3)]
+    try:
+        engine.run(three)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"{cfg.name}: a prefill group of three {plen}-token prompts: {refused!r}", flush=True)
+    require("moe_group" in refused, f"{cfg.name}: a prefill group of 3 x {plen} tokens (above "
+                                    f"moe_group {cfg.moe_group}, not a multiple) raises the "
+                                    f"ValueError, as the reference's reshape fails")
+    run_depths = runs["run"][2]
+    qwen_lens = run_depths[len(run_depths) // 2] + 1
+    del engine, params, runs, served, done
+    free()
+    section("qwen3_solo_tied_group_rule")
+
+    # -- training at full width, MOE_TRAIN_LAYERS layers
+    tcfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    params, n_params = init(tcfg, f", reduced from {cfg.num_layers}")
+    require(n_params == lm.param_count(tcfg) == MOE_TRAIN_PARAMS,
+            f"{cfg.name} at {MOE_TRAIN_LAYERS} layers: {MOE_TRAIN_PARAMS} parameters "
+            f"({n_params})")
+    opt_cfg = AdamConfig(lr=LM_TRAIN_LR, grad_clip=1.0)
+    rng = np.random.default_rng(0)
+    batch_n, seq = MOE_TRAIN
+    fa.reset_launches()
+    loss, grads = launch.loss_and_grads(params, tcfg, launch.make_batch(rng, tcfg, batch_n,
+                                                                        seq, dev))
+    g = flat(grads)
+    require(all(bool(torch.isfinite(t).all()) for t in g.values())
+            and bool(torch.isfinite(loss)),
+            f"{cfg.name}: every one of {len(g)} gradients is finite on the card "
+            f"(loss {float(loss):.4f})")
+    moved = [k for k in ("router", "e_gate", "e_up", "e_down", "wq", "wk", "wv", "wo")
+             if float(g[f"layers/{k}"].float().abs().max()) > 0]
+    require(len(moved) == 8, f"{cfg.name}: the router, expert and attention leaves have "
+                             f"nonzero gradients ({moved})")
+    del grads, g
+    opt = launch.adam_init_tree(params)
+    params, opt, loss = launch.train_step(params, opt, launch.make_batch(
+        rng, tcfg, batch_n, seq, dev), tcfg, opt_cfg)                   # warm-up
+    float(loss)
+    if torch.cuda.max_memory_allocated() > MOE_PEAK_LIMIT:
+        print(f"training peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB at batch "
+              f"{batch_n} passes {MOE_PEAK_LIMIT / 1e9:.0f} GB: batch 1 (reduced)", flush=True)
+        batch_n = 1
+    losses, step_s = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        batch = launch.make_batch(rng, tcfg, batch_n, seq, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = launch.train_step(params, opt, batch, tcfg, opt_cfg)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    require(fa.LAUNCHES["flash_attention"] == 0, f"{cfg.name}: no kernel-5 launch in training")
+    require(all(np.isfinite(losses)), f"{cfg.name}: {MOE_TRAIN_STEPS} finite losses")
+    med = statistics.median(step_s)
+    res["train"] = {"layers": MOE_TRAIN_LAYERS, "batch": batch_n, "seq": seq,
+                    "losses": losses, "step_s": step_s, "median_s": med,
+                    "tokens_per_s": batch_n * seq / med, "max_memory_allocated": peak}
+    print(f"{cfg.name} training ({MOE_TRAIN_LAYERS} layers): {MOE_TRAIN_STEPS} steps of "
+          f"{batch_n} x {seq} after a warm-up, loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+          f"median {med:.4f} s, {batch_n * seq / med:.1f} tokens/s; peak {peak / 1e9:.2f} GB; "
+          f"{smi}", flush=True)
+    del params, opt
+    free()
+    section("train")
+
+    # -- card against CPU: one loss and its gradients, 1 layer, f32
+    cfg1 = dataclasses.replace(cfg, num_layers=1, param_dtype="float32")
+    p_card = lm.init_lm(gen(1), cfg1)
+    p_cpu = tree_map(lambda t: t.cpu(), p_card)
+    b_card = launch.make_batch(np.random.default_rng(1), cfg1, 1, LM_CPU_SEQ, dev)
+    t0 = time.perf_counter()
+    l_card, g_card = launch.loss_and_grads(p_card, cfg1, b_card)
+    l_cpu, g_cpu = launch.loss_and_grads(p_cpu, cfg1, {k: v.cpu() for k, v in b_card.items()})
+    g_card, g_cpu = flat(g_card), flat(g_cpu)
+    ulps, rel = {}, 0.0
+    for k, g in g_cpu.items():          # compared on the card: 1.2e9 values
+        want = g.to(dev)
+        ulps[k] = bf16_ulps(g_card[k], want)
+        rel = max(rel, float((g_card[k] - want).abs().max()) / max(float(want.abs().max()),
+                                                                    1e-30))
+        del want
+    res["cpu_check"] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+                        "grad_worst_bf16_ulps": max(ulps.values()), "grad_worst_rel": rel,
+                        "seconds": time.perf_counter() - t0}
+    print(f"{cfg.name} card vs CPU, loss and gradients at full width, 1 layer, f32, 1 x "
+          f"{LM_CPU_SEQ}: {res['cpu_check']}; per leaf (bf16 ulps of its max) {ulps}",
+          flush=True)
+    require(abs(float(l_card) - float(l_cpu)) <= LM_CPU_LOSS_RTOL * abs(float(l_cpu)),
+            f"{cfg.name}: loss on the card {float(l_card):.7f} == CPU {float(l_cpu):.7f} "
+            f"(rtol {LM_CPU_LOSS_RTOL})")
+    require(max(ulps.values()) <= MOE_CPU_GRAD_ULPS,
+            f"{cfg.name}: every gradient on the card == CPU within {MOE_CPU_GRAD_ULPS} bf16 ulp "
+            f"of its tensor's max (worst {max(ulps.values()):.3f}; {rel:.2e} of the max)")
+    del p_card, p_cpu, g_card, g_cpu, b_card
+    free()
+    section("cpu_check")
+
+    # -- arctic-480b at full width, ARCTIC_LAYERS layers: the dense residual
+    params, n_params = init(acfg, f", reduced from {get_config(MOE_ARCHS[1]).num_layers}")
+    require(n_params == lm.param_count(acfg) == ARCTIC_PARAMS,
+            f"{acfg.name} at {ARCTIC_LAYERS} layers: {ARCTIC_PARAMS} parameters ({n_params})")
+    res["arctic_forward_vs_prefill"] = forward_vs_prefill(params, acfg)
+    engine = ServeEngine(params, acfg, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=dev)
+    engine.run(lm_workload(acfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
+    runs = serve_modes(engine, acfg, MOE_PROMPTS, (MOE_SOLO_NEW,), n_requests=ARCTIC_REQUESTS,
+                       modes=("run",))
+    add_launches(runs, acfg.name)
+    res["arctic_serve"] = {**runs["run"][1]["stats"],
+                           "prefill_launches": runs["run"][1]["prefill"],
+                           "decode_launches": runs["run"][1]["decode"],
+                           "variants": runs["run"][1]["variants"],
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"{acfg.name} ({ARCTIC_LAYERS} layers) peak "
+          f"{res['arctic_serve']['peak_bytes'] / 1e9:.2f} GB", flush=True)
+    arctic_depths = runs["run"][2]
+    arctic_lens = arctic_depths[len(arctic_depths) // 2] + 1
+    del engine, params, runs
+    free()
+    section("arctic")
+
+    # -- kernel 5 at the groups of both models: prefill and the served decode
+    res["attention"]["timings"] = {
+        c.name: group_attention_timings(dev, c, MOE_PROMPTS[-1], LM_MAX_SEQ, lens, smi, None,
+                                        seed, c.name)
+        for c, lens, seed in ((cfg, qwen_lens, 8), (acfg, arctic_lens, 9))}
+    section("kernel5_timings")
+    print(f"MoE phase seconds by section: {res['seconds']}", flush=True)
+    print(json.dumps({"moe_lm": res}, default=str), flush=True)
     return res
 
 

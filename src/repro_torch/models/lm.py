@@ -1,4 +1,4 @@
-"""Decoder LMs, serving and training: the dense, SSM (Mamba2 SSD) and
+"""Decoder LMs, serving and training: the dense, MoE, SSM (Mamba2 SSD) and
 hybrid (Hymba) families of ``repro/models/lm.py``.
 
 Parameters are a plain dictionary in the JAX package's layout: ``embed``
@@ -8,9 +8,12 @@ and ``layers``, a dictionary of stacked (L, ...) tensors (``ln1``, ``ln2``,
 ``bq``/``bk``/``bv``, ``w_gate``/``w_up`` (D, F), ``w_down`` (F, D); the
 Mamba2 block's ``ssm_in`` (D, 2 di + 2 N + nh), ``ssm_conv_w`` (K, di + 2
 N), ``ssm_norm`` (di,), ``ssm_out`` (di, D), and ``ssm_A``, ``ssm_D``,
-``ssm_dt_bias`` (nh,), which are f32 whatever the config's dtype).  A pure
-SSM layer has no attention and no MLP; a hybrid layer has both branches.
-The layer scan becomes a Python loop over ``l``.
+``ssm_dt_bias`` (nh,), which are f32 whatever the config's dtype; an MoE
+layer's ``router`` (D, E), ``e_gate``/``e_up`` (E, D, F), ``e_down`` (E,
+F, D) in place of the MLP, with Arctic's dense residual MLP ``w_gate``/
+``w_up``/``w_down`` at ``moe_dense_ff`` beside them).  A pure SSM layer has
+no attention and no MLP; a hybrid layer has both branches.  The layer scan
+becomes a Python loop over ``l``.
 
 Serving attention (a KV cache) goes through
 :func:`repro_torch.kernels.ops.flash_attention`: the CUDA kernel on the
@@ -30,10 +33,18 @@ plain PyTorch in both packages.  The layer loop checkpoints per layer as
 the config's ``remat`` asks; the loss is chunked over the sequence with
 each chunk checkpointed.
 
+The MoE block (:func:`moe_block`) is the reference's grouped dense
+dispatch in plain PyTorch, as the JAX package computes it in plain jnp:
+tokens in groups of ``moe_group``, router scores snapped to the bf16 grid,
+top-k in ``jax.lax.top_k``'s order, queue positions per expert, and the
+dispatch, expert and combine products over every expert's ``capacity``
+rows.  Its load-balance loss reaches :func:`lm_loss` through the layer
+loop.
+
 Left out, because they are identities without a mesh: ``_constrain``,
 ``_reduce_barrier``, ``_gather_weights`` and the constraint-mesh setters.
-The MoE, encoder-decoder and frontend families raise
-``NotImplementedError`` naming their ROADMAP item.
+The VLM and encoder-decoder families raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -59,18 +70,18 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the families this port does not run yet."""
-    for cond, what in ((cfg.num_experts > 0, "MoE"),
-                       (cfg.encoder_layers > 0, "encoder-decoder"),
-                       (cfg.frontend != "none", "VLM / audio frontend")):
+    for cond, what, family in ((cfg.encoder_layers > 0, "encoder-decoder", 5),
+                               (cfg.frontend != "none", "VLM / audio frontend", 4)):
         if cond:
             raise NotImplementedError(
                 f"{cfg.name}: the {what} family is not ported yet (ROADMAP Queue 1 "
-                f"item 11b); the port runs the {', '.join(PORTED_FAMILIES)} families")
+                f"item 11b, family {family}); the port runs the "
+                f"{', '.join(PORTED_FAMILIES)} families")
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP Queue 1 item 11b)")
@@ -82,20 +93,33 @@ def check_ported(cfg: ArchConfig) -> None:
 
 # f32 whatever the config's dtype (lm.py:90-95)
 _F32_LEAVES = ("ssm_A", "ssm_D", "ssm_dt_bias")
+_EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
+# init_lm draws a leaf in f32 in slabs of at most this many values (512 MB)
+# and casts each into the leaf: qwen3-moe-30b-a3b's e_gate is 9.66e9
+# values, 38.6 GB in f32
+_DRAW_SLAB = 1 << 27
 
 
 def _layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """Shapes of one layer's leaves (lm.py:47): attention and the SwiGLU
-    MLP unless the family is "ssm", the Mamba2 block for "ssm" and the
-    hybrid."""
+    """Shapes of one layer's leaves (lm.py:47): attention unless the family
+    is "ssm"; the router and experts (and Arctic's dense residual MLP at
+    ``moe_dense_ff``) for MoE, else the SwiGLU MLP unless the family is
+    "ssm"; the Mamba2 block for "ssm" and the hybrid."""
     d, hd = cfg.d_model, cfg.hdim
     h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
     shapes = {"ln1": (d,), "ln2": (d,)}
     if cfg.family != "ssm":
-        shapes.update(wq=(d, h, hd), wk=(d, hkv, hd), wv=(d, hkv, hd), wo=(h, hd, d),
-                      w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+        shapes.update(wq=(d, h, hd), wk=(d, hkv, hd), wv=(d, hkv, hd), wo=(h, hd, d))
         if cfg.qkv_bias:
             shapes.update(bq=(h, hd), bk=(hkv, hd), bv=(hkv, hd))
+    if cfg.num_experts:
+        e = cfg.num_experts
+        shapes.update(router=(d, e), e_gate=(e, d, f), e_up=(e, d, f), e_down=(e, f, d))
+        if cfg.moe_dense_ff:
+            fd = cfg.moe_dense_ff
+            shapes.update(w_gate=(d, fd), w_up=(d, fd), w_down=(fd, d))
+    elif cfg.family != "ssm":
+        shapes.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
     if cfg.family == "ssm" or cfg.hybrid:
         nh, p, n, k = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
         di = nh * p
@@ -109,8 +133,10 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
             device: DeviceLike = None) -> Params:
     """Random parameters with the JAX package's shapes, scales and stacked
     (L, ...) layout: N(0, 1/fan_in) matrices (fan_in = H*Dh for ``wo``, K
-    for ``ssm_conv_w``), N(0, 0.02^2) embeddings, ones for norms, zeros for
-    biases, drawn in f32 from ``gen`` and cast to the config's dtype; the
+    for ``ssm_conv_w``, E for the expert leaves: each leaf's first axis),
+    N(0, 0.02^2) embeddings, ones for norms, zeros for biases, drawn in f32
+    from ``gen`` in slabs of at most ``_DRAW_SLAB`` values, each cast into
+    a leaf of the config's dtype (so a bf16 leaf never exists in f32); the
     SSM's ``ssm_A`` = log(linspace(1, 16, nh)), ``ssm_D`` = 1 and
     ``ssm_dt_bias`` = -4 in f32 (lm.py:90-95).  ``gen`` is a seeded
     ``torch.Generator`` (its device is used) or a seed, for a generator on
@@ -127,8 +153,13 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
     d, v, n_l = cfg.d_model, cfg.vocab_size, cfg.num_layers
 
     def normal(shape, std):
-        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return x.mul_(std).to(dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), _DRAW_SLAB):
+            n = min(_DRAW_SLAB, flat.numel() - i)
+            flat[i:i + n] = torch.randn(n, generator=gen, device=dev,
+                                        dtype=torch.float32).mul_(std)
+        return out
 
     params: Params = {"embed": normal((v, d), 0.02),
                       "final_norm": torch.ones((d,), dtype=dt, device=dev)}
@@ -181,14 +212,18 @@ def param_count(cfg: ArchConfig) -> int:
 
 
 def active_param_count(cfg: ArchConfig) -> int:
-    """Parameters active per token: :func:`param_count` for the dense, SSM
-    and hybrid families (lm.py:894).  Only routed experts would count for
-    MoE, which is not ported yet (ROADMAP Queue 1 item 11b)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE family is not ported yet (ROADMAP Queue 1 item "
-            f"11b); active_param_count covers the dense family only")
-    return param_count(cfg)
+    """Parameters active per token (lm.py:894): :func:`param_count` without
+    experts; with experts, each layer's expert leaves count ``k / E``
+    (rounded down over the three leaves together), and the sum, as the
+    reference's, leaves out ``final_norm``."""
+    if not cfg.num_experts:
+        return param_count(cfg)
+    shapes = _layer_param_shapes(cfg)
+    experts = sum(math.prod(shapes[n]) for n in _EXPERT_LEAVES)
+    per_layer = (sum(math.prod(s) for s in shapes.values()) - experts
+                 + experts * cfg.experts_per_token // cfg.num_experts)
+    return (per_layer * cfg.num_layers
+            + cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2))
 
 
 # ===========================================================================
@@ -281,6 +316,94 @@ def swiglu(x, w_gate, w_up, w_down):
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` = max(x, 0) + log1p(exp(-|x|))."""
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+# ===========================================================================
+# MoE (grouped dense dispatch)
+# ===========================================================================
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the ``k`` largest values along the last axis in
+    descending order and their indices, the lower index first among equal
+    values.  A stable descending sort gives that order; ``torch.topk``
+    leaves the order of ties unspecified, and the MoE router's scores tie
+    often (they are snapped to the bf16 grid)."""
+    vals, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def moe_block(lp: Params, x: torch.Tensor, cfg: ArchConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y (B, S, D) in x's dtype, the Switch load-balance
+    loss, 0-d f32), the reference's grouped dense dispatch (lm.py:330).
+
+    The B*S tokens go in ``ng`` groups of ``g = min(moe_group, B*S)``, as
+    the reference reshapes them: B*S above ``moe_group`` must be a multiple
+    of it.  Router scores (an f32 copy of ``x @ router``) are snapped to
+    the bf16 grid, softmaxed in f32, and each token takes its top ``k``
+    experts (:func:`top_k`), weights renormalised.  Each expert queues its
+    tokens in (token, k) order within the group, exact integer positions;
+    those at position ``cap = max(ceil(g k / E * capacity_factor), 4)`` or
+    later are dropped.  The bf16 one-hot ``dispatch`` and ``combine`` (the
+    latter weighted by the bf16 routing weights) carry the bf16 tokens to
+    every expert's ``cap`` rows and back; the expert products run in the
+    weights' dtype promoted with bf16 (f32 for an f32 model, as the
+    reference's bf16 x f32 products give f32), with the casts where the
+    reference rounds, so the backward rounds the same cotangents to bf16.
+    Arctic adds a dense SwiGLU of ``x`` (``moe_dense_ff``).
+
+    The router product has no batch dims (an ``mm``, which the "dots" remat
+    keeps); dispatch, the experts and combine are batched (``bmm``) and
+    recomputed, as under JAX's ``checkpoint_dots_with_no_batch_dims``."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    n = b * s
+    g = min(cfg.moe_group, n)
+    if n % g:
+        raise ValueError(f"moe_block: B*S = {n} tokens must be at most moe_group "
+                         f"({cfg.moe_group}) or a multiple of it (the reference reshapes "
+                         f"the tokens into groups of moe_group)")
+    ng = n // g
+    cap = max(int(math.ceil(g * k / e * cfg.capacity_factor)), 4)
+    bf = torch.bfloat16
+    xt = x.reshape(ng, g, d)
+
+    logits = (x.reshape(n, d) @ lp["router"]).float()
+    # the bf16 snap (lm.py:341-347): near-ties cannot flip on sub-bf16 noise
+    logits = logits.to(bf).float()
+    probs = torch.softmax(logits, -1).reshape(ng, g, e)
+    top_p, top_ids = top_k(probs, k)                                # (G, N, K)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+
+    # exact integer queue positions: an exclusive count over (token, k)
+    eoh_i = F.one_hot(top_ids, e)                                   # (G, N, K, E)
+    pos_e = torch.cumsum(eoh_i.reshape(ng, g * k, e), 1).reshape(ng, g, k, e) - eoh_i
+    pos_k = (pos_e * eoh_i).sum(-1)                                 # (G, N, K)
+    keep = (pos_k < cap).to(bf)
+    poh = (pos_k[..., None] == torch.arange(cap, device=x.device)).to(bf)  # (G, N, K, C)
+    # "gnke,gnkc,gnk->gnec": an (E, K) @ (K, C) product a token, one term
+    # of each sum nonzero (a token takes an expert once), exact in bf16
+    eoh = eoh_i.to(bf).reshape(n, k, e).transpose(1, 2)             # (N', E, K)
+    dispatch = (eoh @ (poh * keep[..., None]).reshape(n, k, cap)).reshape(ng, g, e * cap)
+    combine = (eoh @ (poh * (keep * top_p.to(bf))[..., None]).reshape(n, k, cap)
+               ).reshape(ng, g, e * cap)
+
+    ct = torch.promote_types(bf, lp["e_gate"].dtype)
+    xe = dispatch.transpose(1, 2) @ xt.to(bf)                       # (G, E*C, D)
+    xe = xe.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    # one cast a product: JAX's mixed bf16 x f32 products give each its own
+    # bf16 cotangent for xe, summed in bf16
+    h = F.silu(xe.to(ct) @ lp["e_gate"].to(ct)) * (xe.to(ct) @ lp["e_up"].to(ct))
+    ye = h @ lp["e_down"].to(ct)                                    # (E, G*C, D)
+    ye = ye.reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)
+    y = (combine.to(ye.dtype) @ ye).reshape(b, s, d)
+
+    # load-balance loss (Switch): E * sum_e f_e * p_e
+    frac = eoh_i.float().sum(2).mean((0, 1))                        # (E,)
+    aux = e * (frac * probs.mean((0, 1))).sum()
+    if cfg.moe_dense_ff:                                            # Arctic's residual
+        y = y + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return y.to(x.dtype), aux
 
 
 # ===========================================================================
@@ -523,15 +646,16 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
 def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
                   is_global: bool = False, cache: Optional[Cache] = None, cache_pos=None,
                   pad_mask: Optional[torch.Tensor] = None):
-    """One decoder layer (lm.py:568).  Returns (x, cache): ``cache`` is the
-    layer's slice of the cache ({"k", "v"}, {"conv", "ssm"} or all four),
-    written in place (or {} without a cache).  An SSM layer is ``x +
-    ssm(ln1(x))``; a hybrid layer ``x + 0.5 * (attn + ssm)`` of the same
-    ``ln1(x)``; every family but the pure SSM then adds the SwiGLU MLP of
-    ``ln2(x)``.
+    """One decoder layer (lm.py:568).  Returns (x, cache, aux): ``cache`` is
+    the layer's slice of the cache ({"k", "v"}, {"conv", "ssm"} or all
+    four), written in place (or {} without a cache); ``aux`` is the MoE
+    block's load-balance loss, 0.0 for the families without experts.  An
+    SSM layer is ``x + ssm(ln1(x))``; a hybrid layer ``x + 0.5 * (attn +
+    ssm)`` of the same ``ln1(x)``; every family but the pure SSM then adds
+    the MoE block (:func:`moe_block`) or the SwiGLU MLP of ``ln2(x)``.
     ``pad_mask`` (B, S) marks the real tokens of a right-padded prefill for
-    the SSM's state.  The reference's third result, the MoE auxiliary loss,
-    is 0 for these families."""
+    the SSM's state; an MoE block routes every row, pads included, as the
+    reference does."""
     check_ported(cfg)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     new_cache: Cache = {}
@@ -550,10 +674,14 @@ def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
             cache["ssm"].copy_(ssm_s)
             new_cache.update(conv=cache["conv"], ssm=cache["ssm"])
     if cfg.family == "ssm":
-        return x + y_ssm, new_cache
+        return x + y_ssm, new_cache, 0.0
     x = x + (0.5 * (y_attn + y_ssm) if cfg.hybrid else y_attn)
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), new_cache
+    if cfg.num_experts:
+        y, aux = moe_block(lp, h, cfg)
+    else:
+        y, aux = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
+    return x + y, new_cache, aux
 
 
 # ===========================================================================
@@ -591,16 +719,20 @@ def run_decoder_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop of the training forward (lm.py:695), each layer under
     the config's remat, the hybrid's global layers flagged; returns (x,
-    total aux), the aux a 0-d f32 zero for the ported families."""
+    total aux), the aux a 0-d f32 sum of the layers' MoE load-balance
+    losses (zero without experts)."""
     flags = _global_flags(cfg)
 
     def body(h, i):
-        return decoder_layer(_layer(params, i), h, cfg, positions, is_global=flags[i])[0]
+        y, _, a = decoder_layer(_layer(params, i), h, cfg, positions, is_global=flags[i])
+        return y, a
 
     body = _remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = body(x, i)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = body(x, i)
+        aux = aux + a
+    return x, aux
 
 
 def lm_forward(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
@@ -688,17 +820,19 @@ def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, positions: tor
                 cache: Cache, cache_pos, pad_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """The layer loop of prefill and decode, each layer's cache slice
-    written in place.  The reference returns the conv window in the
-    activations' dtype whatever the cache's (lm.py:452, 594), so the conv
-    cache takes x's dtype here first: exact for a bf16 model's f32 cache,
-    and an f32 model's window is not rounded by a bf16 cache."""
+    written in place; the MoE load-balance losses are dropped, as the
+    reference's prefill and decode drop them.  The reference returns the
+    conv window in the activations' dtype whatever the cache's (lm.py:452,
+    594), so the conv cache takes x's dtype here first: exact for a bf16
+    model's f32 cache, and an f32 model's window is not rounded by a bf16
+    cache."""
     if "conv" in cache and cache["conv"].dtype != x.dtype:
         cache["conv"] = cache["conv"].to(x.dtype)
     flags = _global_flags(cfg)
     for i in range(cfg.num_layers):
-        x, _ = decoder_layer(_layer(params, i), x, cfg, positions, is_global=flags[i],
-                             cache={k: v[i] for k, v in cache.items()},
-                             cache_pos=cache_pos, pad_mask=pad_mask)
+        x, _, _ = decoder_layer(_layer(params, i), x, cfg, positions, is_global=flags[i],
+                                cache={k: v[i] for k, v in cache.items()},
+                                cache_pos=cache_pos, pad_mask=pad_mask)
     return x
 
 

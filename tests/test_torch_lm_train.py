@@ -261,8 +261,9 @@ def test_active_param_count_and_count_params_match_jax():
         _, _, jparams, cfg, params = _pair(name)
         from repro.models.nn import count_params as jax_count_params
         assert count_params(params) == jax_count_params(jparams) == lm.param_count(cfg)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        lm.active_param_count(get_config("arctic-480b"))
+    for name in ("arctic-480b", "qwen3-moe-30b-a3b"):     # routed experts count k / E
+        assert lm.active_param_count(get_config(name)) == \
+            jlm.active_param_count(jax_get_config(name)) < lm.param_count(get_config(name))
 
 
 # ---------------------------------------------------------------------------

@@ -126,7 +126,7 @@ def test_engine_rejects_what_the_reference_rejects(engines):
     with pytest.raises(NotImplementedError):
         e.run([], greedy=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine({}, reduced_config("qwen3-moe-30b-a3b"), device="cpu")
+        ServeEngine({}, reduced_config("internvl2-2b"), device="cpu")
 
 
 def test_launcher_serves_on_the_cpu_when_asked(capsys, tmp_path):
