@@ -19,8 +19,15 @@ and norms sum in other orders) moves a rounded value by one bf16 ulp
 wherever it sits at a rounding midpoint.  The reference differs from
 itself so, jitted against op by op (``jax.disable_jit``;
 ``test_the_reference_differs_from_itself_by_bf16_roundings``).  So f32
-hidden states, caches and gradients are held to ``F32_MOE_ULPS`` bf16 ulps
-of each tensor's largest magnitude, losses to ``F32_RTOL``.  In bf16 the
+hidden states and caches are held to ``F32_MOE_ULPS`` bf16 ulps of each
+tensor's largest magnitude, losses to ``F32_RTOL``.  Gradients are held to
+``MOE_GRAD_RTOL`` of each tensor's largest magnitude, between what sound
+code reads and what a fault reads: over seeds 12-18 of ``_batch`` on both
+configs the reference against itself read at most 3.0e-3 and the port
+against the reference 4.7e-3, while the port with its expert products in
+bf16 (an f32 config computed as a bf16 one) read at least 1.49e-2
+(``test_the_reference_gradients_differ_from_themselves``,
+``test_bf16_expert_products_fail_the_gradient_limit``).  In bf16 the
 router's scores are themselves bf16 products, and a near tie flips an
 expert at a few percent of the tokens, the reference against itself
 included.  The port is held to the reference run op by op (where each op
@@ -64,6 +71,7 @@ FAMILIES = ("qwen3-moe-30b-a3b", "arctic-480b")
 F32_RTOL = 1e-5
 AUX_RTOL = 1e-6
 F32_MOE_ULPS = 1
+MOE_GRAD_RTOL = 8e-3
 BF16_ULPS = 2
 BF16_ULPS_FORWARD = 4
 BF16_ROWS = 0.97
@@ -104,6 +112,19 @@ def _layer0(jparams, params):
 
 def _bf16_atol(want, ulps) -> float:
     return ulps * 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+
+
+def _close_rel(got, want, rtol, what=""):
+    """|got - want| within ``rtol`` of want's largest magnitude."""
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=rtol * np.abs(want).max(),
+                               err_msg=what)
+
+
+def _grad_spread(got, want) -> float:
+    """The worst over leaves of max |got - want| / max |want|."""
+    return max(float(np.abs(_np(got[k]) - _np(w)).max() / np.abs(_np(w)).max())
+               for k, w in want.items())
 
 
 def _close_ulps(got, want, ulps, what=""):
@@ -320,7 +341,7 @@ def test_moe_block_gradients_match_jax_grad():
     bf16 dispatch, the routing weights' through the bf16 combine.  A
     combine cotangent at a bf16 rounding midpoint, summed in another order
     by each package, rounds to neighbouring bf16 values: held to
-    F32_MOE_ULPS."""
+    MOE_GRAD_RTOL of each gradient's largest magnitude."""
     jlm, jcfg, jparams, cfg, params = _pair("qwen3-moe-30b-a3b")
     jlp, lp = _layer0(jparams, params)
     names = ("router", "e_gate", "e_up", "e_down")
@@ -338,7 +359,7 @@ def test_moe_block_gradients_match_jax_grad():
     grads = torch.autograd.grad((y * torch.from_numpy(c)).sum() + aux,
                                 [*ws.values(), xt])
     for what, g, w in zip(names + ("x",), grads, [*(jg[n] for n in names), jgx]):
-        _close_ulps(g, w, F32_MOE_ULPS, what)
+        _close_rel(g, w, MOE_GRAD_RTOL, what)
 
 
 def test_snap_rounds_the_cotangent_through_bf16():
@@ -433,13 +454,50 @@ def test_the_reference_differs_from_itself_by_bf16_roundings():
             assert 0.9 < rows.mean() < 1.0, rows.mean()
 
 
+def _reference_grads(name, batch, jit=True):
+    jlm, jcfg, jparams, cfg, params = _pair(name, attn_chunk=40)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if jit:
+        return jax.value_and_grad(jlm.lm_loss)(jparams, jcfg, jbatch)[1], cfg, params
+    with jax.disable_jit():
+        return jax.value_and_grad(jlm.lm_loss)(jparams, jcfg, jbatch)[1], cfg, params
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_the_reference_gradients_differ_from_themselves(name):
+    """Why gradients are held to MOE_GRAD_RTOL and not the dense family's
+    1e-4: the reference's gradients jitted against op by op, same inputs,
+    differ by more than 1e-4 of a tensor's largest magnitude, within
+    MOE_GRAD_RTOL."""
+    batch = _batch(12)
+    jit, _, _ = _reference_grads(name, batch)
+    op_by_op, _, _ = _reference_grads(name, batch, jit=False)
+    spread = _grad_spread(_jax_leaves(jit), _jax_leaves(op_by_op))
+    assert 1e-4 < spread <= MOE_GRAD_RTOL, spread
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_bf16_expert_products_fail_the_gradient_limit(name, monkeypatch):
+    """The limit finds a fault: the f32 config with its expert products
+    computed in bf16 (the expert leaves cast down on their way into
+    moe_block) is further than MOE_GRAD_RTOL from the reference."""
+    batch = _batch(12)
+    jgrads, cfg, params = _reference_grads(name, batch)
+    block = lm.moe_block
+    monkeypatch.setattr(lm, "moe_block", lambda lp, x, c: block(
+        {**lp, **{k: lp[k].to(torch.bfloat16) for k in ("e_gate", "e_up", "e_down")}}, x, c))
+    _, grads = train_launcher.loss_and_grads(
+        params, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert _grad_spread(_leaves(grads), _jax_leaves(jgrads)) > MOE_GRAD_RTOL
+
+
 @pytest.mark.parametrize("remat", ["full", "dots", "none"])
 @pytest.mark.parametrize("name", FAMILIES)
 def test_gradients_match_jax_value_and_grad(name, remat):
     """The launcher's loss (cross-entropy + 0.01 aux) and every gradient
     against ``jax.value_and_grad`` under the same remat, the loss to
-    F32_RTOL and each gradient to F32_MOE_ULPS bf16 ulps of its tensor's
-    largest magnitude; the router and experts move."""
+    F32_RTOL and each gradient to MOE_GRAD_RTOL of its tensor's largest
+    magnitude; the router and experts move."""
     jlm, jcfg, jparams, cfg, params = _pair(name, attn_chunk=40, remat=remat)
     batch = _batch(12)
     jloss, jgrads = jax.value_and_grad(jlm.lm_loss)(
@@ -450,7 +508,7 @@ def test_gradients_match_jax_value_and_grad(name, remat):
     want = _jax_leaves(jgrads)
     assert set(_leaves(grads)) == set(want)
     for k, w in want.items():
-        _close_ulps(_leaves(grads)[k], w, F32_MOE_ULPS, k)
+        _close_rel(_leaves(grads)[k], w, MOE_GRAD_RTOL, k)
     for k in ("router", "e_gate", "e_up", "e_down"):
         assert float(grads["layers"][k].abs().max()) > 0, k
 
