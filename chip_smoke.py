@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs ten paths at full
+tolerance, asserting which variant ran, then runs eleven paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -81,7 +81,7 @@ model width:
   sharded stores, at the paper's emulated workspace bandwidth;
 * LM serving: ``internlm2-1.8b`` at full width (24 layers, bf16, random
   weights from a seeded generator) serves 16 mixed-length requests with
-  continuous batching and again in lockstep, 8 slots, an f32 KV cache of
+  continuous batching and the first 8 again in lockstep, 8 slots, an f32 KV cache of
   1,088 positions (every prefill launch must run the wgmma prefill and
   every decode launch the split-KV decode); the served tokens are replayed
   teacher-forced with the kernel and with the plain attention, and their
@@ -101,8 +101,8 @@ model width:
   a fixed-rate 14-bit checkpoint of the trained parameters restored bit
   for bit against ``decode_tree(encode_tree(leaf))``;
 * the SSM and hybrid LM families: ``mamba2-130m`` and ``hymba-1.5b`` at
-  full width and depth (bf16, random weights) each serve 16 requests with
-  continuous batching and in lockstep (8 slots; hymba's prompts up to
+  full width and depth (bf16, random weights) serve 16 and 8 requests with
+  continuous batching and 8 each in lockstep (8 slots; hymba's prompts up to
   2,048 tokens, past its 1,024-key window; every hymba prefill launch the
   wgmma prefill, every decode launch the split-KV decode, none the scalar
   kernel; mamba2 none at all); one request served alone against the
@@ -114,8 +114,8 @@ model width:
   checkpoint; one loss and its gradients with 2 layers in f32 against the
   CPU;
 * the MoE LM family: ``qwen3-moe-30b-a3b`` at full width and depth (bf16,
-  random weights, 30.5 B parameters) serves 16 requests with continuous
-  batching and the first 8 of them in lockstep, at its capacity factor (8
+  random weights, 30.5 B parameters) serves 8 requests with continuous
+  batching and in lockstep, at its capacity factor (8
   slots, prompts of 128 and 1,024 tokens; every prefill launch the wgmma
   prefill, every decode launch the split-KV decode); two requests alone
   against the batch with lossless dispatch (tokens up to a tie); 10
@@ -130,7 +130,25 @@ model width:
   control with bf16 expert products outside that limit;
   ``arctic-480b`` at full width with 2 layers (its dense residual MLP and
   56/8 GQA) against its prefill and serving 4 requests; kernel 5 against
-  its plain version and timed at both models' groups (8 and 7).
+  its plain version and timed at both models' groups (8 and 7);
+* the VLM and encoder-decoder LM families: ``internvl2-2b`` at full width
+  and depth (bf16, random weights, 256 image tokens) serves 8 requests
+  from tokens alone through ``ServeEngine.run`` and one image request
+  (256 seeded image embeddings and 512 prompt tokens) through
+  ``lm_prefill`` and 32 greedy ``serve_step`` calls; ``seamless-m4t-large-v2``
+  at full width and depth (24 encoder and 24 decoder layers) serves 8
+  requests of 1,024 seeded frames and 128-512 prompt tokens through
+  ``lm_prefill`` and 32 greedy ``serve_step`` calls at per-slot positions
+  (every attention call of both through kernel 5: the encoder's and the
+  cross-attention's non-causal, the plain versions refused), one request
+  alone against the batch (tokens up to a tie); each family's decode
+  logits, teacher-forced, against ``lm_forward``; 10 decode steps
+  profiled; training at 2 x (256 image + 3,840) and 2 x (2,048 frames +
+  2,048) tokens; one loss and its gradients with 2 layers (and 2 encoder
+  layers) in f32 against the CPU; kernel 5 against its plain version at
+  their shapes (the non-causal prefill with as many, more and fewer
+  queries than keys, the non-causal decode against the f32 cross cache,
+  group 1 at D 64) and timed there.
 
 It prints the card's name and power limit, per run the median step time,
 the summed fetch wait and the store's ``IoStats``, the ensemble's and the
@@ -156,7 +174,9 @@ JSON line (per family the serving modes, the solo checks, the decode
 profile, training, the CPU check; kernel 5 at hymba's shapes), one ``moe_lm`` JSON line
 (the serving modes, the decode profile and its bounds, the solo and
 tied-router checks, training, the CPU check, arctic's readings, kernel 5
-at both groups), one ``kernels`` JSON line (launches on the paths, agreement, times,
+at both groups), one ``frontend_lm`` JSON line (per family the serving
+readings, the decode against the forward, the solo check, the decode
+profile, training, the CPU check; kernel 5 at seamless's shapes), one ``kernels`` JSON line (launches on the paths, agreement, times,
 bounds and the library yardstick; kernel 5 also per variant), and as its
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -247,6 +267,10 @@ ENS_PARAM_MAX, ENS_PARAM_Q99, ENS_PARAM_MEDIAN = 2e-2, 1e-3, 1e-4
 SOLVER_GRIDS = (("16x8/40", dict(ny=16, nx=8, nsteps=40, nsnaps=5)),
                 ("32x16/300", dict(ny=32, nx=16, nsteps=300, nsnaps=11)))
 SOLVER_SMALL_RTOL, SOLVER_FULL_RTOL = 1e-5, 1e-3
+# the sampled RT member's card-vs-CPU reading: RT_SPEC's grid and its 40 steps
+# a snapshot, over 12 of its 50 snapshot intervals (cut from all 50, for the
+# script's time)
+SOLVER_READING = dict(nsteps=480, nsnaps=13)
 KE_BOUND_PER_CELL = 100.0 / (32 * 16)
 DG_RT_MEMBERS, DG_PCHIP_MEMBERS = 32, 4
 DG_RESUME_MEMBERS, DG_RESUME_SHARDS = 4, 3
@@ -255,8 +279,11 @@ DG_FR_MEMBERS = 2
 # requests of the seeded mixed workload, 8 slots, max_seq 1088 (the longest
 # prompt plus the longest generation)
 LM_ARCH = "internlm2-1.8b"
+# (run_lockstep on the first LM_LOCKSTEP_REQUESTS of them, cut from 16 for
+# the script's time, as the later phases' lockstep runs)
 LM_REQUESTS, LM_SLOTS, LM_MAX_SEQ = 16, 8, 1088
 LM_PROMPTS, LM_NEW = (256, 512, 1024), (16, 32, 64)
+LM_LOCKSTEP_REQUESTS = 8
 # attention kernel vs plain version, as tests/test_kernels.py:158
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # teacher-forced logits, kernel vs plain attention, through 24 bf16 layers:
@@ -327,6 +354,9 @@ REC_PROMPTS = {"mamba2-130m": (256, 512, 1024), "hymba-1.5b": (512, 1024, 2048)}
 REC_MAX_SEQ = {"mamba2-130m": 1088, "hymba-1.5b": 2112}
 REC_FWD_PROMPT = {"mamba2-130m": 1024, "hymba-1.5b": 2048}
 REC_TRAIN = {"mamba2-130m": (2, 4096, 5), "hymba-1.5b": (2, 4096, 3)}
+# requests served with run and with run_lockstep (the lockstep's the first of
+# run's): cut from 16 and 16, for the script's time
+REC_REQUESTS = {"mamba2-130m": (16, 8), "hymba-1.5b": (8, 8)}
 # (REC_SOLO cut from 2 requests to 1, after the dense phase's cut, so that
 # the script with the MoE phase stays within its time limit)
 REC_COMP_STEPS, REC_SOLO, REC_PROFILE_STEPS = 3, 1, 10
@@ -334,8 +364,9 @@ SOLO_F32_ATOL = 1e-3
 HYBRID_KV_LENS = (1, 513, 1023, 1024, 1025, 1500, 2048, 2112)
 # MoE LM path (Queue 1 item 11b, family 3): qwen3-moe-30b-a3b at full width
 # and depth (configs/registry.py:61-68; 30,532,110,336 parameters, 61.06 GB
-# in bf16), random weights from a seeded generator.  It serves LM_REQUESTS
-# requests of the seeded workload (prompts MOE_PROMPTS, so that every
+# in bf16), random weights from a seeded generator.  It serves MOE_REQUESTS
+# requests (cut from 16, for the script's time) of the seeded
+# workload (prompts MOE_PROMPTS, so that every
 # prefill group of run and run_lockstep holds at most moe_group tokens or a
 # multiple of it, as the reference's reshape demands; generations LM_NEW)
 # in LM_SLOTS slots, max_seq LM_MAX_SEQ, at the config's capacity factor,
@@ -375,11 +406,52 @@ MOE_ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b")
 MOE_PARAMS = 30_532_110_336
 MOE_PROMPTS = (128, 1024)
 MOE_SOLO, MOE_SOLO_NEW, MOE_PROFILE_STEPS = 2, 16, 10
-MOE_LOCKSTEP_REQUESTS = 8
+MOE_REQUESTS, MOE_LOCKSTEP_REQUESTS = 8, 8
 MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 2, 1_868_572_672
 MOE_TRAIN, MOE_TRAIN_STEPS, MOE_PEAK_LIMIT = (2, 4096), 3, 75e9
 MOE_CARD_GRAD_RTOL, MOE_TIED_ULPS, MOE_FWD_LAYERS = 4e-3, 4, 2
 ARCTIC_LAYERS, ARCTIC_PARAMS, ARCTIC_REQUESTS = 2, 27_780_221_952, 4
+# VLM and encoder-decoder LM path (Queue 1 item 11b, families 4 and 5):
+# internvl2-2b (configs/registry.py:43-49; 24 layers, d 2,048, 16 q over 8
+# KV heads x 128, 256 image tokens of width 1,024) and seamless-m4t-large-v2
+# (configs/registry.py:34-40; 24 encoder and 24 decoder layers, d 1,024, 16
+# heads x 64, vocab 256,206) at full width and depth, bf16, random weights
+# from a seeded generator, f32 caches.  The VLM serves FRONT_REQUESTS text
+# requests (prompts LM_PROMPTS, generations LM_NEW) through ServeEngine.run,
+# which serves a VLM from tokens alone as the JAX engine does, and one image
+# request through lm_prefill (its 256 seeded image embeddings and a
+# VLM_IMAGE_PROMPT-token prompt) and FRONT_NEW greedy serve_steps.  The
+# encoder-decoder, which both packages' engines refuse, serves FRONT_REQUESTS
+# requests of ENC_FRAMES seeded frames and decoder prompts of ENC_PROMPTS
+# tokens, right-padded, through lm_prefill and FRONT_NEW greedy serve_steps
+# at per-slot positions (the JAX dry run's prefill and decode contract),
+# every attention call of both through kernel 5 (the plain versions
+# refused); one request alone against its batch, tokens equal up to a tie
+# (the recurrent phase's rule).  Each family's decode logits, teacher-forced,
+# against lm_forward's to LOGIT_ATOL; FRONT_PROFILE_STEPS decode steps
+# profiled; training at FRONT_TRAIN (batch, tokens: the dry run's train_4k
+# splits, launch/dryrun.py:45-54, the VLM's 256 image tokens before 3,840
+# and the encoder-decoder's 2,048 frames beside 2,048 tokens; batch 256 cut
+# to 2), seeded image and frame embeddings, a warm-up and FRONT_TRAIN_STEPS
+# timed steps, the peak at most FRONT_PEAK_LIMIT; card against CPU with
+# LM_CPU_LAYERS layers (and encoder layers) in f32 on 1 x LM_CPU_SEQ tokens
+# (after FRONT_CPU_IMAGE image tokens, or beside as many frames) to the
+# dense phase's limits.  Kernel 5 against its plain version at their
+# shapes: the VLM's causal prefill of image and prompt (group 2, D 128);
+# at group 1, D 64 the encoder's non-causal prefill, the cross-attention's
+# prefills ENC_CROSS (queries, keys; more queries than keys and fewer, key
+# counts off the 64-key tile, a short encoder input), its non-causal
+# decode against the f32 cross cache at ENC_DECODE_KEYS keys (ENC_FRAMES
+# and off the split edges), and the decoder's causal prefill and decode.
+FRONT_ARCHS = ("internvl2-2b", "seamless-m4t-large-v2")
+FRONT_PARAMS = {"internvl2-2b": 1_891_244_032, "seamless-m4t-large-v2": 2_035_832_832}
+FRONT_REQUESTS, FRONT_NEW, FRONT_PROFILE_STEPS = 8, 32, 10
+VLM_IMAGE_PROMPT = 512
+ENC_FRAMES, ENC_PROMPTS = 1024, (128, 256, 512)
+ENC_CROSS = ((8, 512, 1024), (1, 1024, 520), (1, 512, 1000), (1, 100, 40))
+ENC_DECODE_KEYS = (ENC_FRAMES, 1000, 37)
+FRONT_TRAIN = {"internvl2-2b": (2, 3840), "seamless-m4t-large-v2": (2, 2048)}
+FRONT_TRAIN_STEPS, FRONT_PEAK_LIMIT, FRONT_CPU_IMAGE = 3, 76e9, 16
 
 
 class CheckFailed(RuntimeError):
@@ -1167,6 +1239,22 @@ def main(argv) -> int:
         "run": {k: moe["arctic_serve"][k] for k in ("prefill_launches", "decode_launches")}}
     attn["moe"] = moe["attention"]["timings"]
 
+    # -- 16. VLM and encoder-decoder LM path: internvl2-2b and
+    # seamless-m4t-large-v2 at full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"VLM and encoder-decoder LM phase starts {time.perf_counter() - t_start:.1f} s "
+          f"since start", flush=True)
+    t0 = time.perf_counter()
+    front = frontend_lm_path(dev, smi)
+    print(f"VLM and encoder-decoder LM phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    attn["launches"] += front["attention"]["launches"]
+    attn["max_abs_err"] = max(attn["max_abs_err"], front["attention"]["max_abs_err"])
+    for name, n in front["attention"]["variants"].items():
+        attn["variants"][name]["launches"] += n
+    attn["launches_by_run"].update(front["launches_by_run"])
+    attn["frontend"] = front["attention"]["timings"]
+
     def launches(name):
         return (resident_launches[name] + cert["launches"][name] + ckpt_res["launches"][name]
                 + datagen["launches"][name] + host_launches[name]
@@ -1199,6 +1287,9 @@ def main(argv) -> int:
                       f"step {rec[n]['train']['median_s']:.4f} s" for n in REC_ARCHS)
           + f"; {MOE_ARCHS[0]} decode {moe['serve']['run']['decode_tok_s']:.1f} tok/s, train "
           f"step ({MOE_TRAIN_LAYERS} layers) {moe['train']['median_s']:.4f} s"
+          + f"; {FRONT_ARCHS[0]} decode {front[FRONT_ARCHS[0]]['serve']['decode_tok_s']:.1f} "
+          f"tok/s, {FRONT_ARCHS[1]} decode {front[FRONT_ARCHS[1]]['serve']['decode_tok_s']:.1f} "
+          f"tok/s"
           + f"; surrogate serving {serving['qps']:.1f} queries/s "
           f"closed loop, fleet step {serving['fleet_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
           f"{attn['timings']['decode']['ms']:.4f} ms; RT_SPEC member on the card "
@@ -1713,8 +1804,8 @@ def attn_bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_times(q, k, v, reps: int, mask=None, q_dtype=None) -> dict:
-    """``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal``
+def sdpa_times(q, k, v, reps: int, mask=None, q_dtype=None, causal: bool = True) -> dict:
+    """``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal=causal``
     without a mask, else the explicit boolean mask), pinned to each backend
     in turn: {backend: {"ms": device ms per call (CUDA graph), "eager_ms":
     ms per call launched from Python}, or None where it refuses the call}.
@@ -1722,7 +1813,7 @@ def sdpa_times(q, k, v, reps: int, mask=None, q_dtype=None) -> dict:
     call).  The library yardstick, never on the port's path."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    kw = {"is_causal": True} if mask is None else {"attn_mask": mask}
+    kw = {"is_causal": causal} if mask is None else {"attn_mask": mask}
     out = {}
     for name in SDPA_BACKENDS:
         backend = getattr(SDPBackend, name, None)
@@ -2075,7 +2166,9 @@ def lm_serving_path(dev, smi: str) -> dict:
     engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
     torch.cuda.synchronize()
 
-    runs = serve_modes(engine, cfg, LM_PROMPTS, LM_NEW)
+    runs = {**serve_modes(engine, cfg, LM_PROMPTS, LM_NEW, modes=("run",)),
+            **serve_modes(engine, cfg, LM_PROMPTS, LM_NEW, n_requests=LM_LOCKSTEP_REQUESTS,
+                          modes=("run_lockstep",))}
     for mode, (_, c, _) in runs.items():
         require(c["prefill"] > 0 and c["decode"] > 0,
                 f"flash_attention launched in prefill and in decode ({mode})")
@@ -2084,7 +2177,9 @@ def lm_serving_path(dev, smi: str) -> dict:
         require(c["variants"]["decode"]["decode_splitkv"] == c["decode"],
                 f"every decode launch of {mode} ran decode_splitkv ({c['variants']['decode']})")
 
-    by_mode = [np.concatenate([r.output for r in runs[m][0]]) for m in runs]
+    # the lockstep workload is the first LM_LOCKSTEP_REQUESTS of run's
+    by_mode = [np.concatenate([r.output for r in runs[m][0][:LM_LOCKSTEP_REQUESTS]])
+               for m in runs]
     print(f"run vs run_lockstep: {np.mean(by_mode[0] == by_mode[1]):.4f} of "
           f"{by_mode[0].size} greedy tokens equal (bf16 prefill in other batch shapes)")
 
@@ -2555,45 +2650,51 @@ def window_keys(q_pos: np.ndarray, window) -> int:
 
 
 def group_attention_checks(dev, cfg, prefills, kv_lens, max_seq: int, windows, seed: int,
-                           what: str) -> float:
+                           what: str, causal: bool = True) -> float:
     """Kernel 5 against its plain version at a model's shapes (its q heads
     over its KV heads, its head dim; bf16): prefills of the given (batch,
-    length) and decode, bf16 q against the f32 cache of ``max_seq``
-    positions, one row per ``kv_lens`` entry, each with every window of
-    ``windows``.  Returns the largest error."""
+    length) or (batch, queries, keys) and decode, bf16 q against the f32
+    cache of ``max_seq`` positions, one row per ``kv_lens`` entry (None:
+    LM_SLOTS rows over every position, no ``kv_lens``), each with every
+    window of ``windows``; ``causal`` or not.  Returns the largest error."""
     g = torch.Generator(device=dev).manual_seed(seed)
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
     bf = torch.bfloat16
+    mode = "causal" if causal else "non-causal"
 
     def rn(shape, dt=bf):
         return torch.randn(shape, generator=g, device=dev).to(dt)
 
     worst = 0.0
-    for b, s in prefills:
-        q, k, v = rn((b, h, s, d)), rn((b, hkv, s, d)), rn((b, hkv, s, d))
+    for pf in prefills:
+        b, sq, sk = pf if len(pf) == 3 else (pf[0], pf[1], pf[1])
+        q, k, v = rn((b, h, sq, d)), rn((b, hkv, sk, d)), rn((b, hkv, sk, d))
         for window in windows:
             worst = max(worst, check_attention(
-                f"{what} prefill {b}x{h}x{s}x{d} over {hkv} KV heads, window {window}",
-                q, k, v, "prefill_wgmma", window=window))
-    n = len(kv_lens)
+                f"{what} {mode} prefill {b}x{h}x{sq}x{d} over {sk} keys x {hkv} KV heads, "
+                f"window {window}", q, k, v, "prefill_wgmma", causal=causal, window=window))
+    n = LM_SLOTS if kv_lens is None else len(kv_lens)
     ck, cv = rn((n, max_seq, hkv, d), torch.float32), rn((n, max_seq, hkv, d), torch.float32)
-    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    lens = None if kv_lens is None else torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     q = rn((n, h, 1, d))
     for window in windows:
         worst = max(worst, check_attention(
-            f"{what} decode bf16 q ({n},{h},1,{d}) against the f32 cache, window "
-            f"{window}, kv_lens {list(kv_lens)}", q, ck.transpose(1, 2),
-            cv.transpose(1, 2), "decode_splitkv", kv_lens=lens, window=window))
+            f"{what} {mode} decode bf16 q ({n},{h},1,{d}) against the f32 cache of "
+            f"{max_seq} positions, window {window}, kv_lens "
+            f"{'none' if kv_lens is None else list(kv_lens)}", q, ck.transpose(1, 2),
+            cv.transpose(1, 2), "decode_splitkv", kv_lens=lens, window=window, causal=causal))
     return worst
 
 
-def group_attention_timings(dev, cfg, s: int, max_seq: int, lens_np: np.ndarray, smi: str,
-                            window, seed: int, what: str) -> dict:
+def group_attention_timings(dev, cfg, s: int, max_seq: int, lens_np, smi: str,
+                            window, seed: int, what: str, causal: bool = True) -> dict:
     """Kernel 5's times at a model's serving shapes: the prefill of ``s``
-    tokens and the decode step of LM_SLOTS slots at the given depths (the
-    f32 cache of ``max_seq`` positions), with ``window`` (None: causal
-    only); beside the plain version, each SDPA backend (a window as a mask)
-    and the bound, which counts only the keys each query attends."""
+    tokens and the decode step of LM_SLOTS slots at the given depths
+    (``lens_np``; None: no ``kv_lens``, every one of the cache's
+    ``max_seq`` positions) against the f32 cache, with ``window`` (None:
+    none), ``causal`` or not; beside the plain version, each SDPA backend (a
+    window or the depths as a mask) and the bound, which counts only the
+    keys each query attends."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2605,48 +2706,56 @@ def group_attention_timings(dev, cfg, s: int, max_seq: int, lens_np: np.ndarray,
     v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(bf)
     pos = torch.arange(s, device=dev)
     mask = None if w is None else (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
-    t = {"variant": fa.select_variant(q, k, v, None, w), "window": w, "shape": [1, h, s, d]}
-    t["ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, window=w), 50)
-    t["eager_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, window=w), reps=50)
-    t["plain_ms"] = graph_ms(lambda: ref.flash_attention_ref(q, k, v, window=w), 5)
-    t["sdpa"] = sdpa_times(q, k, v, reps=20, mask=mask)
+    kw = {"window": w, "causal": causal}
+    t = {"variant": fa.select_variant(q, k, v, None, w), "window": w, "causal": causal,
+         "shape": [1, h, s, d]}
+    t["ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, **kw), 50)
+    t["eager_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=50)
+    t["plain_ms"] = graph_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 5)
+    t["sdpa"] = sdpa_times(q, k, v, reps=20, mask=mask, causal=causal)
     t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
+    keys = window_keys(np.arange(s), w) if causal else s * s
     t["bound_ms"], t["bound_by"] = attn_bound_ms(
-        2 * (2 * h * s * d) + 2 * (2 * hkv * s * d), 4 * h * d * window_keys(np.arange(s), w))
+        2 * (2 * h * s * d) + 2 * (2 * hkv * s * d), 4 * h * d * keys)
     out["prefill"] = t
-    lens = torch.from_numpy(lens_np).to(dev)
+    lens = None if lens_np is None else torch.from_numpy(lens_np).to(dev)
     q = torch.randn((LM_SLOTS, h, 1, d), generator=g, device=dev).to(bf)
     ck = torch.randn((LM_SLOTS, max_seq, hkv, d), generator=g, device=dev)
     cv = torch.randn((LM_SLOTS, max_seq, hkv, d), generator=g, device=dev)
     kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-    kpos = torch.arange(max_seq, device=dev)[None]
-    dmask = kpos < lens[:, None]
-    if w is not None:
-        dmask = dmask & (kpos >= lens[:, None] - w)
-    dmask = dmask[:, None, None]
-    t = {"variant": fa.select_variant(q, kt, vt, lens, w), "window": w,
-         "shape": [LM_SLOTS, h, 1, d], "kv_lens": lens_np.tolist()}
-    t["ms"] = graph_ms(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens, window=w), 100)
-    t["eager_ms"] = cuda_ms(lambda: fa.flash_attention(q, kt, vt, kv_lens=lens, window=w),
-                            reps=100)
-    t["plain_ms"] = graph_ms(
-        lambda: ref.flash_attention_ref(q, kt, vt, kv_lens=lens, window=w), 20)
+    dmask = None
+    if lens is not None:
+        kpos = torch.arange(max_seq, device=dev)[None]
+        dmask = kpos < lens[:, None]
+        if w is not None:
+            dmask = dmask & (kpos >= lens[:, None] - w)
+        dmask = dmask[:, None, None]
+    t = {"variant": fa.select_variant(q, kt, vt, lens, w), "window": w, "causal": causal,
+         "shape": [LM_SLOTS, h, 1, d],
+         "kv_lens": None if lens_np is None else lens_np.tolist()}
+    kw = {"kv_lens": lens, "window": w, "causal": causal}
+    t["ms"] = graph_ms(lambda: fa.flash_attention(q, kt, vt, **kw), 100)
+    t["eager_ms"] = cuda_ms(lambda: fa.flash_attention(q, kt, vt, **kw), reps=100)
+    t["plain_ms"] = graph_ms(lambda: ref.flash_attention_ref(q, kt, vt, **kw), 20)
     t["sdpa"] = sdpa_times(q, kt.to(bf).contiguous(), vt.to(bf).contiguous(), reps=100,
-                           mask=dmask)
+                           mask=dmask, causal=causal)
     t["library_ms"], t["library_backend"] = fastest(t["sdpa"])
     # the kernel's own function: bf16 q upcast to f32 against the f32 cache
-    t["sdpa_same"] = sdpa_times(q, kt, vt, reps=100, mask=dmask, q_dtype=torch.float32)
+    t["sdpa_same"] = sdpa_times(q, kt, vt, reps=100, mask=dmask, q_dtype=torch.float32,
+                                causal=causal)
     t["same_library_ms"], t["same_library_backend"] = fastest(t["sdpa_same"])
-    keys = window_keys(lens_np - 1, w)
+    keys = (LM_SLOTS * max_seq if lens_np is None else
+            window_keys(lens_np - 1, w) if causal else int(lens_np.sum()))
     t["bound_ms"], t["bound_by"] = attn_bound_ms(keys * hkv * d * 2 * 4 + 2 * (
-        2 * LM_SLOTS * h * d) + 4 * LM_SLOTS, 4 * h * d * keys)
+        2 * LM_SLOTS * h * d) + (0 if lens_np is None else 4 * LM_SLOTS), 4 * h * d * keys)
     out["decode"] = t
 
     def f(x):
         return "not measured" if x is None else f"{x:.4f}"
 
     for name, t in out.items():
-        print(f"flash_attention {what} {name} {t['shape']} over {hkv} KV heads, window {w} "
+        print(f"flash_attention {what} {'causal' if causal else 'non-causal'} {name} "
+              f"{t['shape']} over {hkv} KV heads, window {w} "
               f"(ms per call on the device; eager in brackets): {t['variant']} {f(t['ms'])} "
               f"({f(t.get('eager_ms'))}), plain {f(t['plain_ms'])}, bound "
               f"{t['bound_ms']:.5f} ({t['bound_by']}); SDPA"
@@ -2716,7 +2825,11 @@ def recurrent_family(dev, name: str, smi: str, launches: dict) -> dict:
     engine = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_seq=max_seq, device=dev)
     engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
     torch.cuda.synchronize()
-    runs = serve_modes(engine, cfg, REC_PROMPTS[name], LM_NEW)
+    n_run, n_lock = REC_REQUESTS[name]
+    runs = {**serve_modes(engine, cfg, REC_PROMPTS[name], LM_NEW, n_requests=n_run,
+                          modes=("run",)),
+            **serve_modes(engine, cfg, REC_PROMPTS[name], LM_NEW, n_requests=n_lock,
+                          modes=("run_lockstep",))}
     for mode, (_, c, _) in runs.items():
         v = c["variants"]
         if cfg.hybrid:
@@ -2735,7 +2848,7 @@ def recurrent_family(dev, name: str, smi: str, launches: dict) -> dict:
                            "decode_launches": c["decode"]}
                     for mode, (_, c, _) in runs.items()}
     served = runs["run"][0]
-    by_mode = [np.concatenate([r.output for r in runs[m][0]]) for m in runs]
+    by_mode = [np.concatenate([r.output for r in runs[m][0][:n_lock]]) for m in runs]
     res["run_vs_lockstep_equal"] = float(np.mean(by_mode[0] == by_mode[1]))
     print(f"{name} run vs run_lockstep: {res['run_vs_lockstep_equal']:.4f} of "
           f"{by_mode[0].size} greedy tokens equal", flush=True)
@@ -3153,7 +3266,8 @@ def moe_lm_path(dev, smi: str) -> dict:
     engine = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=dev)
     engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
     torch.cuda.synchronize()
-    runs = {**serve_modes(engine, cfg, MOE_PROMPTS, LM_NEW, modes=("run",)),
+    runs = {**serve_modes(engine, cfg, MOE_PROMPTS, LM_NEW, n_requests=MOE_REQUESTS,
+                          modes=("run",)),
             **serve_modes(engine, cfg, MOE_PROMPTS, LM_NEW, n_requests=MOE_LOCKSTEP_REQUESTS,
                           modes=("run_lockstep",))}
     add_launches(runs, cfg.name)
@@ -3406,6 +3520,428 @@ def moe_lm_path(dev, smi: str) -> dict:
     section("kernel5_timings")
     print(f"MoE phase seconds by section: {res['seconds']}", flush=True)
     print(json.dumps({"moe_lm": res}, default=str), flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def served_attention():
+    """While entered: counts the calls of ``ops.flash_attention`` by
+    ``causal`` and refuses the plain attentions (``lm.attention_train``,
+    ``ref.flash_attention_ref``), so that a served path must take kernel 5
+    at every attention call.  Yields the counts."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    calls = {"causal": 0, "non_causal": 0}
+    real = ops.flash_attention
+
+    def counted(*args, **kw):
+        calls["causal" if kw.get("causal", True) else "non_causal"] += 1
+        return real(*args, **kw)
+
+    def refuse(name):
+        def call(*args, **kw):
+            raise CheckFailed(f"{name} reached from a served path")
+        return call
+
+    with mock.patch.object(ops, "flash_attention", counted), \
+            mock.patch.object(lm, "attention_train", refuse("lm.attention_train")), \
+            mock.patch.object(ref, "flash_attention_ref", refuse("ref.flash_attention_ref")):
+        yield calls
+
+
+def served_decode(lm, params, cfg, batch: dict, lens, start: torch.Tensor, max_seq: int,
+                  steps: int, feed=None):
+    """``lm_prefill`` of ``batch`` (rows right-padded to ``lens``, or None),
+    f32 cache, then ``steps`` ``serve_step``s at the per-slot positions
+    ``start + t``, each fed the greedy token (read back to the host, as the
+    engine does) or ``feed[t]``.  Returns (logits (steps + 1, B, V) f32,
+    tokens (steps + 1, B), {"prefill_s", "decode_s", "decode_step_ms"})."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.lm_prefill(params, cfg, batch, max_seq, cache_dtype=torch.float32,
+                                  prompt_lens=lens)
+    out_l, out_t = [logits], [logits.argmax(-1)]
+    out_t[-1].cpu()
+    t1 = time.perf_counter()
+    for t in range(steps):
+        cur = (out_t[-1] if feed is None else feed[t]).to(torch.int32)
+        logits, cache = lm.serve_step(params, cfg, cache, cur, start + t)
+        out_l.append(logits)
+        out_t.append(logits.argmax(-1))
+        out_t[-1].cpu()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del cache
+    return torch.stack(out_l), torch.stack(out_t), {
+        "prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_step_ms": 1e3 * (t2 - t1) / steps}
+
+
+def frontend_inputs(cfg, b: int, n: int, seed: int, dev) -> dict:
+    """Seeded N(0, 1) f32 inputs of a family's frontend: the VLM's (b, n,
+    frontend_dim) image embeddings or the encoder-decoder's frames."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, n, cfg.frontend_dim)).astype(np.float32)).to(dev)
+    return {"encoder_embeds" if cfg.encoder_layers else "frontend_embeds": x}
+
+
+def frontend_family(dev, name: str, smi: str) -> dict:
+    """One family of the VLM and encoder-decoder path at full width (see
+    FRONT_ARCHS): serve, decode against the forward, (the encoder-decoder)
+    one request alone against its batch, a decode step's profile,
+    training, and card against CPU.  Returns the readings, kernel 5's
+    launches among them."""
+    import dataclasses
+    from repro_torch.compression import tree_flatten_with_path, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.loadgen import lm_workload
+    from repro_torch.train.optimizer import AdamConfig
+
+    def flat(tree):
+        return dict(tree_flatten_with_path(tree)[0])
+
+    cfg = get_config(name)
+    enc = cfg.encoder_layers > 0
+    n_layers, n_enc = cfg.num_layers, cfg.encoder_layers
+    res = {"attention": {"launches": 0, "variants": dict.fromkeys(fa.VARIANTS, 0)},
+           "launches_by_run": {}, "seconds": {}}
+    t_section = [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        res["seconds"][what] = now - t_section[0]
+        t_section[0] = now
+
+    def served(what, calls, before, causal, non_causal, prefill, decode):
+        """Kernel 5's launches of a served run against its attention calls."""
+        ran = {n: fa.VARIANT_LAUNCHES[n] - before[n] for n in fa.VARIANTS}
+        want = {"prefill_wgmma": prefill, "decode_splitkv": decode, "scalar": 0}
+        require(calls == {"causal": causal, "non_causal": non_causal}
+                and sum(ran.values()) == causal + non_causal and ran == want,
+                f"{name} {what}: every attention call launched kernel 5, none the plain "
+                f"attention ({calls} calls; variants {ran}, {want} required)")
+        res["attention"]["launches"] += sum(ran.values())
+        for k, n in ran.items():
+            res["attention"]["variants"][k] += n
+        res["launches_by_run"][what] = {"calls": dict(calls), "variants": ran}
+
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flat(params).values())
+    print(f"lm: {name} at full width ({n_layers} layers"
+          + (f", {n_enc} encoder layers" if enc else "")
+          + f", d {cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} KV heads x "
+          f"{cfg.hdim}, ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.frontend} frontend of "
+          f"width {cfg.frontend_dim}"
+          + (f", {cfg.frontend_seq} image tokens" if cfg.frontend_seq else "")
+          + f"), {n_params} parameters "
+          f"({sum(t.numel() * t.element_size() for t in flat(params).values())} bytes), init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    require(n_params == lm.param_count(cfg) == FRONT_PARAMS[name],
+            f"{name}: parameter count == param_count == {FRONT_PARAMS[name]} ({n_params})")
+    head = lm._head_weight(params, cfg)
+
+    if not enc:
+        # -- the engine serves the VLM from tokens alone
+        engine = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                             device=dev)
+        engine.run(lm_workload(cfg.vocab_size, 2, prompt_lens=(8,), new_tokens=(2,), seed=1))
+        torch.cuda.synchronize()
+        runs = serve_modes(engine, cfg, LM_PROMPTS, LM_NEW, n_requests=FRONT_REQUESTS,
+                           modes=("run",))
+        _, c, _ = runs["run"]
+        v = c["variants"]
+        require(0 < c["prefill"] == v["prefill"]["prefill_wgmma"]
+                and 0 < c["decode"] == v["decode"]["decode_splitkv"]
+                and v["prefill"]["scalar"] == v["decode"]["scalar"] == 0,
+                f"{name} run: every prefill launch ran prefill_wgmma and every decode launch "
+                f"decode_splitkv, none the scalar variant ({v})")
+        res["attention"]["launches"] += c["prefill"] + c["decode"]
+        for ph in v:
+            for k, n in v[ph].items():
+                res["attention"]["variants"][k] += n
+        res["serve"] = {**c["stats"], "prefill_launches": c["prefill"],
+                        "decode_launches": c["decode"], "variants": v}
+        res["launches_by_run"]["run"] = {"prefill_launches": c["prefill"],
+                                         "decode_launches": c["decode"]}
+        served_reqs = runs["run"][0]
+        section("serve")
+
+        # -- an image request: lm_prefill of image and prompt, greedy decode
+        f_img, plen = cfg.frontend_seq, cfg.frontend_seq + VLM_IMAGE_PROMPT
+        prompt = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (1, VLM_IMAGE_PROMPT)).astype(np.int32)).to(dev)
+        image = frontend_inputs(cfg, 1, f_img, 6, dev)
+        before = dict(fa.VARIANT_LAUNCHES)
+        with served_attention() as calls:
+            logits, toks, times = served_decode(
+                lm, params, cfg, {"tokens": prompt, **image}, None,
+                torch.full((1,), plen, dtype=torch.int32, device=dev), plen + FRONT_NEW,
+                FRONT_NEW)
+        served("image", calls, before, n_layers * (1 + FRONT_NEW), 0, n_layers,
+               n_layers * FRONT_NEW)
+        gen = toks[:FRONT_NEW, 0][None].to(torch.int32)
+        with torch.no_grad():
+            hidden, _ = lm.lm_forward(params, cfg, {"tokens": torch.cat([prompt, gen], 1),
+                                                    **image})
+            fwd = (hidden[:, plen - 1:plen + FRONT_NEW] @ head).float()[0]
+            del hidden
+        dec = logits[:, 0]
+        err = float((fwd - dec).abs().max())
+        res["image"] = {"image_tokens": f_img, "prompt": VLM_IMAGE_PROMPT,
+                        "new_tokens": FRONT_NEW, **times, "decode_vs_forward": err,
+                        "argmax_equal": float((fwd.argmax(-1) == dec.argmax(-1))
+                                              .float().mean())}
+        print(f"{name} image request ({f_img} image tokens + {VLM_IMAGE_PROMPT} prompt "
+              f"tokens, {FRONT_NEW} greedy steps from position {plen}): {res['image']}; {smi}",
+              flush=True)
+        require(err <= LOGIT_ATOL, f"{name}: the image request's decode logits == "
+                                   f"lm_forward's, teacher-forced (max abs diff {err:.4f} <= "
+                                   f"{LOGIT_ATOL})")
+        require(bool(torch.isfinite(dec).all()) and dec.shape == (FRONT_NEW + 1,
+                                                                  cfg.vocab_size),
+                f"{name}: finite ({FRONT_NEW + 1}, {cfg.vocab_size}) decode logits")
+        del logits, fwd, dec
+
+        # -- a decode step of 8 slots at the run's first chunk's depths
+        chunk = served_reqs[:LM_SLOTS]
+        ptoks = np.zeros((LM_SLOTS, max(len(r.prompt) for r in chunk)), np.int32)
+        for j, r in enumerate(chunk):
+            ptoks[j, :len(r.prompt)] = r.prompt
+        lens_np = np.array([len(r.prompt) for r in chunk], np.int32)
+        logits, cache = engine._prefill(ptoks, lens_np)
+        del engine
+    else:
+        # -- FRONT_REQUESTS requests through lm_prefill and serve_step
+        rng = np.random.default_rng(7)
+        lens_np = np.array([ENC_PROMPTS[i % len(ENC_PROMPTS)] for i in range(FRONT_REQUESTS)],
+                           np.int32)
+        ptoks = np.zeros((FRONT_REQUESTS, lens_np.max()), np.int32)
+        for j, n in enumerate(lens_np):
+            ptoks[j, :n] = rng.integers(0, cfg.vocab_size, n)
+        toks_t = torch.from_numpy(ptoks).to(dev)
+        lens = torch.from_numpy(lens_np).to(dev)
+        frames = frontend_inputs(cfg, FRONT_REQUESTS, ENC_FRAMES, 8, dev)
+        max_seq = int(lens_np.max()) + FRONT_NEW
+        served_decode(lm, params, cfg, {"tokens": toks_t[:2, :8], **{
+            k: x[:2, :16] for k, x in frames.items()}}, None,
+            torch.full((2,), 8, dtype=torch.int32, device=dev), 16, 2)        # warm-up
+        before = dict(fa.VARIANT_LAUNCHES)
+        with served_attention() as calls:
+            logits, toks, times = served_decode(lm, params, cfg, {"tokens": toks_t, **frames},
+                                                lens, lens, max_seq, FRONT_NEW)
+        served("served", calls, before, n_layers * (1 + FRONT_NEW),
+               n_enc + n_layers * (1 + FRONT_NEW), n_enc + 2 * n_layers,
+               2 * n_layers * FRONT_NEW)
+        n_tok = FRONT_REQUESTS * (FRONT_NEW + 1)
+        res["serve"] = {"requests": FRONT_REQUESTS, "frames": ENC_FRAMES,
+                        "prompts": lens_np.tolist(), "new_tokens": FRONT_NEW + 1, **times,
+                        "decode_tok_s": FRONT_REQUESTS * FRONT_NEW / times["decode_s"],
+                        "prefill_tok_s": int(lens_np.sum()) / times["prefill_s"],
+                        "tokens": n_tok}
+        print(f"{name} served {FRONT_REQUESTS} requests ({ENC_FRAMES} frames each, prompts "
+              f"{lens_np.tolist()}, {FRONT_NEW + 1} tokens each): {res['serve']}; {smi}",
+              flush=True)
+        require(bool(torch.isfinite(logits).all()) and bool((toks >= 0).all())
+                and bool((toks < cfg.vocab_size).all()),
+                f"{name}: finite logits, tokens in the vocab")
+        section("serve")
+
+        # -- the decode against lm_forward, teacher-forced: each row its prompt
+        # and its served tokens (causal: the pads after them reach nothing)
+        full = torch.zeros((FRONT_REQUESTS, max_seq), dtype=torch.int32, device=dev)
+        full[:, :ptoks.shape[1]] = toks_t
+        rows = torch.arange(FRONT_REQUESTS, device=dev)[:, None]
+        cols = lens[:, None] + torch.arange(FRONT_NEW, device=dev)[None]
+        full[rows, cols] = toks[:FRONT_NEW].T.to(torch.int32)
+        with torch.no_grad():
+            hidden, _ = lm.lm_forward(params, cfg, {"tokens": full, **frames})
+            at = torch.cat([cols - 1, cols[:, -1:]], 1)             # lens - 1 .. lens + 31
+            fwd = (hidden[rows, at] @ head).float()                 # (B, T, V)
+            del hidden
+        err = float((fwd - logits.transpose(0, 1)).abs().max())
+        agree = float((fwd.argmax(-1) == logits.transpose(0, 1).argmax(-1)).float().mean())
+        res["decode_vs_forward"] = {"max_abs_diff": err, "argmax_equal": agree}
+        print(f"{name} decode vs lm_forward, teacher-forced: {res['decode_vs_forward']}",
+              flush=True)
+        require(err <= LOGIT_ATOL, f"{name}: decode logits == lm_forward's, teacher-forced "
+                                   f"(max abs diff {err:.4f} <= {LOGIT_ATOL})")
+        del fwd
+
+        # -- one request alone against its batch: tokens equal up to a tie
+        row, n0 = 0, int(lens_np[0])
+        one = {"tokens": toks_t[:1, :n0], **{k: x[:1] for k, x in frames.items()}}
+        start = lens[:1]
+        _, solo_t, _ = served_decode(lm, params, cfg, one, None, start, n0 + FRONT_NEW,
+                                     FRONT_NEW)
+        solo_tf, _, _ = served_decode(lm, params, cfg, one, None, start, n0 + FRONT_NEW,
+                                      FRONT_NEW, feed=toks[:, row:row + 1])
+        diff = float((solo_tf[:, 0] - logits[:, row]).abs().max())
+        out, want = solo_t[:, 0].cpu().numpy(), toks[:, row].cpu().numpy()
+        n = len(want)
+        part = next((t for t in range(n) if out[t] != want[t]), n)
+        gap = 0.0 if part == n else float(
+            (solo_tf[part, 0, int(out[part])] - solo_tf[part, 0, int(want[part])]).abs())
+        res["solo"] = {"prompt": n0, "tokens": n, "equal": int(np.sum(out == want)),
+                       "first_difference": part, "tie_gap": gap,
+                       "teacher_forced_max_abs_diff": diff}
+        print(f"{name} request {row} ({n0} prompt tokens) alone against the batch: "
+              f"{res['solo']}", flush=True)
+        upto = ("the end" if part == n else
+                f"a tie ({gap:.4f} <= 2 x {diff:.4f}, the bf16 teacher-forced difference)")
+        require(gap <= 2 * diff, f"{name}: request {row} served alone gives the batch's "
+                                 f"tokens ({part} of {n}) up to {upto}")
+        del logits, solo_tf
+        logits, cache = lm.lm_prefill(params, cfg, {"tokens": toks_t, **frames}, max_seq,
+                                      cache_dtype=torch.float32, prompt_lens=lens)
+    section("check")
+
+    # -- a decode step's wall, busy share, kernels and operator calls
+    cur = logits.argmax(-1).to(torch.int32)
+    depth = torch.from_numpy(lens_np).to(dev)
+
+    def decode_step():
+        out, _ = lm.serve_step(params, cfg, cache, cur, depth)
+        torch.argmax(out, -1).cpu()
+
+    for _ in range(2):
+        decode_step()
+    res["decode_profile"] = profile_lm_steps(decode_step, FRONT_PROFILE_STEPS)
+    print(f"{name} decode step profile ({len(lens_np)} slots at depths {lens_np.tolist()}): "
+          f"{res['decode_profile']}; {smi}", flush=True)
+    del cache, logits, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("profile")
+
+    # -- training at full width, seeded frontend inputs
+    batch_n, seq = FRONT_TRAIN[name]
+    n_front = seq if enc else cfg.frontend_seq
+    rng = np.random.default_rng(0)
+    opt_cfg = AdamConfig(lr=LM_TRAIN_LR, grad_clip=1.0)
+
+    def batch():
+        b = launch.make_batch(rng, cfg, batch_n, seq, dev)
+        b.update(frontend_inputs(cfg, batch_n, n_front, int(rng.integers(1 << 30)), dev))
+        return b
+
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = launch.loss_and_grads(params, cfg, batch())
+    g = flat(grads)
+    require(all(bool(torch.isfinite(t).all()) for t in g.values())
+            and bool(torch.isfinite(loss)),
+            f"{name}: every one of {len(g)} gradients is finite on the card "
+            f"(loss {float(loss):.4f})")
+    want = ["frontend_proj", "layers/wq", "layers/wo", "layers/w_down"] + (
+        ["layers/ln_x", "layers/xwq", "layers/xwk", "layers/xwv", "layers/xwo",
+         "enc_layers/wq", "enc_layers/w_down", "enc_norm"] if enc else [])
+    moved = [k for k in want if float(g[k].float().abs().max()) > 0]
+    require(moved == want, f"{name}: nonzero gradients of {want} ({moved})")
+    del grads, g
+    opt = launch.adam_init_tree(params)
+    params, opt, loss = launch.train_step(params, opt, batch(), cfg, opt_cfg)   # warm-up
+    float(loss)
+    losses, step_s = [], []
+    for _ in range(FRONT_TRAIN_STEPS):
+        b = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = launch.train_step(params, opt, b, cfg, opt_cfg)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    require(fa.LAUNCHES["flash_attention"] == 0, f"{name}: no kernel-5 launch in training")
+    require(all(np.isfinite(losses)), f"{name}: {FRONT_TRAIN_STEPS} finite losses")
+    require(peak <= FRONT_PEAK_LIMIT, f"{name}: training peak {peak / 1e9:.2f} GB <= "
+                                      f"{FRONT_PEAK_LIMIT / 1e9:.0f} GB")
+    med = statistics.median(step_s)
+    tokens = batch_n * seq
+    res["train"] = {"batch": batch_n, "seq": seq, "frontend": n_front, "losses": losses,
+                    "step_s": step_s, "median_s": med, "tokens_per_s": tokens / med,
+                    "max_memory_allocated": peak}
+    print(f"{name} training: {FRONT_TRAIN_STEPS} steps of {batch_n} x ({n_front} "
+          f"{'frames' if enc else 'image tokens'} + {seq} tokens) after a warm-up, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step median {med:.4f} s, "
+          f"{tokens / med:.1f} tokens/s; peak {peak / 1e9:.2f} GB; {smi}", flush=True)
+    del params, opt, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("train")
+
+    # -- card against CPU: one loss and its gradients, LM_CPU_LAYERS layers, f32
+    cfg2 = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS, param_dtype="float32",
+                               encoder_layers=LM_CPU_LAYERS if enc else 0,
+                               frontend_seq=0 if enc else FRONT_CPU_IMAGE)
+    p_card = lm.init_lm(torch.Generator(device=dev).manual_seed(1), cfg2)
+    p_cpu = tree_map(lambda t: t.cpu(), p_card)
+    b_card = launch.make_batch(np.random.default_rng(1), cfg2, 1, LM_CPU_SEQ, dev)
+    b_card.update(frontend_inputs(cfg2, 1, LM_CPU_SEQ if enc else FRONT_CPU_IMAGE, 2, dev))
+    l_card, g_card = launch.loss_and_grads(p_card, cfg2, b_card)
+    l_cpu, g_cpu = launch.loss_and_grads(p_cpu, cfg2, {k: v.cpu() for k, v in b_card.items()})
+    g_card, g_cpu = flat(g_card), flat(g_cpu)
+    grad_err = max(float((g_card[k].cpu() - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                   for k, g in g_cpu.items())
+    res["cpu_check"] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+                        "grad_err": grad_err}
+    print(f"{name} card vs CPU, loss and gradients at full width, {LM_CPU_LAYERS} layers"
+          + (f" and {LM_CPU_LAYERS} encoder layers" if enc else
+             f", {FRONT_CPU_IMAGE} image tokens")
+          + f", f32, 1 x {LM_CPU_SEQ}: {res['cpu_check']}", flush=True)
+    require(abs(float(l_card) - float(l_cpu)) <= LM_CPU_LOSS_RTOL * abs(float(l_cpu)),
+            f"{name}: loss on the card {float(l_card):.7f} == CPU {float(l_cpu):.7f} "
+            f"(rtol {LM_CPU_LOSS_RTOL})")
+    require(grad_err <= LM_CPU_GRAD_RTOL, f"{name}: every gradient on the card == CPU "
+                                          f"(worst {grad_err:.2e} of its tensor's max <= "
+                                          f"{LM_CPU_GRAD_RTOL})")
+    del p_card, p_cpu, g_card, g_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("cpu_check")
+    return res
+
+
+def frontend_lm_path(dev, smi: str) -> dict:
+    """The VLM and encoder-decoder families at full width (see
+    FRONT_ARCHS): kernel 5 against its plain version and timed at their
+    shapes, then each family (:func:`frontend_family`).  Returns the
+    readings and kernel 5's launches on the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    vcfg, scfg = (get_config(n) for n in FRONT_ARCHS)
+    t0 = time.perf_counter()
+    worst = max([
+        group_attention_checks(dev, vcfg, ((1, vcfg.frontend_seq + VLM_IMAGE_PROMPT),),
+                               CHECK_KV_LENS, LM_MAX_SEQ, (None,), 10, vcfg.name),
+        group_attention_checks(dev, scfg, ((FRONT_REQUESTS, ENC_PROMPTS[-1]),),
+                               CHECK_KV_LENS, LM_MAX_SEQ, (None,), 11,
+                               f"{scfg.name} decoder"),
+        group_attention_checks(dev, scfg, ((FRONT_REQUESTS, ENC_FRAMES),) + ENC_CROSS, None,
+                               ENC_DECODE_KEYS[0], (None,), 12,
+                               f"{scfg.name} encoder and cross", causal=False)]
+        + [group_attention_checks(dev, scfg, (), None, keys, (None,), 13 + i,
+                                  f"{scfg.name} cross", causal=False)
+           for i, keys in enumerate(ENC_DECODE_KEYS[1:])])
+    timings = group_attention_timings(dev, scfg, ENC_FRAMES, ENC_FRAMES, None, smi, None, 14,
+                                      f"{scfg.name} encoder / cross", causal=False)
+    res = {"attention": {"launches": 0, "variants": dict.fromkeys(fa.VARIANTS, 0),
+                         "max_abs_err": worst, "timings": {scfg.name: timings}},
+           "launches_by_run": {}, "seconds": {"kernel5": time.perf_counter() - t0}}
+    for name in FRONT_ARCHS:
+        t0 = time.perf_counter()
+        r = frontend_family(dev, name, smi)
+        res[name] = r
+        res["seconds"][name] = time.perf_counter() - t0
+        res["attention"]["launches"] += r["attention"]["launches"]
+        for k, n in r["attention"]["variants"].items():
+            res["attention"]["variants"][k] += n
+        res["launches_by_run"][name] = r["launches_by_run"]
+    print(f"VLM and encoder-decoder phase seconds: {res['seconds']}", flush=True)
+    print(json.dumps({"frontend_lm": res}, default=str), flush=True)
     return res
 
 
@@ -4409,11 +4945,13 @@ def solver_checks(dev) -> dict:
                 f"solver {spec.name}: finite, starts at rest, kinetic energy grows and stays "
                 f"under {ke_bound:g}, material in [0, 1]")
     # the production's first RT member: a reading, not a check (the
-    # instability amplifies rounding further for the sampled parameters)
+    # instability amplifies rounding further for the sampled parameters),
+    # over the first SOLVER_READING steps (cut, for the script's time)
     p = sample_params(RT_SPEC, 1, 0)[0]
-    rel = field_rel(run_simulation(p, device=DEV), run_simulation(p, device="cpu"))
-    print(f"solver rt full, sample_params(RT_SPEC, 1, 0)[0]: card vs CPU {rel:.3e} "
-          f"(a reading)", flush=True)
+    rel = field_rel(run_simulation(p, **SOLVER_READING, device=DEV),
+                    run_simulation(p, **SOLVER_READING, device="cpu"))
+    print(f"solver rt, sample_params(RT_SPEC, 1, 0)[0], {SOLVER_READING}: card vs CPU "
+          f"{rel:.3e} (a reading)", flush=True)
     return times
 
 

@@ -4,7 +4,9 @@
 // (_attn_kernel, pallas_call at line 105): q (B, Hq, Sq, D) against k, v
 // (B, Hkv, Sk, D), q head h reading KV head h / (Hq / Hkv); queries
 // end-aligned with the keys (qpos = i + Sk - Sq); optional causal mask and
-// sliding window (kpos > qpos - window); masked logits are the finite -1e30
+// sliding window (kpos > qpos - window); more queries than keys only
+// without either (their alignment then changes nothing: cross-attention
+// from a long decoder prompt onto a short encoder input); masked logits are the finite -1e30
 // and the online softmax runs in f32 exactly as the TPU kernel's
 // (m_new = max(m, max s), p = exp(s - m_new), l = exp(m - m_new) l + sum p,
 // acc = exp(m - m_new) acc + p v, out = acc / max(l, 1e-30)).  A row whose
@@ -1146,7 +1148,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
-    if (!q_bf16 || !kv_bf16 || kv_lens || Sk < Sq) return static_cast<int>(cudaErrorInvalidValue);
+    // more queries than keys only where their alignment cannot matter:
+    // non-causal without a window (cross-attention onto a short encoder input)
+    if (!q_bf16 || !kv_bf16 || kv_lens || (Sk < Sq && (causal || window > 0)))
+      return static_cast<int>(cudaErrorInvalidValue);
     return launch_prefill(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, strides, causal, window, scale,
                           st);
   }

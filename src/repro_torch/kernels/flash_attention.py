@@ -103,8 +103,12 @@ build._cache_size = lambda: len(_libs)
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               window: Optional[int], kv_lens: Optional[torch.Tensor]) -> None:
-    """Shape and type rules shared by the kernel and its plain version."""
+               window: Optional[int], kv_lens: Optional[torch.Tensor],
+               causal: bool = True) -> None:
+    """Shape and type rules shared by the kernel and its plain version.
+    More queries than keys are taken only where their alignment cannot
+    matter: non-causal, no window, no ``kv_lens`` (cross-attention from a
+    long decoder prompt onto a short encoder input)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, H, S, D)")
     b, hq, sq, d = q.shape
@@ -114,8 +118,9 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk = k.shape[1], k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"q heads ({hq}) must be a multiple of KV heads ({hkv})")
-    if kv_lens is None and sq > sk:
-        raise ValueError(f"queries ({sq}) are end-aligned with keys ({sk}): need Sq <= Sk")
+    if kv_lens is None and sq > sk and (causal or window is not None):
+        raise ValueError(f"queries ({sq}) are end-aligned with keys ({sk}): need Sq <= Sk "
+                         f"unless non-causal without a window")
     if kv_lens is not None and tuple(kv_lens.shape) != (b,):
         raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")
     if window is not None and window <= 0:
@@ -201,7 +206,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lengths.  Returns (B, Hq, Sq, D) in q's dtype, laid out in memory as
     (B, Sq, Hq, D) (a transposed view), with D <= 128.  The kernel is
     :func:`select_variant`'s."""
-    _check_launch_args(q, k, v, window, kv_lens)
+    _check_launch_args(q, k, v, window, kv_lens, causal)
     return _launch_checked(q, k, v, causal, sm_scale, window, kv_lens,
                            select_variant(q, k, v, kv_lens, window))
 
@@ -211,7 +216,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
             kv_lens: Optional[torch.Tensor], variant: str) -> torch.Tensor:
     """Launch the named variant; raises if its preconditions fail (every
     input the prefill or decode kernel takes is one select_variant gives it)."""
-    _check_launch_args(q, k, v, window, kv_lens)
+    _check_launch_args(q, k, v, window, kv_lens, causal)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if variant != "scalar" and select_variant(q, k, v, kv_lens, window) != variant:
@@ -221,8 +226,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return _launch_checked(q, k, v, causal, sm_scale, window, kv_lens, variant)
 
 
-def _check_launch_args(q, k, v, window, kv_lens) -> None:
-    check_args(q, k, v, window, kv_lens)
+def _check_launch_args(q, k, v, window, kv_lens, causal) -> None:
+    check_args(q, k, v, window, kv_lens, causal)
     _require_card(q, k, v, kv_lens)
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise TypeError(f"q must be f32 or bf16 and k, v one of them, got {q.dtype}, "

@@ -112,7 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     int32 gives row b its own key length (keys at or past it masked)."""
     ts = (q, k, v) + ((kv_lens,) if kv_lens is not None else ())
     if _on_cpu(*ts, kind="attention"):
-        fa.check_args(q, k, v, window, kv_lens)     # the kernel's wrapper checks its own
+        fa.check_args(q, k, v, window, kv_lens, causal)  # the kernel's wrapper checks its own
         return ref.flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
                                        window=window, kv_lens=kv_lens)
     return fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window,

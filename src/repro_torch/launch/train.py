@@ -87,10 +87,21 @@ def train_step(params, opt: AdamState, batch, cfg: ArchConfig, opt_cfg: AdamConf
 
 def make_batch(rng: np.random.Generator, cfg: ArchConfig, batch: int, seq: int,
                device) -> dict:
-    """Tokens drawn as the JAX launcher draws them, labels rolled by one."""
+    """Tokens drawn as the JAX launcher draws them, labels rolled by one;
+    as the JAX launcher adds them (train.py:101-106), zero f32
+    ``frontend_embeds`` (batch, frontend_seq, frontend_dim) for a vision
+    config and zero f32 ``encoder_embeds`` (batch, seq, frontend_dim) for
+    an encoder-decoder."""
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))
                             .astype(np.int32)).to(device)
-    return {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    out = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    if cfg.frontend == "vision":
+        out["frontend_embeds"] = torch.zeros((batch, cfg.frontend_seq, cfg.frontend_dim),
+                                             dtype=torch.float32, device=device)
+    if cfg.encoder_layers:
+        out["encoder_embeds"] = torch.zeros((batch, seq, cfg.frontend_dim),
+                                            dtype=torch.float32, device=device)
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:

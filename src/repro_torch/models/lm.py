@@ -1,5 +1,5 @@
-"""Decoder LMs, serving and training: the dense, MoE, SSM (Mamba2 SSD) and
-hybrid (Hymba) families of ``repro/models/lm.py``.
+"""LMs, serving and training: the dense, MoE, SSM (Mamba2 SSD), hybrid
+(Hymba), VLM and encoder-decoder families of ``repro/models/lm.py``.
 
 Parameters are a plain dictionary in the JAX package's layout: ``embed``
 (V, D), ``final_norm`` (D,), ``lm_head`` (D, V) unless embeddings are tied,
@@ -12,26 +12,43 @@ N), ``ssm_norm`` (di,), ``ssm_out`` (di, D), and ``ssm_A``, ``ssm_D``,
 layer's ``router`` (D, E), ``e_gate``/``e_up`` (E, D, F), ``e_down`` (E,
 F, D) in place of the MLP, with Arctic's dense residual MLP ``w_gate``/
 ``w_up``/``w_down`` at ``moe_dense_ff`` beside them).  A pure SSM layer has
-no attention and no MLP; a hybrid layer has both branches.  The layer scan
-becomes a Python loop over ``l``.
+no attention and no MLP; a hybrid layer has both branches.  An
+encoder-decoder model's decoder layers add the cross-attention leaves
+``ln_x`` (D,), ``xwq`` (D, H, Dh), ``xwk``/``xwv`` (D, Hkv, Dh), ``xwo``
+(H, Dh, D), and the model ``enc_layers`` (stacked encoder layers, without
+them) and ``enc_norm`` (D,).  A model with a frontend (vision or audio) has
+``frontend_proj`` (frontend_dim, D): the VLM's image embeddings go through
+it and are prepended to the tokens, the encoder-decoder's input frames go
+through it into the encoder.  The layer scans become Python loops.
 
-Serving attention (a KV cache) goes through
-:func:`repro_torch.kernels.ops.flash_attention`: the CUDA kernel on the
-card, its plain version on the CPU.  The hybrid's local layers attend in a
-sliding window of ``attn_window`` keys, its ``global_attn_layers`` without
-one.  The cache is a dictionary of stacked tensors written in place (the
-JAX functions return updated copies): ``k``/``v`` (L, B, max_seq, Hkv, Dh),
-read through strided views with per-row key lengths ``pos + 1`` where slots
-sit at their own depths; for the SSM and hybrid families ``conv`` (L, B,
-K - 1, di + 2 N), the last K - 1 inputs of the causal convolution, and
-``ssm`` (L, B, nh, P, N), the recurrent state, always f32.
+Which attention each call takes:
 
-The training forward (:func:`lm_forward`, :func:`lm_loss`) has no cache and
-runs :func:`attention_train`, plain PyTorch that autograd differentiates,
-as the JAX package's training runs its jnp ``attention``; the SSD scan is
-plain PyTorch in both packages.  The layer loop checkpoints per layer as
-the config's ``remat`` asks; the loss is chunked over the sequence with
-each chunk checkpointed.
+* :func:`lm_prefill` and :func:`serve_step` (serving) attend through
+  :func:`repro_torch.kernels.ops.flash_attention`, the CUDA kernel on the
+  card and its plain version on the CPU, every call: the decoder's
+  self-attention (causal, end-aligned with the KV cache), the encoder's
+  self-attention (``causal=False``) and the decoder's cross-attention
+  (``causal=False``, over every encoder position, the fresh keys in the
+  prefill and the cross cache in decode).
+* :func:`lm_forward` and :func:`lm_loss` (training) attend through
+  :func:`attention_train`, plain PyTorch that autograd differentiates, as
+  the JAX package's training runs its jnp ``attention``: the kernel has no
+  backward.
+
+The hybrid's local layers attend in a sliding window of ``attn_window``
+keys, its ``global_attn_layers`` without one.  The cache is a dictionary
+of stacked tensors written in place (the JAX functions return updated
+copies): ``k``/``v`` (L, B, max_seq, Hkv, Dh), read through strided views
+with per-row key lengths ``pos + 1`` where slots sit at their own depths;
+for the SSM and hybrid families ``conv`` (L, B, K - 1, di + 2 N), the last
+K - 1 inputs of the causal convolution, and ``ssm`` (L, B, nh, P, N), the
+recurrent state, always f32; for the encoder-decoder ``xk``/``xv`` (L, B,
+enc_seq, Hkv, Dh), the cross-attention's keys and values, written by the
+prefill and read by every decode step.
+
+The SSD scan is plain PyTorch in both packages.  The layer loops
+checkpoint per layer as the config's ``remat`` asks (the encoder's too);
+the loss is chunked over the sequence with each chunk checkpointed.
 
 The MoE block (:func:`moe_block`) is the reference's grouped dense
 dispatch in plain PyTorch, as the JAX package computes it in plain jnp:
@@ -43,8 +60,6 @@ loop.
 
 Left out, because they are identities without a mesh: ``_constrain``,
 ``_reduce_barrier``, ``_gather_weights`` and the constraint-mesh setters.
-The VLM and encoder-decoder families raise ``NotImplementedError`` naming
-their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -70,23 +85,6 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for the families this port does not run yet."""
-    for cond, what, family in ((cfg.encoder_layers > 0, "encoder-decoder", 5),
-                               (cfg.frontend != "none", "VLM / audio frontend", 4)):
-        if cond:
-            raise NotImplementedError(
-                f"{cfg.name}: the {what} family is not ported yet (ROADMAP Queue 1 "
-                f"item 11b, family {family}); the port runs the "
-                f"{', '.join(PORTED_FAMILIES)} families")
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 11b)")
-
-
 # ===========================================================================
 # parameters
 # ===========================================================================
@@ -100,9 +98,12 @@ _EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
 _DRAW_SLAB = 1 << 27
 
 
-def _layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+def _layer_param_shapes(cfg: ArchConfig, cross_attn: bool = False
+                        ) -> Dict[str, Tuple[int, ...]]:
     """Shapes of one layer's leaves (lm.py:47): attention unless the family
-    is "ssm"; the router and experts (and Arctic's dense residual MLP at
+    is "ssm"; with ``cross_attn`` (an encoder-decoder's decoder layers) the
+    cross-attention's ``ln_x``, ``xwq``, ``xwk``, ``xwv``, ``xwo``; the
+    router and experts (and Arctic's dense residual MLP at
     ``moe_dense_ff``) for MoE, else the SwiGLU MLP unless the family is
     "ssm"; the Mamba2 block for "ssm" and the hybrid."""
     d, hd = cfg.d_model, cfg.hdim
@@ -112,6 +113,9 @@ def _layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
         shapes.update(wq=(d, h, hd), wk=(d, hkv, hd), wv=(d, hkv, hd), wo=(h, hd, d))
         if cfg.qkv_bias:
             shapes.update(bq=(h, hd), bk=(hkv, hd), bv=(hkv, hd))
+    if cross_attn:
+        shapes.update(ln_x=(d,), xwq=(d, h, hd), xwk=(d, hkv, hd), xwv=(d, hkv, hd),
+                      xwo=(h, hd, d))
     if cfg.num_experts:
         e = cfg.num_experts
         shapes.update(router=(d, e), e_gate=(e, d, f), e_up=(e, d, f), e_down=(e, f, d))
@@ -132,16 +136,18 @@ def _layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
 def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
             device: DeviceLike = None) -> Params:
     """Random parameters with the JAX package's shapes, scales and stacked
-    (L, ...) layout: N(0, 1/fan_in) matrices (fan_in = H*Dh for ``wo``, K
-    for ``ssm_conv_w``, E for the expert leaves: each leaf's first axis),
-    N(0, 0.02^2) embeddings, ones for norms, zeros for biases, drawn in f32
-    from ``gen`` in slabs of at most ``_DRAW_SLAB`` values, each cast into
-    a leaf of the config's dtype (so a bf16 leaf never exists in f32); the
-    SSM's ``ssm_A`` = log(linspace(1, 16, nh)), ``ssm_D`` = 1 and
-    ``ssm_dt_bias`` = -4 in f32 (lm.py:90-95).  ``gen`` is a seeded
-    ``torch.Generator`` (its device is used) or a seed, for a generator on
-    ``device`` (the card unless ``device="cpu"``)."""
-    check_ported(cfg)
+    (L, ...) layout: N(0, 1/fan_in) matrices (fan_in = H*Dh for ``wo`` and
+    ``xwo``, K for ``ssm_conv_w``, E for the expert leaves: each leaf's
+    first axis), N(0, 0.02^2) embeddings, ones for norms, zeros for biases,
+    drawn in f32 from ``gen`` in slabs of at most ``_DRAW_SLAB`` values,
+    each cast into a leaf of the config's dtype (so a bf16 leaf never exists
+    in f32); the SSM's ``ssm_A`` = log(linspace(1, 16, nh)), ``ssm_D`` = 1
+    and ``ssm_dt_bias`` = -4 in f32 (lm.py:90-95).  An encoder-decoder
+    config adds the decoder's cross-attention leaves, ``enc_layers`` and
+    ``enc_norm``; a frontend adds ``frontend_proj`` (fan_in frontend_dim)
+    (lm.py:105-125).  ``gen`` is a seeded ``torch.Generator`` (its device
+    is used) or a seed, for a generator on ``device`` (the card unless
+    ``device="cpu"``)."""
     if isinstance(gen, torch.Generator):
         dev = gen.device
         if device is not None and torch.device(device).type != dev.type:
@@ -150,7 +156,7 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(gen))
     dt = _dtype(cfg)
-    d, v, n_l = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    d, v = cfg.d_model, cfg.vocab_size
 
     def normal(shape, std):
         out = torch.empty(shape, dtype=dt, device=dev)
@@ -161,28 +167,37 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
                                         dtype=torch.float32).mul_(std)
         return out
 
+    def stack(n_l, cross):
+        layers = {}
+        for name, shape in sorted(_layer_param_shapes(cfg, cross).items()):
+            full = (n_l,) + shape
+            if name.startswith("ln") or name == "ssm_norm":
+                layers[name] = torch.ones(full, dtype=dt, device=dev)
+            elif name == "ssm_A":
+                a = torch.log(torch.linspace(1.0, 16.0, shape[0], dtype=torch.float32,
+                                             device=dev))
+                layers[name] = a.expand(full).clone()
+            elif name in _F32_LEAVES:
+                layers[name] = torch.full(full, -4.0 if name == "ssm_dt_bias" else 1.0,
+                                          dtype=torch.float32, device=dev)
+            elif name.startswith("b"):
+                layers[name] = torch.zeros(full, dtype=dt, device=dev)
+            else:
+                fan_in = shape[0] * shape[1] if name in ("wo", "xwo") else shape[0]
+                layers[name] = normal(full, 1.0 / math.sqrt(fan_in))
+        return layers
+
     params: Params = {"embed": normal((v, d), 0.02),
                       "final_norm": torch.ones((d,), dtype=dt, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, v), 1.0 / math.sqrt(d))
-    layers = {}
-    for name, shape in sorted(_layer_param_shapes(cfg).items()):
-        full = (n_l,) + shape
-        if name.startswith("ln") or name == "ssm_norm":
-            layers[name] = torch.ones(full, dtype=dt, device=dev)
-        elif name == "ssm_A":
-            a = torch.log(torch.linspace(1.0, 16.0, shape[0], dtype=torch.float32,
-                                         device=dev))
-            layers[name] = a.expand(full).clone()
-        elif name in _F32_LEAVES:
-            layers[name] = torch.full(full, -4.0 if name == "ssm_dt_bias" else 1.0,
-                                      dtype=torch.float32, device=dev)
-        elif name.startswith("b"):
-            layers[name] = torch.zeros(full, dtype=dt, device=dev)
-        else:
-            fan_in = shape[0] * shape[1] if name == "wo" else shape[0]
-            layers[name] = normal(full, 1.0 / math.sqrt(fan_in))
-    params["layers"] = layers
+    params["layers"] = stack(cfg.num_layers, cfg.encoder_layers > 0)
+    if cfg.encoder_layers:
+        params["enc_layers"] = stack(cfg.encoder_layers, False)
+        params["enc_norm"] = torch.ones((d,), dtype=dt, device=dev)
+    if cfg.frontend != "none":
+        fd = cfg.frontend_dim
+        params["frontend_proj"] = normal((fd, d), 1.0 / math.sqrt(fd))
     return params
 
 
@@ -204,11 +219,20 @@ def params_from_jax(tree, device: DeviceLike = None) -> Params:
 
 
 def param_count(cfg: ArchConfig) -> int:
-    """Analytic parameter count (lm.py:879)."""
-    check_ported(cfg)
-    per_layer = sum(math.prod(s) for s in _layer_param_shapes(cfg).values())
-    n = per_layer * cfg.num_layers + cfg.d_model        # + final_norm
-    return n + cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    """Analytic parameter count (lm.py:879): the layers (with the
+    cross-attention leaves for an encoder-decoder), ``final_norm``, the
+    encoder's layers and ``enc_norm``, the embedding and head, and
+    ``frontend_proj``."""
+    def per_layer(cross):
+        return sum(math.prod(s) for s in _layer_param_shapes(cfg, cross).values())
+
+    n = per_layer(cfg.encoder_layers > 0) * cfg.num_layers + cfg.d_model
+    if cfg.encoder_layers:
+        n += per_layer(False) * cfg.encoder_layers + cfg.d_model
+    n += cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    if cfg.frontend != "none":
+        n += cfg.frontend_dim * cfg.d_model
+    return n
 
 
 def active_param_count(cfg: ArchConfig) -> int:
@@ -557,13 +581,20 @@ def ssm_block(lp: Params, x: torch.Tensor, cfg: ArchConfig,
 # transformer layers
 # ===========================================================================
 
-def _project_qkv(lp: Params, x: torch.Tensor, cfg: ArchConfig):
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) @ w (D, H, Dh) -> (B, S, H, Dh), one matrix product."""
     b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
 
-    def proj(w):
-        return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
 
-    q, k, v = proj(lp["wq"]), proj(lp["wk"]), proj(lp["wv"])
+def _out_proj(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y (B, S, H, Dh) @ w (H, Dh, D) -> (B, S, D)."""
+    b, s, h, hd = y.shape
+    return y.reshape(b, s, h * hd) @ w.reshape(h * hd, w.shape[2])
+
+
+def _project_qkv(lp: Params, x: torch.Tensor, cfg: ArchConfig):
+    q, k, v = (_proj_heads(x, lp[n]) for n in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     return q, k, v
@@ -596,13 +627,15 @@ def _window(cfg: ArchConfig, is_global: bool) -> Optional[int]:
 
 def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
                causal: bool = True, kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]]
-               = None, cache_pos=None, is_global: bool = False):
+               = None, cache_pos=None, is_global: bool = False, serving: bool = False):
     """Self-attention sublayer.  Returns (y, (k, v)): the fresh k, v without a
     cache, else the cache tensors (B, max_seq, Hkv, Dh), written in place at
-    ``cache_pos`` (a scalar, or (B,) per-slot positions).  Without a cache
-    this is the training forward and attends through :func:`attention_train`;
-    with one, through the serving kernel (:func:`attention`).  The window is
-    :func:`_window`'s for ``is_global``."""
+    ``cache_pos`` (a scalar, or (B,) per-slot positions).  With a cache, or
+    with ``serving`` (the encoder under :func:`lm_prefill`, which keeps no
+    cache), it attends through the serving kernel (:func:`attention`);
+    otherwise this is the training forward and attends through
+    :func:`attention_train`.  The window is :func:`_window`'s for
+    ``is_global``."""
     q, k, v = _project_qkv(lp, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -633,30 +666,65 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
             kv_lens = (positions[:, -1] + 1).to(torch.int32)
             y = attention(q, ck, cv, causal=causal, window=window, kv_lens=kv_lens)
         new_kv = (ck, cv)
+    elif serving:
+        # no cache, serving: queries and keys at the same positions
+        y = attention(q, k, v, causal=causal, window=window)
+        new_kv = (k, v)
     else:
         # no cache: the training forward, differentiable plain attention
         y = attention_train(q, k, v, positions, positions, causal=causal,
                             window=window, chunk=cfg.attn_chunk)
         new_kv = (k, v)
-    b, s, h, hd = y.shape
-    wo = lp["wo"]
-    return y.reshape(b, s, h * hd) @ wo.reshape(h * hd, wo.shape[2]), new_kv
+    return _out_proj(y, lp["wo"]), new_kv
+
+
+def cross_attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                     enc_out: Optional[torch.Tensor] = None,
+                     cache: Optional[Cache] = None) -> torch.Tensor:
+    """The decoder's cross-attention sublayer (lm.py:617-635): ``ln_x``, q
+    from ``xwq``, k and v from ``enc_out`` (B, Se, D) through ``xwk`` and
+    ``xwv``, no RoPE and no bias, every query over every encoder position
+    (non-causal, no window), the output through ``xwo``.
+
+    With a cache holding ``xk``/``xv`` and ``enc_out`` (the prefill), k and
+    v are written into it, cast to its dtype, and the fresh ones are
+    attended; without ``enc_out`` (decode) the cached ones are read, rounded
+    to q's dtype as the reference's ``astype(q.dtype)`` does.  With a cache
+    it attends through the serving kernel (:func:`attention`), without one
+    (training) through :func:`attention_train`.  Returns (B, S, D)."""
+    q = _proj_heads(rmsnorm(lp["ln_x"], x, cfg.norm_eps), lp["xwq"])
+    if enc_out is not None:
+        k, v = _proj_heads(enc_out, lp["xwk"]), _proj_heads(enc_out, lp["xwv"])
+        if cache is not None and "xk" in cache:
+            cache["xk"].copy_(k)
+            cache["xv"].copy_(v)
+    else:
+        k, v = cache["xk"], cache["xv"]
+    if cache is not None:
+        y = attention(q, k, v, causal=False)
+    else:
+        b, se = k.shape[:2]
+        y = attention_train(q, k, v, positions, _as_positions(0, b, se, k.device),
+                            causal=False, chunk=cfg.attn_chunk)
+    return _out_proj(y, lp["xwo"])
 
 
 def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
-                  is_global: bool = False, cache: Optional[Cache] = None, cache_pos=None,
+                  is_global: bool = False, enc_out: Optional[torch.Tensor] = None,
+                  cache: Optional[Cache] = None, cache_pos=None,
                   pad_mask: Optional[torch.Tensor] = None):
     """One decoder layer (lm.py:568).  Returns (x, cache, aux): ``cache`` is
     the layer's slice of the cache ({"k", "v"}, {"conv", "ssm"} or all
-    four), written in place (or {} without a cache); ``aux`` is the MoE
-    block's load-balance loss, 0.0 for the families without experts.  An
-    SSM layer is ``x + ssm(ln1(x))``; a hybrid layer ``x + 0.5 * (attn +
-    ssm)`` of the same ``ln1(x)``; every family but the pure SSM then adds
-    the MoE block (:func:`moe_block`) or the SwiGLU MLP of ``ln2(x)``.
-    ``pad_mask`` (B, S) marks the real tokens of a right-padded prefill for
-    the SSM's state; an MoE block routes every row, pads included, as the
-    reference does."""
-    check_ported(cfg)
+    four; with "xk", "xv" for an encoder-decoder), written in place (or {}
+    without a cache); ``aux`` is the MoE block's load-balance loss, 0.0 for
+    the families without experts.  An SSM layer is ``x + ssm(ln1(x))``; a
+    hybrid layer ``x + 0.5 * (attn + ssm)`` of the same ``ln1(x)``; after
+    the self-attention's residual comes the cross-attention's
+    (:func:`cross_attn_block`) where ``enc_out`` is given or the cache
+    holds ``xk``; every family but the pure SSM then adds the MoE block
+    (:func:`moe_block`) or the SwiGLU MLP of ``ln2(x)``.  ``pad_mask`` (B,
+    S) marks the real tokens of a right-padded prefill for the SSM's state;
+    an MoE block routes every row, pads included, as the reference does."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     new_cache: Cache = {}
     if cfg.family != "ssm":
@@ -676,12 +744,30 @@ def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
     if cfg.family == "ssm":
         return x + y_ssm, new_cache, 0.0
     x = x + (0.5 * (y_attn + y_ssm) if cfg.hybrid else y_attn)
+    if enc_out is not None or (cache is not None and "xk" in cache):
+        x = x + cross_attn_block(lp, x, cfg, positions, enc_out, cache)
+        if cache is not None and "xk" in cache:
+            new_cache.update(xk=cache["xk"], xv=cache["xv"])
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if cfg.num_experts:
         y, aux = moe_block(lp, h, cfg)
     else:
         y, aux = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
     return x + y, new_cache, aux
+
+
+def encoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
+                  serving: bool = False) -> torch.Tensor:
+    """One encoder layer (lm.py:652): ``ln1``, self-attention over every
+    position (``causal=False``, RoPE at ``positions``, the config's window
+    and qkv bias), its residual, then ``ln2`` and the SwiGLU MLP.  With
+    ``serving`` (under :func:`lm_prefill`) it attends through the serving
+    kernel, else through :func:`attention_train`."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    y, _ = attn_block(lp, h, cfg, positions, causal=False, serving=serving)
+    x = x + y
+    h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
 # ===========================================================================
@@ -716,32 +802,59 @@ def _remat(f, cfg: ArchConfig):
 
 
 def run_decoder_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
-                      positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                      positions: torch.Tensor, enc_out: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop of the training forward (lm.py:695), each layer under
-    the config's remat, the hybrid's global layers flagged; returns (x,
-    total aux), the aux a 0-d f32 sum of the layers' MoE load-balance
-    losses (zero without experts)."""
+    the config's remat, the hybrid's global layers flagged, every layer
+    cross-attending to ``enc_out`` where given; returns (x, total aux), the
+    aux a 0-d f32 sum of the layers' MoE load-balance losses (zero without
+    experts)."""
     flags = _global_flags(cfg)
 
-    def body(h, i):
-        y, _, a = decoder_layer(_layer(params, i), h, cfg, positions, is_global=flags[i])
+    def body(h, e, i):
+        y, _, a = decoder_layer(_layer(params, i), h, cfg, positions, is_global=flags[i],
+                                enc_out=e)
         return y, a
 
     body = _remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, a = body(x, i)
+        x, a = body(x, enc_out, i)
         aux = aux + a
     return x, aux
 
 
+def _encode(params: Params, cfg: ArchConfig, embeds: torch.Tensor, dtype: torch.dtype,
+            serving: bool) -> torch.Tensor:
+    """The encoder (lm.py:716-729, 819-828): ``embeds`` (B, Se, frontend_dim)
+    cast to ``dtype`` (the activations'), through ``frontend_proj``, the
+    encoder layers at positions 0 .. Se - 1, then ``enc_norm``.  Training
+    runs each layer under the config's remat; ``serving`` (the prefill)
+    runs them plainly, through the serving kernel."""
+    ex = embeds.to(dtype) @ params["frontend_proj"]
+    b, se, _ = ex.shape
+    epos = _as_positions(0, b, se, ex.device)
+
+    def body(h, i):
+        return encoder_layer(_layer(params, i, "enc_layers"), h, cfg, epos, serving=serving)
+
+    if not serving:
+        body = _remat(body, cfg)
+    for i in range(cfg.encoder_layers):
+        ex = body(ex, i)
+    return rmsnorm(params["enc_norm"], ex, cfg.norm_eps)
+
+
 def lm_forward(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
                                                                   torch.Tensor]:
-    """Full causal forward (lm.py:712) -> (final-normed hidden (B, S, D),
-    aux)."""
-    check_ported(cfg)
+    """Full forward (lm.py:712) -> (final-normed hidden (B, S, D), aux); S
+    counts a VLM's prepended image tokens.  An encoder-decoder model encodes
+    ``batch["encoder_embeds"]`` first, and every decoder layer attends to
+    it."""
     x, positions = _embed_inputs(params, cfg, batch)
-    x, aux = run_decoder_stack(params, cfg, x, positions)
+    enc_out = (_encode(params, cfg, batch["encoder_embeds"], x.dtype, serving=False)
+               if cfg.encoder_layers else None)
+    x, aux = run_decoder_stack(params, cfg, x, positions, enc_out)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -759,9 +872,13 @@ def lm_loss(params: Params, cfg: ArchConfig, batch,
     ``c = min(vocab_chunk_tokens, S)`` tokens a chunk and ``S // c`` chunks:
     tokens past the last whole chunk are dropped, and the sum is divided by
     ``B * nc * c``.  Each chunk is checkpointed, so no (tokens, V) tensor
-    outlives its chunk.  Returns ``loss + 0.01 * aux``, 0-d f32."""
+    outlives its chunk.  A VLM's hidden rows of the prepended image
+    tokens are dropped (after the final norm) so that the last S rows meet
+    the S labels.  Returns ``loss + 0.01 * aux``, 0-d f32."""
     hidden, aux = lm_forward(params, cfg, batch)
     labels = batch["labels"]
+    if hidden.shape[1] != labels.shape[1]:      # a frontend prepended tokens
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
     w = _head_weight(params, cfg)
     b, s, _ = hidden.shape
     c = min(vocab_chunk_tokens, s)
@@ -780,8 +897,16 @@ def lm_loss(params: Params, cfg: ArchConfig, batch,
 
 def _embed_inputs(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
                                                                    torch.Tensor]:
-    """tokens -> (B, S, D) embeddings, (B, S) int32 positions."""
+    """tokens (+ a frontend's embeddings) -> (B, S, D) embeddings, (B, S)
+    int32 positions 0 .. S - 1 (lm.py:682).  ``frontend_embeds`` (B, F,
+    frontend_dim), where the config has a frontend and the batch holds
+    them, are cast to the activations' dtype, projected by
+    ``frontend_proj`` and prepended, so S counts them and RoPE rotates them
+    too; without them nothing is prepended."""
     x = params["embed"][batch["tokens"].long()]
+    if cfg.frontend != "none" and "frontend_embeds" in batch:
+        fe = batch["frontend_embeds"].to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
     b, s, _ = x.shape
     return x, _as_positions(0, b, s, x.device)
 
@@ -790,17 +915,18 @@ def _head_weight(params: Params, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _layer(params: Params, i: int) -> Params:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layer(params: Params, i: int, stack: str = "layers") -> Params:
+    return {k: v[i] for k, v in params[stack].items()}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device: DeviceLike = None) -> Cache:
+               device: DeviceLike = None, enc_seq: int = 0) -> Cache:
     """Stacked zero caches with a leading L axis (lm.py:775): ``k``, ``v``
     (L, B, max_seq, Hkv, Dh) unless the family is "ssm"; for the SSM and
     the hybrid ``conv`` (L, B, K - 1, di + 2 N) in ``dtype`` and ``ssm``
-    (L, B, nh, P, N) in f32 whatever ``dtype`` is."""
-    check_ported(cfg)
+    (L, B, nh, P, N) in f32 whatever ``dtype`` is; for an encoder-decoder
+    with ``enc_seq`` > 0 the cross cache ``xk``, ``xv`` (L, B, enc_seq,
+    Hkv, Dh)."""
     dev = resolve_device(device)
     l = cfg.num_layers
     cache: Cache = {}
@@ -813,25 +939,30 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
         cache["conv"] = torch.zeros((l, batch, k - 1, nh * p + 2 * n), dtype=dtype,
                                     device=dev)
         cache["ssm"] = torch.zeros((l, batch, nh, p, n), dtype=torch.float32, device=dev)
+    if cfg.encoder_layers and enc_seq:
+        shape = (l, batch, enc_seq, cfg.num_kv_heads, cfg.hdim)
+        cache["xk"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["xv"] = torch.zeros(shape, dtype=dtype, device=dev)
     return cache
 
 
 def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-                cache: Cache, cache_pos, pad_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                cache: Cache, cache_pos, pad_mask: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layer loop of prefill and decode, each layer's cache slice
     written in place; the MoE load-balance losses are dropped, as the
     reference's prefill and decode drop them.  The reference returns the
     conv window in the activations' dtype whatever the cache's (lm.py:452,
     594), so the conv cache takes x's dtype here first: exact for a bf16
     model's f32 cache, and an f32 model's window is not rounded by a bf16
-    cache."""
+    cache.  Each layer cross-attends to ``enc_out`` where given, else to
+    the cross cache where there is one."""
     if "conv" in cache and cache["conv"].dtype != x.dtype:
         cache["conv"] = cache["conv"].to(x.dtype)
     flags = _global_flags(cfg)
     for i in range(cfg.num_layers):
         x, _, _ = decoder_layer(_layer(params, i), x, cfg, positions, is_global=flags[i],
-                                cache={k: v[i] for k, v in cache.items()},
+                                enc_out=enc_out, cache={k: v[i] for k, v in cache.items()},
                                 cache_pos=cache_pos, pad_mask=pad_mask)
     return x
 
@@ -850,8 +981,11 @@ def lm_prefill(params: Params, cfg: ArchConfig, batch, max_seq: int,
     come from each row's own last real token, pad embeddings are zeroed,
     causal masking keeps real queries off the trailing pads, and the SSM
     state is pad-masked, so every row's cache equals a solo prefill of its
-    prompt (lm.py:794)."""
-    check_ported(cfg)
+    prompt (lm.py:794).  A VLM's prepended image tokens are positions of
+    the sequence: ``prompt_lens`` counts them, as the reference builds its
+    pad mask over the whole sequence.  An encoder-decoder model encodes
+    ``batch["encoder_embeds"]`` (without remat, through the serving kernel)
+    and sizes the cross cache to its length."""
     x, positions = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     pad_mask = None
@@ -860,8 +994,11 @@ def lm_prefill(params: Params, cfg: ArchConfig, batch, max_seq: int,
         pad_mask = torch.arange(s, device=x.device)[None] < prompt_lens[:, None]
         x = torch.where(pad_mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
-    cache = init_cache(cfg, b, max_seq, cache_dtype, device=x.device)
-    x = _run_layers(params, cfg, x, positions, cache, 0, pad_mask)
+    enc_out = (_encode(params, cfg, batch["encoder_embeds"], x.dtype, serving=True)
+               if cfg.encoder_layers else None)
+    cache = init_cache(cfg, b, max_seq, cache_dtype, device=x.device,
+                       enc_seq=0 if enc_out is None else enc_out.shape[1])
+    x = _run_layers(params, cfg, x, positions, cache, 0, pad_mask, enc_out)
     if prompt_lens is None:
         x = x[:, -1:]
     else:                       # each row's own last real token
@@ -870,14 +1007,16 @@ def lm_prefill(params: Params, cfg: ArchConfig, batch, max_seq: int,
 
 
 @torch.no_grad()
-def serve_step(params: Params, cfg: ArchConfig, cache: Cache, tokens: torch.Tensor, pos):
+def serve_step(params: Params, cfg: ArchConfig, cache: Cache, tokens: torch.Tensor, pos,
+               enc_out: Optional[torch.Tensor] = None):
     """One decode step.  tokens: (B,) int; pos: a scalar (uniform depth) or a
-    (B,) tensor of per-slot depths.  Writes the cache in place; returns
-    (logits (B, V) f32, cache)."""
-    check_ported(cfg)
+    (B,) tensor of per-slot depths.  An encoder-decoder model reads its
+    cross cache (or attends to ``enc_out``, written into the cache, where
+    given).  Writes the cache in place; returns (logits (B, V) f32,
+    cache)."""
     x = params["embed"][tokens.long()][:, None]
     positions = _as_positions(pos, x.shape[0], 1, x.device)
     if not _is_scalar(pos):
         pos = positions[:, 0]
-    x = _run_layers(params, cfg, x, positions, cache, pos)
+    x = _run_layers(params, cfg, x, positions, cache, pos, enc_out=enc_out)
     return _logits(params, cfg, x), cache

@@ -69,7 +69,6 @@ class ServeEngine:
         if cfg.encoder_layers:
             raise ValueError("encoder-decoder serving goes through the "
                              "decode dry-run, not ServeEngine")
-        lm.check_ported(cfg)
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.cfg = cfg

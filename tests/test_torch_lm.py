@@ -264,11 +264,36 @@ def test_attn_block_at_position_0_attends_to_the_fresh_kv(monkeypatch, param_dty
 
 @pytest.mark.parametrize("name", NOT_DENSE)
 def test_other_families_raise_naming_the_roadmap(name):
-    cfg = reduced_config(name)
-    for call in (lambda: lm.init_lm(0, cfg, device="cpu"),
-                 lambda: lm.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: lm.param_count(cfg),
-                 lambda: lm.lm_prefill({}, cfg, {"tokens": torch.zeros(1, 2, dtype=torch.int32)},
-                                       8)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 11b, family [45]"):
-            call()
+    """The VLM and encoder-decoder families, which raised naming their
+    ROADMAP item until they were ported, now run: init_lm, init_cache,
+    param_count and lm_prefill on the reduced config, with the reference's
+    count and cache layout (their values are held to the reference in
+    tests/test_torch_lm_vlm.py and tests/test_torch_lm_encdec.py)."""
+    jlm = load_reference().lm
+    cfg, jcfg = reduced_config(name), jax_reduced_config(name)
+    params = lm.init_lm(0, cfg, device="cpu")
+    assert lm.param_count(cfg) == jlm.param_count(jcfg) == \
+        sum(t.numel() for t in jax.tree_util.tree_leaves(params))
+    enc_seq = 5 if cfg.encoder_layers else 0
+    cache = lm.init_cache(cfg, 1, 8, device="cpu", enc_seq=enc_seq)
+    want = jlm.init_cache(jcfg, 1, 8, enc_seq=enc_seq)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: v.shape for k, v in want.items()}
+    batch = {"tokens": torch.zeros(1, 2, dtype=torch.int32)}
+    if cfg.encoder_layers:
+        batch["encoder_embeds"] = torch.ones(1, enc_seq, cfg.frontend_dim)
+    if cfg.frontend == "vision":
+        batch["frontend_embeds"] = torch.ones(1, cfg.frontend_seq, cfg.frontend_dim)
+    logits, cache = lm.lm_prefill(params, cfg, batch, cfg.frontend_seq + 8)
+    assert logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert set(cache) == set(want)
+
+
+@pytest.mark.parametrize("name", ALL_ARCHS)
+def test_param_count_matches_reference_for_every_arch(name):
+    """Every config of the registry, full and reduced: the port's count is
+    the reference's, and so is the count of active parameters."""
+    jlm = load_reference().lm
+    for get, jget in ((get_config, jax_get_config), (reduced_config, jax_reduced_config)):
+        assert lm.param_count(get(name)) == jlm.param_count(jget(name))
+        assert lm.active_param_count(get(name)) == jlm.active_param_count(jget(name))

@@ -125,8 +125,10 @@ def test_engine_rejects_what_the_reference_rejects(engines):
         e.run_lockstep([Request(np.zeros(0, np.int32), max_new_tokens=2)])
     with pytest.raises(NotImplementedError):
         e.run([], greedy=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine({}, reduced_config("internvl2-2b"), device="cpu")
+    # an encoder-decoder goes through the decode dry run, as in the JAX engine
+    with pytest.raises(ValueError, match="encoder-decoder serving goes through the "
+                                         "decode dry-run, not ServeEngine"):
+        ServeEngine({}, reduced_config("seamless-m4t-large-v2"), device="cpu")
 
 
 def test_launcher_serves_on_the_cpu_when_asked(capsys, tmp_path):
