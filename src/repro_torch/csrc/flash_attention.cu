@@ -62,7 +62,10 @@
 //   0.5 FMA per byte) and keeps its own online softmax; the 8 warps merge
 //   in shared memory into the split's (m, l, acc), and a second small
 //   kernel merges the splits: out = sum e^(m_i - M) acc_i /
-//   max(sum e^(m_i - M) l_i, 1e-30).
+//   max(sum e^(m_i - M) l_i, 1e-30).  Its partial entry serves one shard of
+//   a cache whose sequence is split over ranks: q_shift moves every query
+//   position past the shard's last key, and the merge writes f32 out and
+//   each row's log-sum-exp, for the caller to merge the shards.
 // * attn_kernel (the first, scalar design) for everything else: f32 q with
 //   long queries (TF32 tensor cores would not meet the f32 tolerance),
 //   head dims other than 64 and 128, f32 k/v with long queries, rows not
@@ -735,7 +738,9 @@ struct DecodeParams {
   const int* kv_lens;  // (B,) or null
   float* ml;           // (2, B, Hq, Sq, splits): m, then l
   float* acc;          // (B, Hq, Sq, splits, D)
+  float* lse;          // (B, Hq, Sq) or null: see attn_decode_merge
   int B, Hq, Hkv, Sq, Sk, D, group, rows, row_blocks, splits, split_keys;
+  int q_shift;         // added to every query position (0: end-aligned)
   long long qs[3], ks[3], vs[3];
   int causal, window;
   float scale;
@@ -790,7 +795,7 @@ __global__ void __launch_bounds__(THREADS) attn_decode_splitkv(const DecodeParam
   const int nr = min(p.rows - r0, RPB);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int seq_k = p.kv_lens ? min(max(p.kv_lens[b], 0), p.Sk) : p.Sk;
-  const int off = seq_k - p.Sq;
+  const int off = seq_k - p.Sq + p.q_shift;
   // this split's keys that any row can see (the last row sees up to seq_k)
   int lo = split * p.split_keys;
   const int hi = min(lo + p.split_keys, seq_k);
@@ -941,12 +946,17 @@ __global__ void __launch_bounds__(THREADS) attn_decode_splitkv(const DecodeParam
   }
 }
 
+// With lse (the partial entry: out is f32 then), each row's log-sum-exp
+// of its scores goes there too, NEG_INF (and out 0) for a row that saw no
+// key, so that
+// partials over disjoint key sets merge as sum_i e^(lse_i - M) out_i /
+// sum_i e^(lse_i - M).
 template <typename TQ>
 __global__ void __launch_bounds__(128) attn_decode_merge(const float* ml, const float* acc,
-                                                         void* out, int Hq, int Sq, int D,
-                                                         int splits, long long nrows,
-                                                         long long os0, long long os1,
-                                                         long long os2) {
+                                                         void* out, float* lse, int Hq,
+                                                         int Sq, int D, int splits,
+                                                         long long nrows, long long os0,
+                                                         long long os1, long long os2) {
   const long long row = blockIdx.x;
   const int iq = static_cast<int>(row % Sq);
   const int h = static_cast<int>((row / Sq) % Hq);
@@ -962,8 +972,12 @@ __global__ void __launch_bounds__(128) attn_decode_merge(const float* ml, const 
     lt = fmaf(w, l[s], lt);
     if (d < D) o = fmaf(w, acc[(row * splits + s) * D + d], o);
   }
+  // a row that saw no key (all its scores NEG_INF) is 0 in the partial entry
+  const bool none = lse && mt == NEG_INF;
   if (d < D)
-    static_cast<TQ*>(out)[b * os0 + h * os1 + iq * os2 + d] = from_f32<TQ>(o / fmaxf(lt, 1e-30f));
+    static_cast<TQ*>(out)[b * os0 + h * os1 + iq * os2 + d] =
+        from_f32<TQ>(none ? 0.f : o / fmaxf(lt, 1e-30f));
+  if (lse && d == 0) lse[row] = none ? NEG_INF : mt + logf(lt);
 }
 
 template <typename TQ, typename TKV, int RPB>
@@ -979,8 +993,12 @@ int launch_decode_rpb(const DecodeParams& p, void* out, const long long* os,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long nrows = static_cast<long long>(p.B) * p.Hq * p.Sq;
-  attn_decode_merge<TQ><<<static_cast<unsigned>(nrows), 128, 0, stream>>>(
-      p.ml, p.acc, out, p.Hq, p.Sq, p.D, p.splits, nrows, os[0], os[1], os[2]);
+  if (p.lse)
+    attn_decode_merge<float><<<static_cast<unsigned>(nrows), 128, 0, stream>>>(
+        p.ml, p.acc, out, p.lse, p.Hq, p.Sq, p.D, p.splits, nrows, os[0], os[1], os[2]);
+  else
+    attn_decode_merge<TQ><<<static_cast<unsigned>(nrows), 128, 0, stream>>>(
+        p.ml, p.acc, out, nullptr, p.Hq, p.Sq, p.D, p.splits, nrows, os[0], os[1], os[2]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1083,14 +1101,15 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out, int B
 int launch_splitkv(const void* q, const void* k, const void* v, void* out, const void* kv_lens,
                    int B, int Hq, int Hkv, int Sq, int Sk, int D, const long long* strides,
                    int causal, int window, float scale, int q_bf16, int kv_bf16, void* part_ml,
-                   void* part_acc, int splits, int split_keys, cudaStream_t stream) {
+                   void* part_acc, int splits, int split_keys, int q_shift, void* lse,
+                   cudaStream_t stream) {
   const int kv_size = kv_bf16 ? 2 : 4;
   const bool kv_aligned = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                           reinterpret_cast<uintptr_t>(v) % 16 == 0;
   bool ok = Sq <= 8 && (D * kv_size) % 16 == 0 && kv_aligned &&
             (Hq / Hkv) * Sq <= DEC_MAX_ROWS && part_ml && part_acc && splits >= 1 &&
             split_keys > 0 && split_keys % DEC_TILE == 0 &&
-            static_cast<long long>(splits) * split_keys >= Sk;
+            static_cast<long long>(splits) * split_keys >= Sk && q_shift >= 0;
   for (int i = 3; i < 9; ++i) ok = ok && (strides[i] * kv_size) % 16 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   DecodeParams p;
@@ -1100,6 +1119,8 @@ int launch_splitkv(const void* q, const void* k, const void* v, void* out, const
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.ml = static_cast<float*>(part_ml);
   p.acc = static_cast<float*>(part_acc);
+  p.lse = static_cast<float*>(lse);
+  p.q_shift = q_shift;
   p.B = B;
   p.Hq = Hq;
   p.Hkv = Hkv;
@@ -1133,20 +1154,25 @@ int launch_splitkv(const void* q, const void* k, const void* v, void* out, const
 // in elements.  variant: 0 attn_kernel (scalar), 1 attn_prefill_wgmma,
 // 2 attn_decode_splitkv + merge
 // (partials in part_ml (2, B, Hq, Sq, splits) and part_acc (B, Hq, Sq,
-// splits, D), f32, split_keys keys per split).  Returns a cudaError_t (0 on
-// success); 1 (invalid value) for shapes or a variant the kernels do not
-// take.  Nothing is launched in place of a refused variant.
+// splits, D), f32, split_keys keys per split).  q_shift and lse, taken by
+// variant 2 alone (0 and null for the others): q_shift is added to every
+// query's end-aligned position, and a non-null lse (B, Hq, Sq) f32 makes out
+// f32 and receives each row's log-sum-exp (the partial entry: one shard of
+// a sequence-sharded cache).  Returns a cudaError_t (0 on success); 1
+// (invalid value) for shapes or a variant the kernels do not take.  Nothing
+// is launched in place of a refused variant.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       const void* kv_lens, int B, int Hq, int Hkv, int Sq,
                                       int Sk, int D, const long long* strides, int causal,
                                       int window, float scale, int q_bf16, int kv_bf16,
                                       int variant, void* part_ml,
                                       void* part_acc, int splits, int split_keys,
-                                      void* stream) {
+                                      int q_shift, void* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 32 * MAX_DPL || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant != 2 && (q_shift != 0 || lse)) return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 1) {
     // more queries than keys only where their alignment cannot matter:
     // non-causal without a window (cross-attention onto a short encoder input)
@@ -1158,7 +1184,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (variant == 2)
     return launch_splitkv(q, k, v, out, kv_lens, B, Hq, Hkv, Sq, Sk, D, strides, causal,
                           window, scale, q_bf16, kv_bf16, part_ml, part_acc, splits,
-                          split_keys, st);
+                          split_keys, q_shift, lse, st);
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;

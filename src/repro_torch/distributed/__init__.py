@@ -1,5 +1,11 @@
-"""Multi-host helpers.  Only dataset shard ownership is ported; mesh and
-parameter sharding wait for ROADMAP Queue 1 item 12."""
-from repro_torch.distributed.sharding import owned_shards
+"""Multi-host helpers: dataset shard ownership, and the sharding rules of
+parameters, optimizer state, batches and caches as DTensor placements."""
+from repro_torch.distributed.sharding import (P, batch_specs, cache_specs,
+                                              distribute_tree, gather_tree,
+                                              make_shardings, opt_specs,
+                                              owned_shards, param_specs,
+                                              placements, resolve_specs)
 
-__all__ = ["owned_shards"]
+__all__ = ["P", "batch_specs", "cache_specs", "distribute_tree", "gather_tree",
+           "make_shardings", "opt_specs", "owned_shards", "param_specs",
+           "placements", "resolve_specs"]

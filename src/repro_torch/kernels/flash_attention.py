@@ -26,7 +26,9 @@ scratch) with ``torch.empty``, passes every tensor's (batch, head, seq)
 strides so views are read and written in place, launches on the current
 stream, raises if the launch returned an error, and adds one to
 :data:`LAUNCHES` and to the variant's entry of :data:`VARIANT_LAUNCHES`
-under a lock.
+under a lock.  :func:`flash_attention_partial` launches the split-KV decode
+on one shard of a sequence-sharded cache and returns its f32 output with
+each row's log-sum-exp, for the caller to merge the shards.
 """
 from __future__ import annotations
 
@@ -56,6 +58,8 @@ MIN_CTAS = 2 * 132           # two CTAs per SM of the H100
 # launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 VARIANT_LAUNCHES: Dict[str, int] = {v: 0 for v in VARIANTS}
+# of those, the launches of the partial entry (each a decode_splitkv one)
+PARTIAL_LAUNCHES: Dict[str, int] = {"flash_attention_partial": 0}
 _launch_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -71,12 +75,14 @@ def reset_launches() -> None:
         LAUNCHES["flash_attention"] = 0
         for v in VARIANTS:
             VARIANT_LAUNCHES[v] = 0
+        PARTIAL_LAUNCHES["flash_attention_partial"] = 0
 
 
-def _counted(variant: str = "scalar") -> None:
+def _counted(variant: str = "scalar", partial: bool = False) -> None:
     with _launch_lock:
         LAUNCHES["flash_attention"] += 1
         VARIANT_LAUNCHES[variant] += 1
+        PARTIAL_LAUNCHES["flash_attention_partial"] += int(partial)
 
 
 def build() -> Dict[str, ctypes.CDLL]:
@@ -91,7 +97,7 @@ def build() -> Dict[str, ctypes.CDLL]:
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _libs.update(libs)
         return _libs
@@ -211,6 +217,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            select_variant(q, k, v, kv_lens, window))
 
 
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, sm_scale: Optional[float] = None,
+                            window: Optional[int] = None,
+                            kv_lens: Optional[torch.Tensor] = None,
+                            q_shift: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-KV decode over one shard of a cache whose sequence is split
+    over ranks: every query's end-aligned position moves ``q_shift`` (>= 0)
+    further on, so a shard whose keys all precede the queries masks them as
+    the whole cache would.  Returns (out (B, Hq, Sq, D) f32, normalised over
+    this shard's keys, laid out as (B, Sq, Hq, D); lse (B, Hq, Sq) f32, each
+    row's log-sum-exp of its scaled scores, -1e30 and out 0 for a row
+    that saw no key).  Shards merge as ``sum_i e^(lse_i - M) out_i / sum_i e^(lse_i -
+    M)``.  Only ``decode_splitkv``'s inputs are taken; others raise."""
+    _check_launch_args(q, k, v, window, kv_lens, causal)
+    if q_shift < 0:
+        raise ValueError(f"q_shift must be >= 0, got {q_shift}")
+    if select_variant(q, k, v, kv_lens, window) != "decode_splitkv":
+        raise ValueError(f"the partial entry takes the split-KV decode's inputs only "
+                         f"(at most {DECODE_MAX_SQ} queries), got q {tuple(q.shape)} "
+                         f"{q.dtype}, k/v {tuple(k.shape)} {k.dtype}")
+    return _launch_checked(q, k, v, causal, sm_scale, window, kv_lens, "decode_splitkv",
+                           q_shift=q_shift, partial=True)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
             sm_scale: Optional[float], window: Optional[int],
             kv_lens: Optional[torch.Tensor], variant: str) -> torch.Tensor:
@@ -240,12 +270,15 @@ def _check_launch_args(q, k, v, window, kv_lens, causal) -> None:
         raise TypeError("kv_lens must be contiguous int32")
 
 
-def _launch_checked(q, k, v, causal, sm_scale, window, kv_lens, variant) -> torch.Tensor:
+def _launch_checked(q, k, v, causal, sm_scale, window, kv_lens, variant,
+                    q_shift: int = 0, partial: bool = False):
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = 1.0 / (d ** 0.5) if sm_scale is None else float(sm_scale)
     dev = q.device
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    out = torch.empty((b, sq, hq, d), dtype=torch.float32 if partial else q.dtype,
+                      device=dev).transpose(1, 2)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev) if partial else None
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
     ml = acc = None
@@ -264,8 +297,9 @@ def _launch_checked(q, k, v, causal, sm_scale, window, kv_lens, variant) -> torc
              _VARIANT_CODE[variant],
              ml.data_ptr() if ml is not None else None,
              acc.data_ptr() if acc is not None else None, splits, split_keys,
+             int(q_shift), lse.data_ptr() if lse is not None else None,
              _current_stream(dev))
     if err != 0:
         raise RuntimeError(f"flash_attention ({variant}) launch failed with CUDA error {err}")
-    _counted(variant)
-    return out
+    _counted(variant, partial)
+    return (out, lse) if partial else out

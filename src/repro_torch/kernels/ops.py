@@ -7,7 +7,7 @@ card tensors through plain code.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -117,3 +117,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        window=window, kv_lens=kv_lens)
     return fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window,
                               kv_lens=kv_lens)
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, sm_scale: Optional[float] = None,
+                            window: Optional[int] = None,
+                            kv_lens: Optional[torch.Tensor] = None,
+                            q_shift: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` over one shard of a sequence-sharded cache,
+    every query position moved ``q_shift`` on: -> (out (B, Hq, Sq, D) f32
+    over this shard's keys, lse (B, Hq, Sq) f32, -1e30 for a row that sees
+    no key).  On the card only the split-KV decode's inputs are taken;
+    meta tensors (the dry run) take the plain version."""
+    ts = (q, k, v) + ((kv_lens,) if kv_lens is not None else ())
+    if q.device.type == "meta" or _on_cpu(*ts, kind="attention"):
+        fa.check_args(q, k, v, window, kv_lens, causal)
+        return ref.flash_attention_partial_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                               window=window, kv_lens=kv_lens,
+                                               q_shift=q_shift)
+    return fa.flash_attention_partial(q, k, v, causal=causal, sm_scale=sm_scale,
+                                      window=window, kv_lens=kv_lens, q_shift=q_shift)

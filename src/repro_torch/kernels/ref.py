@@ -9,7 +9,7 @@ card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -116,6 +116,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cache.astype(q.dtype)`` does.  Returns (B, Hq, Sq, D) in q.dtype;
     accumulation in f32.
     """
+    logits, mask, vf = _masked_logits(q, k, v, causal, sm_scale, window, kv_lens, 0)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                causal: bool = True, sm_scale: Optional[float] = None,
+                                window: Optional[int] = None,
+                                kv_lens: Optional[torch.Tensor] = None,
+                                q_shift: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref` over one shard of a sequence-sharded
+    cache: every query position moves ``q_shift`` further on, and it
+    returns (out (B, Hq, Sq, D) f32, normalised over this shard's keys; lse
+    (B, Hq, Sq) f32, each row's log-sum-exp, -1e30 and out 0 for a row that
+    sees no key), which the kernel's partial entry returns too."""
+    logits, mask, vf = _masked_logits(q, k, v, causal, sm_scale, window, kv_lens, q_shift)
+    seen = mask.any(-1)[:, None, None]                          # (B, 1, 1, Sq)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    m = torch.where(seen, logits.amax(-1), 0.0)
+    probs = torch.exp(logits - m[..., None])
+    l = probs.sum(-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf) / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(seen, torch.log(l) + m, -1e30)
+    b, hq, sq, _ = q.shape
+    return out.reshape(q.shape), lse.reshape(b, hq, sq)
+
+
+def _masked_logits(q, k, v, causal, sm_scale, window, kv_lens, q_shift):
+    """Scaled f32 logits (B, Hkv, group, Sq, Sk), the key mask (B, Sq, Sk)
+    and v in f32, queries end-aligned with each row's keys and then moved
+    ``q_shift`` on."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -128,15 +162,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lens = (torch.full((b,), sk, dtype=torch.int64, device=q.device)
             if kv_lens is None else kv_lens.to(device=q.device, dtype=torch.int64))
     # queries end-aligned with each row's keys (decode: sq << sk)
-    qpos = torch.arange(sq, device=q.device)[None, :, None] + (lens[:, None, None] - sq)
+    qpos = (torch.arange(sq, device=q.device)[None, :, None] + (lens[:, None, None] - sq)
+            + q_shift)
     kpos = torch.arange(sk, device=q.device)[None, None, :]
     mask = kpos < lens[:, None, None]                       # (B, Sq, Sk)
     if causal:
         mask = mask & (kpos <= qpos)
     if window is not None:
         mask = mask & (kpos > qpos - window)
-    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
-    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
-    probs = probs / probs.sum(-1, keepdim=True)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return logits, mask, vf

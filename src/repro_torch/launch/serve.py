@@ -41,7 +41,8 @@ def _report(tag: str, done, pct: dict, extra: str) -> None:
 def serve_lm(args) -> list:
     cfg = reduced_config(args.arch)
     if cfg.encoder_layers:
-        raise SystemExit("use the decode dry-run for enc-dec serving")
+        raise SystemExit("use the decode dry-run for enc-dec serving (python -m "
+                         f"repro_torch.launch.dryrun --arch {args.arch} --cell decode_32k)")
     dev = resolve_device(args.device)
     params = lm.init_lm(0, cfg, device=dev)
     engine = ServeEngine(params, cfg, batch_slots=args.slots, max_seq=args.max_seq,

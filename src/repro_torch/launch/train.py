@@ -10,12 +10,15 @@ either package restores in the other.  The first step is synced and reported
 once (``train.compile_seconds``), the rest go to ``train.step_seconds``.
 
 ``--device cpu`` runs the plain PyTorch path on the CPU; the default is the
-card, and without one the launcher raises.  ``--dry-run`` (lowering a
-production mesh) is not ported yet.
+card, and without one the launcher raises.  ``--dry-run`` traces the full
+config's ``--shape`` cell on the production mesh (``--multi-pod``: the
+2-pod one) through :mod:`repro_torch.launch.dryrun`, in a fresh process
+and on the CPU by design.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --steps 10
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b --shape train_4k --dry-run
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.compression import tree_flatten_with_path, tree_map
 from repro_torch.configs import reduced_config
@@ -58,10 +62,27 @@ def loss_and_grads(params, cfg: ArchConfig, batch):
     ``jax.grad``."""
     pairs, treedef = tree_flatten_with_path(params)
     leaves = [p.detach().requires_grad_() for _, p in pairs]
-    loss = lm.lm_loss(treedef.unflatten(leaves), cfg, batch)
+    loss = replicated(lm.lm_loss(treedef.unflatten(leaves), cfg, batch))
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    grads = [torch.zeros_like(p) if g is None else like_param(g, p)
+             for p, g in zip(leaves, grads)]
     return loss.detach(), treedef.unflatten(grads)
+
+
+def replicated(t):
+    """A DTensor reduced and replicated on every mesh dim (a plain tensor as
+    it is)."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def like_param(g, p):
+    """A gradient DTensor at its parameter's placements (partial sums
+    reduced, reduce-scattered where the parameter is sharded)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def apply_adam(grads, opt: AdamState, params, opt_cfg: AdamConfig):
@@ -108,7 +129,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     """Returns the per-step losses as floats."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=128)
@@ -121,9 +144,13 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "the dry run (lowering a production mesh) is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+        # the dry run starts its own fake process group: a fresh process
+        import subprocess
+        import sys
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", args.arch, "--cell", args.shape,
+               "--mesh", "multi" if args.multi_pod else "single"]
+        raise SystemExit(subprocess.call(cmd))
     dev = resolve_device(args.device)
     if args.trace_dir:
         obs_trace.configure(args.trace_dir, run=f"train_{args.arch}")

@@ -58,8 +58,18 @@ dispatch, expert and combine products over every expert's ``capacity``
 rows.  Its load-balance loss reaches :func:`lm_loss` through the layer
 loop.
 
-Left out, because they are identities without a mesh: ``_constrain``,
-``_reduce_barrier``, ``_gather_weights`` and the constraint-mesh setters.
+With a constraint mesh (:func:`set_constraint_mesh`) and parameters and
+inputs that are DTensors on it, the same functions run sharded, as the
+reference under GSPMD: ``_constrain`` redistributes at the reference's
+call sites, ``_gather_weights`` all-gathers each layer's FSDP weight shard
+(its gradient is reduce-scattered back), ``_reduce_barrier`` reduces
+tensor-parallel partial sums in their own dtype, and the work that is
+local to a shard runs on the local tensors through ``local_map`` (as the
+reference's ``shard_map``): attention per head shard (kernel 5 gets local
+tensors), decode attention over a sequence-sharded cache with a
+max/sum merge across the shards, ``moe_block`` per expert shard,
+``ssd_scan`` per head shard, and the vocab-parallel cross-entropy.
+Without a mesh they are identities, and nothing above changes.
 """
 from __future__ import annotations
 
@@ -73,9 +83,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor.placement_types import Placement
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import ops
+from repro_torch.distributed.sharding import (P, _axes, axis_sizes, cache_specs,
+                                              placements, resolve_specs)
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import DECODE_MAX_SQ
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -147,7 +165,11 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
     ``enc_norm``; a frontend adds ``frontend_proj`` (fan_in frontend_dim)
     (lm.py:105-125).  ``gen`` is a seeded ``torch.Generator`` (its device
     is used) or a seed, for a generator on ``device`` (the card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``).  ``device="meta"`` gives the same tree of shapes
+    and dtypes with no values and draws nothing (the dry run's abstract
+    state)."""
+    if device is not None and torch.device(device).type == "meta":
+        return _meta_params(cfg)
     if isinstance(gen, torch.Generator):
         dev = gen.device
         if device is not None and torch.device(device).type != dev.type:
@@ -198,6 +220,30 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
     if cfg.frontend != "none":
         fd = cfg.frontend_dim
         params["frontend_proj"] = normal((fd, d), 1.0 / math.sqrt(fd))
+    return params
+
+
+def _meta_params(cfg: ArchConfig) -> Params:
+    """:func:`init_lm`'s tree on the meta device: shapes and dtypes only."""
+    dt = _dtype(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+
+    def empty(shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def stack(n_l, cross):
+        return {name: empty((n_l,) + shape, torch.float32 if name in _F32_LEAVES else dt)
+                for name, shape in sorted(_layer_param_shapes(cfg, cross).items())}
+
+    params: Params = {"embed": empty((v, d)), "final_norm": empty((d,))}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = empty((d, v))
+    params["layers"] = stack(cfg.num_layers, cfg.encoder_layers > 0)
+    if cfg.encoder_layers:
+        params["enc_layers"] = stack(cfg.encoder_layers, False)
+        params["enc_norm"] = empty((d,))
+    if cfg.frontend != "none":
+        params["frontend_proj"] = empty((cfg.frontend_dim, d))
     return params
 
 
@@ -265,12 +311,289 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """x: (B, S, H, Dh); positions: (B, S) int.  Frequencies in f32 as
     ``exp(-i * log(theta) / half)`` (lm.py:142), rotated in f32, cast back."""
     half = x.shape[-1] // 2
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32, device=x.device)
-                      * (math.log(theta) / half))
+    freqs = _lift(torch.exp(-torch.arange(0, half, dtype=torch.float32, device=x.device)
+                            * (math.log(theta) / half)), positions)
     ang = positions[..., None].float() * freqs                     # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+
+
+# ===========================================================================
+# the constraint mesh (lm.py:151-260)
+# ===========================================================================
+
+_CONSTRAINT_MESH = None
+_CONSTRAINT_EXCLUDE: Tuple[str, ...] = ()
+DP = ("pod", "data")     # batch axes (filtered against the tensor's mesh)
+
+
+def set_constraint_exclude(axes) -> None:
+    """Axes to strip from constraints (e.g. "pod" where the caller owns it)."""
+    global _CONSTRAINT_EXCLUDE
+    _CONSTRAINT_EXCLUDE = tuple(axes)
+
+
+def set_constraint_mesh(mesh) -> None:
+    """Switch the constraints on for DTensors (``None`` = off).  The
+    constraints act on a DTensor's own mesh, so parameters on a submesh
+    (the pod-compressed step's) are constrained there."""
+    global _CONSTRAINT_MESH
+    _CONSTRAINT_MESH = mesh
+
+
+def _on_mesh(x) -> bool:
+    return _CONSTRAINT_MESH is not None and isinstance(x, DTensor)
+
+
+def _target(x: DTensor, spec) -> tuple:
+    """The placements of ``spec`` on x's mesh, cleaned as the reference's
+    ``_constrain``: axes absent from the mesh or excluded are dropped, then
+    those not dividing the dim (``resolve_specs``), leaving replication."""
+    names = x.device_mesh.mesh_dim_names
+    kept = P(*(tuple(a for a in _axes(s) if a in names and a not in _CONSTRAINT_EXCLUDE)
+               or None for s in spec[:x.ndim]))
+    return placements(x.device_mesh, resolve_specs(kept, x, x.device_mesh))
+
+
+class _CotangentTo(torch.autograd.Function):
+    """Identity forward; the backward redistributes the gradient to the same
+    placements, as a sharding constraint transposes to a constraint on the
+    cotangent (partial gradients are reduced there, not carried on)."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.pl:
+            g = g.redistribute(g.device_mesh, ctx.pl)
+        return g, None
+
+
+def _hold(x):
+    """x as it is, its gradient held to x's placements."""
+    if not _on_mesh(x) or not x.requires_grad:
+        return x
+    return _CotangentTo.apply(x, tuple(x.placements))
+
+
+def _constrain(x, *spec, cotangent: bool = True):
+    """``with_sharding_constraint`` (lm.py:172): x redistributed to the
+    spec's placements, and (``cotangent``) its gradient held to them too;
+    identity without a mesh."""
+    if not _on_mesh(x):
+        return x
+    pl = _target(x, spec)
+    if tuple(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
+    return _CotangentTo.apply(x, pl) if cotangent and x.requires_grad else x
+
+
+def _reduce_barrier(x):
+    """Reduce tensor-parallel partial sums now, in x's own dtype (lm.py:207):
+    a bf16 product's all-reduce moves bf16, whatever upcast follows.  The
+    gradient is held replicated there too (the backward all-reduce of the
+    column-parallel inputs' partial gradients), so no later product is
+    computed on a partial gradient against gathered weights."""
+    if not _on_mesh(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    x = x.redistribute(x.device_mesh, pl)
+    return _CotangentTo.apply(x, pl) if x.requires_grad else x
+
+
+# Per-layer gathered-weight specs (lm.py:244-256): weights arrive
+# FSDP-sharded over "data"; constraining them to their TP-only spec gives the
+# ZeRO-3 pattern (forward all-gather of the weight shard, backward
+# reduce-scatter of its gradient).
+_GATHERED_W = {
+    "wq": (None, "model", None), "wk": (None, "model", None),
+    "wv": (None, "model", None), "wo": ("model", None, None),
+    "xwq": (None, "model", None), "xwk": (None, "model", None),
+    "xwv": (None, "model", None), "xwo": ("model", None, None),
+    "w_gate": (None, "model"), "w_up": (None, "model"),
+    "w_down": ("model", None),
+    "e_gate": ("model", None, None), "e_up": ("model", None, None),
+    "e_down": ("model", None, None),
+    "router": (None, None),
+    "ssm_in": (None, "model"), "ssm_out": ("model", None),
+}
+
+
+def _gather_weights(lp: Params) -> Params:
+    # the gradient is left partial over "data", so it reduce-scatters into
+    # the parameter's shard
+    return {k: (_constrain(v, *_GATHERED_W[k], cotangent=False) if k in _GATHERED_W else v)
+            for k, v in lp.items()}
+
+
+def _lift(t: torch.Tensor, like, shard_batch: bool = False):
+    """A plain tensor ``t`` -> a DTensor on ``like``'s mesh where ``like``
+    is one: replicated, or with ``t``'s dim 0 sharded where ``like``'s dim
+    0 is (``shard_batch``; ``t`` then holds the global batch).  Each rank
+    keeps its own rows; nothing is sent."""
+    if not isinstance(like, DTensor):
+        return t
+    pl = [Shard(0) if shard_batch and p == Shard(0) else Replicate()
+          for p in like.placements]
+    return distribute_tensor(t, like.device_mesh, pl, src_data_rank=None)
+
+
+def _linear_rank(mesh, dims) -> int:
+    """This rank's index among the shards of mesh ``dims`` (mesh order,
+    the first outermost)."""
+    r = 0
+    for i in dims:
+        r = r * mesh.size(i) + mesh.get_local_rank(i)
+    return r
+
+
+def _split_dims(out_placements) -> set:
+    """Mesh dims on which some output is sharded or partial (the work is
+    split there)."""
+    return {i for pl in out_placements for i, p in enumerate(pl)
+            if p.is_shard() or p.is_partial()}
+
+
+def _run_local(fn, out_placements, inputs, mesh, reduced=()):
+    """``fn`` on the local tensors of ``inputs`` (each DTensor at its own
+    placements; other inputs as they are), its outputs DTensors at
+    ``out_placements`` (one tuple, or a tuple of them for several outputs).
+    A replicated input's gradient is partial on every mesh dim where the
+    work is split, so autograd sums the shards' contributions: the dims
+    where an output is sharded or partial, and the ``reduced`` ones, where
+    ``fn`` reduces its outputs itself."""
+    single = isinstance(out_placements[0], Placement)
+    outs = (out_placements,) if single else out_placements
+    split = _split_dims(outs) | set(reduced)
+    in_pl, grad_pl = [], []
+    for t in inputs:
+        if isinstance(t, DTensor):
+            in_pl.append(tuple(t.placements))
+            grad_pl.append(tuple(Partial() if (i in split and p.is_replicate()) else p
+                                 for i, p in enumerate(t.placements)))
+        else:
+            in_pl.append(None)
+            grad_pl.append(None)
+    # local_map reads a list as one output's placements, a tuple as one per output
+    out_arg = list(outs[0]) if single else tuple(list(pl) for pl in outs)
+    return local_map(fn, out_placements=out_arg, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh)(*inputs)
+
+
+def _dims_sharding(t: DTensor, dim: int) -> list:
+    return [i for i, p in enumerate(t.placements) if p == Shard(dim)]
+
+
+def _heads_local(attend, q, k, v, *rest):
+    """``attend(q, k, v, *rest)`` per head shard (the reference's score
+    constraint over heads, lm.py:296): q (B, S, H, Dh) as constrained; k, v
+    (B, Sk, Hkv, Dh) head-sharded alike, or replicated, in which case each
+    shard takes the KV heads of its own query heads (the reference repeats
+    KV heads to H first).  ``rest``: DTensors with a leading batch dim."""
+    mesh = q.device_mesh
+    h, hkv = q.shape[2], k.shape[2]
+    hdims = _dims_sharding(q, 2)
+    kv_split = bool(_dims_sharding(k, 2))
+    r = _linear_rank(mesh, hdims)
+
+    def local(ql, kl, vl, *rl):
+        if hdims and not kv_split and hkv != h:
+            hl = ql.shape[2]
+            idx = (r * hl + torch.arange(hl, device=ql.device)) // (h // hkv)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        elif hdims and not kv_split:
+            hl = ql.shape[2]
+            kl, vl = kl[:, :, r * hl:(r + 1) * hl], vl[:, :, r * hl:(r + 1) * hl]
+        return attend(ql, kl, vl, *rl)
+
+    return _run_local(local, tuple(q.placements), (q, k, v) + rest, mesh)
+
+
+def _batch_only(c: DTensor) -> list:
+    """Placements keeping only c's batch (dim 0) sharding."""
+    return [p if p == Shard(0) else Replicate() for p in c.placements]
+
+
+def _copy_into(dst, src) -> None:
+    """``dst.copy_(src)``; a DTensor destination takes src redistributed to
+    its own placements, copied shard by shard."""
+    if isinstance(dst, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+
+
+def _write_kv(c, new: torch.Tensor, p0: int) -> None:
+    """``c[:, p0:p0 + s] = new`` (cast to c's dtype) on a per-layer cache (B,
+    S, Hkv, Dh) whose sequence may be sharded: a whole-cache write is a
+    redistribute (heads to sequence: an all-to-all); otherwise ``new`` is
+    replicated but for its batch and each rank writes the rows it holds."""
+    s = new.shape[1]
+    new = new.to(c.dtype)
+    if not isinstance(c, DTensor):
+        c[:, p0:p0 + s] = new
+        return
+    if p0 == 0 and s == c.shape[1]:
+        _copy_into(c, new)
+        return
+    new = new.redistribute(c.device_mesh, _batch_only(c)).to_local()
+    cl = c.to_local()
+    off = _linear_rank(c.device_mesh, _dims_sharding(c, 1)) * cl.shape[1]
+    lo, hi = max(p0, off), min(p0 + s, off + cl.shape[1])
+    if lo < hi:
+        cl[:, lo - off:hi - off] = new[:, lo - p0:hi - p0]
+
+
+def _attend_cache(q, ck, cv, end: int, causal: bool, window: Optional[int]):
+    """Attention of q (B, Sq, H, Dh), end-aligned with them, over the
+    first ``end`` rows of a per-layer cache whose sequence may be sharded
+    (the reference's decode: scores sharded over the keys, lm.py:285).
+    Each rank holds every head: q is gathered over heads.  Where the
+    sequence is split, each shard attends its own keys through the serving
+    kernel's partial entry (the keys at or past ``end`` masked, the
+    queries moved past the shard's keys) and the shards merge by their
+    log-sum-exps, reduced over the sequence's mesh dims; where it is not
+    (one rank along it), the local call is the serving kernel's."""
+    if not isinstance(ck, DTensor):
+        return attention(q, ck[:, :end], cv[:, :end], causal=causal, window=window)
+    mesh = ck.device_mesh
+    q = q.redistribute(mesh, _batch_only(ck))
+    sdims = _dims_sharding(ck, 1)
+    n_seq = math.prod(mesh.size(i) for i in sdims)
+    r = _linear_rank(mesh, sdims)
+
+    if n_seq > 1 and q.is_cuda and q.shape[1] > DECODE_MAX_SQ:
+        raise NotImplementedError(
+            f"{q.shape[1]} queries over a sequence-sharded cache: the card's partial "
+            f"attention takes at most {DECODE_MAX_SQ} (ROADMAP D4)")
+
+    def local(ql, kl, vl):
+        if n_seq == 1:
+            return attention(ql, kl[:, :end], vl[:, :end], causal=causal, window=window)
+        from torch.distributed import _functional_collectives as funcol
+        k0, sl = r * kl.shape[1], kl.shape[1]
+        n = min(max(end - k0, 0), sl)               # this shard's keys before end
+        lens = torch.full((ql.shape[0],), n, dtype=torch.int32, device=ql.device)
+        o, lse = ops.flash_attention_partial(
+            ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), causal=causal,
+            window=window, kv_lens=lens, q_shift=max(end - k0 - n, 0))
+        o, lse = o.transpose(1, 2), lse.transpose(1, 2)             # (B, Sq, H, ...)
+        big = lse
+        for i in sdims:
+            big = funcol.all_reduce(big, "max", (mesh, i))
+        w = torch.exp(lse - big)
+        num, den = o * w[..., None], w
+        for i in sdims:
+            num = funcol.all_reduce(num, "sum", (mesh, i))
+            den = funcol.all_reduce(den, "sum", (mesh, i))
+        return (num / den[..., None]).to(ql.dtype)
+
+    return _run_local(local, tuple(q.placements), (q, ck, cv), mesh)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -280,9 +603,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     stride over Dh.  Queries are end-aligned with the keys (row b's with
     ``kv_lens[b]`` keys when given), which is the JAX function's position
     masking on every call this model makes.  Returns (B, Sq, H, Dh) in q's
-    dtype; no copy of k or v is made."""
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, window=window, kv_lens=kv_lens)
+    dtype; no copy of k or v is made.  Meta tensors (the dry run's
+    shape-only trace, which computes nothing) take the plain version, which
+    carries the shapes through."""
+    attend = ref.flash_attention_ref if q.device.type == "meta" else ops.flash_attention
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=causal, window=window, kv_lens=kv_lens)
     return out.transpose(1, 2)
 
 
@@ -334,7 +660,9 @@ def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    g = _constrain(x @ w_gate, DP, None, "model")
+    u = _constrain(x @ w_up, DP, None, "model")
+    return _reduce_barrier((F.silu(g) * u) @ w_down)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -380,19 +708,40 @@ def moe_block(lp: Params, x: torch.Tensor, cfg: ArchConfig
     keeps); dispatch, the experts and combine are batched (``bmm``) and
     recomputed, as under JAX's ``checkpoint_dots_with_no_batch_dims``."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
     n = b * s
     g = min(cfg.moe_group, n)
     if n % g:
         raise ValueError(f"moe_block: B*S = {n} tokens must be at most moe_group "
                          f"({cfg.moe_group}) or a multiple of it (the reference reshapes "
                          f"the tokens into groups of moe_group)")
+    if _on_mesh(x):
+        y, frac, pmean = _moe_sharded(lp, x, cfg, g)
+    else:
+        y, frac, pmean = _moe_local(x, lp["router"], lp["e_gate"], lp["e_up"],
+                                    lp["e_down"], cfg, g)
+    # load-balance loss (Switch): E * sum_e f_e * p_e
+    aux = cfg.num_experts * (frac * pmean).sum()
+    if cfg.moe_dense_ff:                                            # Arctic's residual
+        y = y + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return y.to(x.dtype), aux
+
+
+def _moe_local(x, router, e_gate, e_up, e_down, cfg: ArchConfig, g: int,
+               expert0: int = 0):
+    """The grouped dense dispatch on one shard: x (b, s, D) in groups of
+    ``g``, routed over all E experts, through the experts ``expert0 ..
+    expert0 + e_gate.shape[0]`` (all of them unsharded).  Returns (y (b, s,
+    D), the partial sum over those experts; the per-expert token fraction
+    and mean probability over these groups, f32 (E,))."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    n = b * s
     ng = n // g
     cap = max(int(math.ceil(g * k / e * cfg.capacity_factor)), 4)
     bf = torch.bfloat16
     xt = x.reshape(ng, g, d)
 
-    logits = (x.reshape(n, d) @ lp["router"]).float()
+    logits = (x.reshape(n, d) @ router).float()
     # the bf16 snap (lm.py:341-347): near-ties cannot flip on sub-bf16 noise
     logits = logits.to(bf).float()
     probs = torch.softmax(logits, -1).reshape(ng, g, e)
@@ -407,27 +756,53 @@ def moe_block(lp: Params, x: torch.Tensor, cfg: ArchConfig
     poh = (pos_k[..., None] == torch.arange(cap, device=x.device)).to(bf)  # (G, N, K, C)
     # "gnke,gnkc,gnk->gnec": an (E, K) @ (K, C) product a token, one term
     # of each sum nonzero (a token takes an expert once), exact in bf16
-    eoh = eoh_i.to(bf).reshape(n, k, e).transpose(1, 2)             # (N', E, K)
-    dispatch = (eoh @ (poh * keep[..., None]).reshape(n, k, cap)).reshape(ng, g, e * cap)
+    el = e_gate.shape[0]
+    eoh = eoh_i.to(bf).reshape(n, k, e)[:, :, expert0:expert0 + el].transpose(1, 2)
+    dispatch = (eoh @ (poh * keep[..., None]).reshape(n, k, cap)).reshape(ng, g, el * cap)
     combine = (eoh @ (poh * (keep * top_p.to(bf))[..., None]).reshape(n, k, cap)
-               ).reshape(ng, g, e * cap)
+               ).reshape(ng, g, el * cap)
 
-    ct = torch.promote_types(bf, lp["e_gate"].dtype)
+    ct = torch.promote_types(bf, e_gate.dtype)
     xe = dispatch.transpose(1, 2) @ xt.to(bf)                       # (G, E*C, D)
-    xe = xe.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    xe = xe.reshape(ng, el, cap, d).transpose(0, 1).reshape(el, ng * cap, d)
     # one cast a product: JAX's mixed bf16 x f32 products give each its own
     # bf16 cotangent for xe, summed in bf16
-    h = F.silu(xe.to(ct) @ lp["e_gate"].to(ct)) * (xe.to(ct) @ lp["e_up"].to(ct))
-    ye = h @ lp["e_down"].to(ct)                                    # (E, G*C, D)
-    ye = ye.reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)
+    h = F.silu(xe.to(ct) @ e_gate.to(ct)) * (xe.to(ct) @ e_up.to(ct))
+    ye = h @ e_down.to(ct)                                          # (E, G*C, D)
+    ye = ye.reshape(el, ng, cap, d).transpose(0, 1).reshape(ng, el * cap, d)
     y = (combine.to(ye.dtype) @ ye).reshape(b, s, d)
-
-    # load-balance loss (Switch): E * sum_e f_e * p_e
     frac = eoh_i.float().sum(2).mean((0, 1))                        # (E,)
-    aux = e * (frac * probs.mean((0, 1))).sum()
-    if cfg.moe_dense_ff:                                            # Arctic's residual
-        y = y + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
-    return y.to(x.dtype), aux
+    return y, frac, probs.mean((0, 1))
+
+
+def _moe_sharded(lp: Params, x, cfg: ArchConfig, g: int):
+    """:func:`_moe_local` per expert shard (the reference's EP over
+    "model", lm.py:364-370), on the local groups: tokens stay sharded over
+    the batch axes where each shard holds whole groups, else they are
+    gathered first (as the reference's group constraint replicates them).
+    y is partial over the expert shards, reduced in its own dtype; the
+    routing statistics are averaged over the batch shards."""
+    mesh = x.device_mesh
+    bdims = _dims_sharding(x, 0)
+    n_b = math.prod(mesh.size(i) for i in bdims)
+    if (x.shape[0] // n_b) * x.shape[1] % g:
+        x = _constrain(x, None, None, None)
+        bdims, n_b = [], 1
+    router = _constrain(lp["router"], None, None)
+    ws = [_constrain(lp[n], "model", None, None) for n in _EXPERT_LEAVES]
+    edims = _dims_sharding(ws[0], 0)
+    expert0 = _linear_rank(mesh, edims) * (cfg.num_experts // math.prod(
+        mesh.size(i) for i in edims))
+
+    def local(xl, rl, gl, ul, dl):
+        y, frac, pmean = _moe_local(xl, rl, gl, ul, dl, cfg, g, expert0)
+        return y, frac / n_b, pmean / n_b
+
+    y_pl = tuple(Partial() if i in edims else (Shard(0) if i in bdims else Replicate())
+                 for i in range(mesh.ndim))
+    stat_pl = tuple(Partial() if i in bdims else Replicate() for i in range(mesh.ndim))
+    y, frac, pmean = _run_local(local, (y_pl, stat_pl, stat_pl), [x, router] + ws, mesh)
+    return _constrain(_reduce_barrier(y), DP, None, None), frac, pmean
 
 
 # ===========================================================================
@@ -508,7 +883,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     products, starting from 0 and in x's dtype, in its order."""
     k = w.shape[0]
     if conv_state is None:
-        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        pad = _lift(torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                                device=x.device), x, shard_batch=True)
     else:
         pad = conv_state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -533,14 +909,17 @@ def ssm_block(lp: Params, x: torch.Tensor, cfg: ArchConfig,
     nh, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     di = nh * p
     bsz, s, d = x.shape
-    zxbcdt = (x.reshape(bsz * s, d) @ lp["ssm_in"]).reshape(bsz, s, -1)
+    zxbcdt = _constrain((x.reshape(bsz * s, d) @ lp["ssm_in"]).reshape(bsz, s, -1),
+                        DP, None, None)
     z, xin, bm, cm, dt = torch.split(zxbcdt, [di, di, n, n, nh], dim=-1)
     xbc = torch.cat([xin, bm, cm], -1)
     if pad_mask is not None:
         xbc = torch.where(pad_mask[..., None], xbc, torch.zeros((), dtype=xbc.dtype,
                                                                   device=xbc.device))
     xbc_in = xbc
-    xbc, new_conv = _causal_conv(xbc, lp["ssm_conv_w"], conv_state)
+    if conv_state is not None:
+        conv_state = _constrain(conv_state, DP, None, None)
+    xbc, new_conv = _causal_conv(xbc, _constrain(lp["ssm_conv_w"], None, None), conv_state)
     if pad_mask is not None:
         # the window that ends at each row's last real token: columns
         # [len, len + K - 1) of the input extended on the left by the state
@@ -558,23 +937,46 @@ def ssm_block(lp: Params, x: torch.Tensor, cfg: ArchConfig,
         # dt = 0 freezes the state through pads: exp(0 * a) = 1, x * dt = 0
         dt = torch.where(pad_mask[..., None], dt, torch.zeros((), device=dt.device))
     xh = xin.reshape(bsz, s, nh, p)
-    if s == 1 and ssm_state is not None:
-        a = -torch.exp(lp["ssm_A"].float())
+    y, final_state = _ssm_core(xh, dt, lp["ssm_A"], lp["ssm_D"], bm, cm, ssm_state, chunk)
+    # the gradient keeps y's head sharding, so it unflattens back into heads
+    y = _hold(y.reshape(bsz, s, di).to(x.dtype))
+    y = rmsnorm(lp["ssm_norm"], y * F.silu(z), cfg.norm_eps)
+    out = _reduce_barrier((y.reshape(bsz * s, di) @ lp["ssm_out"]).reshape(bsz, s, -1))
+    return out, (new_conv, final_state)
+
+
+def _ssm_heads(xh, dt, A_log, D, bm, cm, state, chunk: int):
+    """The SSM over the heads it is given: the decode step's direct state
+    update for one token with a state, else :func:`ssd_scan`; plus the
+    skip term ``x * D``.  Returns (y (B, S, H, P) f32, final state)."""
+    if xh.shape[1] == 1 and state is not None:
+        a = -torch.exp(A_log.float())
         dA = torch.exp(dt[:, 0] * a)                                  # (B, H)
         xw = (xh[:, 0] * dt[:, 0, :, None]).float()                   # (B, H, P)
         upd = xw[..., None] * bm[:, 0].float()[:, None, None, :]
-        state = ssm_state * dA[:, :, None, None] + upd
+        state = state * dA[:, :, None, None] + upd
         y = (state @ cm[:, 0].float()[:, None, :, None])[..., 0]      # (B, H, P)
         y = y[:, None]
-        final_state = state
     else:
-        y, final_state = ssd_scan(xh, dt, lp["ssm_A"], bm, cm, chunk,
-                                  init_state=ssm_state)
-    y = y + xh.float() * lp["ssm_D"][None, None, :, None]
-    y = y.reshape(bsz, s, di).to(x.dtype)
-    y = rmsnorm(lp["ssm_norm"], y * F.silu(z), cfg.norm_eps)
-    out = (y.reshape(bsz * s, di) @ lp["ssm_out"]).reshape(bsz, s, -1)
-    return out, (new_conv, final_state)
+        y, state = ssd_scan(xh, dt, A_log, bm, cm, chunk, init_state=state)
+    return y + xh.float() * D[None, None, :, None], state
+
+
+def _ssm_core(xh, dt, A_log, D, bm, cm, state, chunk: int):
+    """:func:`_ssm_heads`, per head shard on a mesh (heads over "model"
+    where they divide; B and C replicated)."""
+    if not _on_mesh(xh):
+        return _ssm_heads(xh, dt, A_log, D, bm, cm, state, chunk)
+    xh = _constrain(xh, DP, None, "model", None)
+    dt = _constrain(dt, DP, None, "model")
+    A_log, D = _constrain(A_log, "model"), _constrain(D, "model")
+    bm, cm = _constrain(bm, DP, None, None), _constrain(cm, DP, None, None)
+    if state is not None:
+        state = _constrain(state, DP, "model", None, None)
+    y_pl = tuple(xh.placements)
+    st_pl = tuple(Shard(1) if p == Shard(2) else p for p in y_pl)
+    return _run_local(lambda *a: _ssm_heads(*a, chunk), (y_pl, st_pl),
+                      (xh, dt, A_log, D, bm, cm, state), xh.device_mesh)
 
 
 # ===========================================================================
@@ -637,26 +1039,29 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
     :func:`attention_train`.  The window is :func:`_window`'s for
     ``is_global``."""
     q, k, v = _project_qkv(lp, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = _constrain(rope(q, positions, cfg.rope_theta), DP, None, "model", None)
+    k = _constrain(rope(k, positions, cfg.rope_theta), DP, None, "model", None)
+    v = _constrain(v, DP, None, "model", None)
     window = _window(cfg, is_global)
     if kv_cache is not None:
         ck, cv = kv_cache
         b, s = x.shape[:2]
         if _is_scalar(cache_pos):
             p0 = int(cache_pos)
-            ck[:, p0:p0 + s] = k.to(ck.dtype)
-            cv[:, p0:p0 + s] = v.to(cv.dtype)
+            _write_kv(ck, k, p0)
+            _write_kv(cv, v, p0)
             # queries end-aligned with the p0 + s keys written so far.  From
             # p0 = 0 those keys are exactly the fresh k, v whenever the cache
             # holds k's dtype without loss (bf16 k in the f32 cache): attend
             # to them, the same values in k's own dtype and half the bytes.
             if p0 == 0 and torch.promote_types(k.dtype, ck.dtype) == ck.dtype:
-                y = attention(q, k, v, causal=causal, window=window)
+                y = _serve_attention(q, k, v, causal, window)
             else:
-                y = attention(q, ck[:, :p0 + s], cv[:, :p0 + s], causal=causal,
-                              window=window)
+                y = _attend_cache(q, ck, cv, p0 + s, causal, window)
         else:
+            if _on_mesh(x):
+                raise NotImplementedError("sharded decode takes one scalar position "
+                                          "for the batch, as the reference's dry run")
             # per-slot depths (continuous batching): row b writes at
             # cache_pos[b] and sees its first cache_pos[b] + s keys
             rows = torch.arange(b, device=x.device)[:, None]
@@ -668,14 +1073,30 @@ def attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
         new_kv = (ck, cv)
     elif serving:
         # no cache, serving: queries and keys at the same positions
-        y = attention(q, k, v, causal=causal, window=window)
+        y = _serve_attention(q, k, v, causal, window)
         new_kv = (k, v)
     else:
         # no cache: the training forward, differentiable plain attention
-        y = attention_train(q, k, v, positions, positions, causal=causal,
-                            window=window, chunk=cfg.attn_chunk)
+        y = _train_attention(q, k, v, positions, positions, causal=causal,
+                             window=window, chunk=cfg.attn_chunk)
         new_kv = (k, v)
-    return _out_proj(y, lp["wo"]), new_kv
+    return _reduce_barrier(_out_proj(y, lp["wo"])), new_kv
+
+
+def _serve_attention(q, k, v, causal: bool, window: Optional[int]):
+    """:func:`attention` (the serving kernel), per head shard on a mesh."""
+    if not _on_mesh(q):
+        return attention(q, k, v, causal=causal, window=window)
+    return _heads_local(lambda ql, kl, vl: attention(ql, kl, vl, causal=causal,
+                                                     window=window), q, k, v)
+
+
+def _train_attention(q, k, v, qpos, kpos, **kw):
+    """:func:`attention_train`, per head shard on a mesh."""
+    if not _on_mesh(q):
+        return attention_train(q, k, v, qpos, kpos, **kw)
+    return _heads_local(lambda ql, kl, vl, qp, kp: attention_train(ql, kl, vl, qp, kp, **kw),
+                        q, k, v, qpos, kpos)
 
 
 def cross_attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
@@ -692,21 +1113,23 @@ def cross_attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: to
     to q's dtype as the reference's ``astype(q.dtype)`` does.  With a cache
     it attends through the serving kernel (:func:`attention`), without one
     (training) through :func:`attention_train`.  Returns (B, S, D)."""
-    q = _proj_heads(rmsnorm(lp["ln_x"], x, cfg.norm_eps), lp["xwq"])
+    heads = (DP, None, "model", None)
+    q = _constrain(_proj_heads(rmsnorm(lp["ln_x"], x, cfg.norm_eps), lp["xwq"]), *heads)
     if enc_out is not None:
-        k, v = _proj_heads(enc_out, lp["xwk"]), _proj_heads(enc_out, lp["xwv"])
+        k = _constrain(_proj_heads(enc_out, lp["xwk"]), *heads)
+        v = _constrain(_proj_heads(enc_out, lp["xwv"]), *heads)
         if cache is not None and "xk" in cache:
-            cache["xk"].copy_(k)
-            cache["xv"].copy_(v)
+            _copy_into(cache["xk"], k)
+            _copy_into(cache["xv"], v)
+        if cache is not None:
+            y = _serve_attention(q, k, v, False, None)
     else:
-        k, v = cache["xk"], cache["xv"]
-    if cache is not None:
-        y = attention(q, k, v, causal=False)
-    else:
+        y = _attend_cache(q, cache["xk"], cache["xv"], cache["xk"].shape[1], False, None)
+    if cache is None:
         b, se = k.shape[:2]
-        y = attention_train(q, k, v, positions, _as_positions(0, b, se, k.device),
-                            causal=False, chunk=cfg.attn_chunk)
-    return _out_proj(y, lp["xwo"])
+        kpos = _lift(_as_positions(0, b, se, k.device), k, shard_batch=True)
+        y = _train_attention(q, k, v, positions, kpos, causal=False, chunk=cfg.attn_chunk)
+    return _reduce_barrier(_out_proj(y, lp["xwo"]))
 
 
 def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
@@ -725,6 +1148,7 @@ def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
     (:func:`moe_block`) or the SwiGLU MLP of ``ln2(x)``.  ``pad_mask`` (B,
     S) marks the real tokens of a right-padded prefill for the SSM's state;
     an MoE block routes every row, pads included, as the reference does."""
+    lp = _gather_weights(lp)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     new_cache: Cache = {}
     if cfg.family != "ssm":
@@ -738,11 +1162,11 @@ def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
             lp, h, cfg, conv_state=None if cache is None else cache["conv"],
             ssm_state=None if cache is None else cache["ssm"], pad_mask=pad_mask)
         if cache is not None:
-            cache["conv"].copy_(conv_s)
-            cache["ssm"].copy_(ssm_s)
+            _copy_into(cache["conv"], conv_s)
+            _copy_into(cache["ssm"], ssm_s)
             new_cache.update(conv=cache["conv"], ssm=cache["ssm"])
     if cfg.family == "ssm":
-        return x + y_ssm, new_cache, 0.0
+        return _layer_out(x + y_ssm, cfg), new_cache, 0.0
     x = x + (0.5 * (y_attn + y_ssm) if cfg.hybrid else y_attn)
     if enc_out is not None or (cache is not None and "xk" in cache):
         x = x + cross_attn_block(lp, x, cfg, positions, enc_out, cache)
@@ -753,7 +1177,15 @@ def decoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
         y, aux = moe_block(lp, h, cfg)
     else:
         y, aux = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
-    return x + y, new_cache, aux
+    return _layer_out(x + y, cfg), new_cache, aux
+
+
+def _layer_out(x, cfg: ArchConfig):
+    """The layer boundary's constraint (lm.py:643-648): batch over DP, and
+    under Megatron-SP the sequence over "model"."""
+    if cfg.seq_parallel:
+        return _constrain(x, DP, "model", None)
+    return _constrain(x, DP, None, None)
 
 
 def encoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
@@ -763,6 +1195,7 @@ def encoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
     and qkv bias), its residual, then ``ln2`` and the SwiGLU MLP.  With
     ``serving`` (under :func:`lm_prefill`) it attends through the serving
     kernel, else through :func:`attention_train`."""
+    lp = _gather_weights(lp)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     y, _ = attn_block(lp, h, cfg, positions, causal=False, serving=serving)
     x = x + y
@@ -817,7 +1250,7 @@ def run_decoder_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
         return y, a
 
     body = _remat(body, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _lift(torch.zeros((), dtype=torch.float32, device=x.device), x)
     for i in range(cfg.num_layers):
         x, a = body(x, enc_out, i)
         aux = aux + a
@@ -831,9 +1264,9 @@ def _encode(params: Params, cfg: ArchConfig, embeds: torch.Tensor, dtype: torch.
     encoder layers at positions 0 .. Se - 1, then ``enc_norm``.  Training
     runs each layer under the config's remat; ``serving`` (the prefill)
     runs them plainly, through the serving kernel."""
-    ex = embeds.to(dtype) @ params["frontend_proj"]
+    ex = _constrain(embeds.to(dtype) @ params["frontend_proj"], DP, None, None)
     b, se, _ = ex.shape
-    epos = _as_positions(0, b, se, ex.device)
+    epos = _lift(_as_positions(0, b, se, ex.device), ex, shard_batch=True)
 
     def body(h, i):
         return encoder_layer(_layer(params, i, "enc_layers"), h, cfg, epos, serving=serving)
@@ -860,9 +1293,64 @@ def lm_forward(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
 
 def _chunk_ce(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     # hx @ w in the params' dtype, then f32, as einsum(...).astype(f32)
+    if _on_mesh(hx):
+        return _chunk_ce_sharded(hx, lx, w)
     logits = (hx @ w).float()
     gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
     return (torch.logsumexp(logits, -1) - gold).sum()
+
+
+def _chunk_ce_sharded(hx, lx, w):
+    """The vocab-parallel cross-entropy of one chunk (lm.py:753-757: logits
+    sharded over the vocab on "model"): each shard computes its logits once
+    and :class:`_VocabParallelCE` reduces their max, sum of exps and gold
+    logit over the vocab's mesh dims."""
+    hx, lx = _constrain(hx, DP, None, None), _constrain(lx, DP, None)
+    mesh = hx.device_mesh
+    vdims = _dims_sharding(w, 1)
+    bdims = _dims_sharding(hx, 0)
+    v0 = _linear_rank(mesh, vdims) * w.to_local().shape[1]
+    row_pl = tuple(Shard(0) if i in bdims else Replicate() for i in range(mesh.ndim))
+
+    def local(hl, ll, wl):
+        return _VocabParallelCE.apply((hl @ wl).float(), ll.long() - v0, mesh, vdims)
+
+    return _run_local(local, row_pl, (hx, lx, w), mesh, reduced=vdims).sum()
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-row cross-entropy of local logits (rows, V / n) whose vocabulary
+    is split over mesh ``dims``; ``idx``: each label less this shard's
+    first vocabulary row (outside [0, V / n): another shard's).  Forward:
+    the max, the sum of exp(logits - max) and the gold logit, each reduced
+    over ``dims``, give ``log(sum) + max - gold``, which is ``logsumexp``'s
+    own arithmetic.  Backward: ``g * exp(logits - lse)``, less g at the
+    label, which is ``logsumexp``'s and ``gather``'s backward; so on one
+    shard the gradient is the plain path's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, idx, mesh, dims):
+        from torch.distributed import _functional_collectives as funcol
+        inside = (idx >= 0) & (idx < logits.shape[-1])
+        idx = idx.clamp(0, logits.shape[-1] - 1)
+        m = logits.amax(-1)
+        for i in dims:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        se = torch.exp(logits - m[..., None]).sum(-1)
+        gold = torch.where(inside, torch.gather(logits, -1, idx[..., None])[..., 0], 0.0)
+        for i in dims:
+            se = funcol.all_reduce(se, "sum", (mesh, i))
+            gold = funcol.all_reduce(gold, "sum", (mesh, i))
+        lse = torch.log(se) + m
+        ctx.save_for_backward(logits, lse, idx, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, inside = ctx.saved_tensors
+        d = g[..., None] * torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, idx[..., None], torch.where(inside, -g, 0.0)[..., None])
+        return d, None, None, None
 
 
 def lm_loss(params: Params, cfg: ArchConfig, batch,
@@ -883,7 +1371,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch,
     b, s, _ = hidden.shape
     c = min(vocab_chunk_tokens, s)
     nc = s // c
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    total = _lift(torch.zeros((), dtype=torch.float32, device=hidden.device), hidden)
     for i in range(nc):
         sl = slice(i * c, (i + 1) * c)
         total = total + checkpoint(_chunk_ce, hidden[:, sl], labels[:, sl], w,
@@ -902,13 +1390,36 @@ def _embed_inputs(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
     frontend_dim), where the config has a frontend and the batch holds
     them, are cast to the activations' dtype, projected by
     ``frontend_proj`` and prepended, so S counts them and RoPE rotates them
-    too; without them nothing is prepended."""
-    x = params["embed"][batch["tokens"].long()]
+    too; without them nothing is prepended.  On a mesh the lookup is the
+    vocab-parallel embedding (each shard's rows, summed over "model")."""
+    x = _embed(params["embed"], batch["tokens"])
     if cfg.frontend != "none" and "frontend_embeds" in batch:
         fe = batch["frontend_embeds"].to(x.dtype) @ params["frontend_proj"]
-        x = torch.cat([fe, x], dim=1)
+        x = torch.cat([_constrain(fe, DP, None, None), x], dim=1)
+    x = _constrain(x, DP, None, None)
     b, s, _ = x.shape
-    return x, _as_positions(0, b, s, x.device)
+    return x, _lift(_as_positions(0, b, s, x.device), x, shard_batch=True)
+
+
+def _embed(table, tokens):
+    """Rows ``tokens`` of ``table``.  On a mesh each vocab shard reads the
+    rows it holds (0 for the others), and the partial sums are reduced in
+    the table's dtype."""
+    if not _on_mesh(table):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    vdims = _dims_sharding(table, 0)
+    v0 = _linear_rank(mesh, vdims) * table.to_local().shape[0]
+    out_pl = tuple(Partial() if i in vdims else p for i, p in enumerate(tokens.placements))
+
+    def local(tl, wl):
+        idx = tl.long() - v0
+        inside = (idx >= 0) & (idx < wl.shape[0])
+        rows = wl[idx.clamp(0, wl.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros((), dtype=wl.dtype,
+                                                                device=wl.device))
+
+    return _reduce_barrier(_run_local(local, out_pl, (tokens, table), mesh))
 
 
 def _head_weight(params: Params, cfg: ArchConfig) -> torch.Tensor:
@@ -920,14 +1431,21 @@ def _layer(params: Params, i: int, stack: str = "layers") -> Params:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device: DeviceLike = None, enc_seq: int = 0) -> Cache:
+               device: DeviceLike = None, enc_seq: int = 0, mesh=None) -> Cache:
     """Stacked zero caches with a leading L axis (lm.py:775): ``k``, ``v``
     (L, B, max_seq, Hkv, Dh) unless the family is "ssm"; for the SSM and
     the hybrid ``conv`` (L, B, K - 1, di + 2 N) in ``dtype`` and ``ssm``
     (L, B, nh, P, N) in f32 whatever ``dtype`` is; for an encoder-decoder
     with ``enc_seq`` > 0 the cross cache ``xk``, ``xv`` (L, B, enc_seq,
-    Hkv, Dh)."""
-    dev = resolve_device(device)
+    Hkv, Dh).  With a named ``mesh`` every leaf is a DTensor on it, sharded
+    as :func:`repro_torch.distributed.sharding.cache_specs` says for that
+    mesh (resolved against the shapes); ``device="meta"`` allocates
+    nothing."""
+    dev = torch.device("meta") if device is not None and \
+        torch.device(device).type == "meta" else resolve_device(device)
+    if mesh is not None:
+        return _sharded_cache(init_cache(cfg, batch, max_seq, dtype, "meta", enc_seq),
+                              cfg, mesh, dev)
     l = cfg.num_layers
     cache: Cache = {}
     if cfg.family != "ssm":
@@ -944,6 +1462,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
         cache["xk"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["xv"] = torch.zeros(shape, dtype=dtype, device=dev)
     return cache
+
+
+def _sharded_cache(shapes: Cache, cfg: ArchConfig, mesh, dev) -> Cache:
+    sizes = axis_sizes(mesh)
+    specs = cache_specs(cfg, next(iter(shapes.values())).shape[1], "pod" in sizes,
+                        n_pod=sizes.get("pod", 1), n_data=sizes.get("data", 1))
+    specs = resolve_specs({k: specs[k] for k in shapes}, shapes, sizes)
+    return {k: distribute_tensor(torch.zeros(t.shape, dtype=t.dtype, device=dev), mesh,
+                                 placements(mesh, specs[k]), src_data_rank=None)
+            for k, t in shapes.items()}
 
 
 def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -997,7 +1525,8 @@ def lm_prefill(params: Params, cfg: ArchConfig, batch, max_seq: int,
     enc_out = (_encode(params, cfg, batch["encoder_embeds"], x.dtype, serving=True)
                if cfg.encoder_layers else None)
     cache = init_cache(cfg, b, max_seq, cache_dtype, device=x.device,
-                       enc_seq=0 if enc_out is None else enc_out.shape[1])
+                       enc_seq=0 if enc_out is None else enc_out.shape[1],
+                       mesh=x.device_mesh if _on_mesh(x) else None)
     x = _run_layers(params, cfg, x, positions, cache, 0, pad_mask, enc_out)
     if prompt_lens is None:
         x = x[:, -1:]
@@ -1014,8 +1543,8 @@ def serve_step(params: Params, cfg: ArchConfig, cache: Cache, tokens: torch.Tens
     cross cache (or attends to ``enc_out``, written into the cache, where
     given).  Writes the cache in place; returns (logits (B, V) f32,
     cache)."""
-    x = params["embed"][tokens.long()][:, None]
-    positions = _as_positions(pos, x.shape[0], 1, x.device)
+    x = _constrain(_embed(params["embed"], tokens)[:, None], DP, None, None)
+    positions = _lift(_as_positions(pos, x.shape[0], 1, x.device), x, shard_batch=True)
     if not _is_scalar(pos):
         pos = positions[:, 0]
     x = _run_layers(params, cfg, x, positions, cache, pos, enc_out=enc_out)

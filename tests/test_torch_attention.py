@@ -324,3 +324,66 @@ def test_a_variant_whose_preconditions_fail_raises(monkeypatch, variant):
     fa._launch(q, k, v, causal=True, sm_scale=None, window=None, kv_lens=None,
                variant="scalar")
     assert lib.calls[0][_VARIANT] == 0
+
+
+# the partial entry: one shard of a sequence-sharded cache
+_Q_SHIFT, _LSE = 22, 23
+
+
+@pytest.mark.parametrize("sq,causal,window", [(1, True, None), (3, True, None),
+                                              (8, True, 5), (2, False, None)])
+@pytest.mark.parametrize("shards,end_back", [(2, 0), (3, 5), (4, 11)])
+def test_partial_attention_over_key_shards_merges_to_the_whole(sq, causal, window, shards,
+                                                               end_back):
+    """Each shard of the keys through the plain partial version (its keys
+    past ``end`` cut by ``kv_lens``, its queries moved past the shard's keys
+    by ``q_shift``), merged by the log-sum-exps as the sharded decode
+    merges them, equals the plain attention over the first ``end`` keys;
+    a shard past ``end`` contributes nothing."""
+    b, hq, hkv, d, sl = 2, 4, 2, 16, 8
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((b, hq, sq, d), (b, hkv, sl * shards, d), (b, hkv, sl * shards, d)))
+    end = sl * shards - end_back
+    want = ref.flash_attention_ref(q, k[:, :, :end], v[:, :, :end], causal=causal,
+                                   window=window)
+    outs, lses = [], []
+    for r in range(shards):
+        k0 = r * sl
+        n = min(max(end - k0, 0), sl)
+        o, lse = ops.flash_attention_partial(
+            q, k[:, :, k0:k0 + sl], v[:, :, k0:k0 + sl], causal=causal, window=window,
+            kv_lens=torch.full((b,), n, dtype=torch.int32), q_shift=max(end - k0 - n, 0))
+        assert o.dtype == lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+        if n == 0:
+            assert bool((lse == -1e30).all()) and not bool(o.any())
+        outs.append(o)
+        lses.append(lse)
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(0))
+    got = (torch.stack(outs) * w[..., None]).sum(0) / w.sum(0)[..., None]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=ATOL["float32"])
+
+
+def test_partial_entry_passes_its_shift_and_lse_and_takes_decode_inputs_only(monkeypatch):
+    q, k, v = _qkv(2, 16, 8, 1, 1088, 128, "bfloat16", "float32")
+    lens = torch.full((2,), 500, dtype=torch.int32)
+    lib = _fake(monkeypatch)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_partial(q, k, v, kv_lens=lens, q_shift=7)
+    (args,) = lib.calls
+    assert args[_VARIANT] == fa._VARIANT_CODE["decode_splitkv"] and args[_Q_SHIFT] == 7
+    assert args[_LSE] == lse.data_ptr() and args[3] == out.data_ptr()
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == q.shape and lse.shape == (2, 16, 1)
+    assert fa.VARIANT_LAUNCHES["decode_splitkv"] == 1
+    assert fa.PARTIAL_LAUNCHES["flash_attention_partial"] == 1
+    fa.flash_attention(q, k, v, kv_lens=lens)
+    assert lib.calls[1][_Q_SHIFT] == 0 and lib.calls[1][_LSE] is None
+    assert fa.VARIANT_LAUNCHES["decode_splitkv"] == 2
+    assert fa.PARTIAL_LAUNCHES["flash_attention_partial"] == 1
+    with pytest.raises(ValueError, match="split-KV decode's inputs only"):
+        fa.flash_attention_partial(*_qkv(1, 16, 8, 1024, 1024, 128))
+    with pytest.raises(ValueError, match="q_shift"):
+        fa.flash_attention_partial(q, k, v, kv_lens=lens, q_shift=-1)
+    assert len(lib.calls) == 2

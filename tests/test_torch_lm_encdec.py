@@ -413,7 +413,8 @@ def test_decode_matches_forward(s, se):
 def test_engines_and_serve_launchers_refuse_it_the_same_way():
     """Neither package's ServeEngine serves an encoder-decoder (it goes
     through the decode dry run): the same ValueError; the port's serving
-    launcher exits with the JAX launcher's message."""
+    launcher exits with the JAX launcher's message and the command of the
+    port's decode dry run."""
     ref = load_reference()
     jcfg = jax_reduced_config(NAME)
     with pytest.raises(ValueError) as want:
@@ -425,9 +426,12 @@ def test_engines_and_serve_launchers_refuse_it_the_same_way():
     with pytest.raises(SystemExit) as exit_:
         serve_launcher.main(["--device", "cpu", "--arch", NAME])
     message = str(exit_.value)
-    assert message == "use the decode dry-run for enc-dec serving"
-    assert f'raise SystemExit("{message}")' in \
+    jax_message = "use the decode dry-run for enc-dec serving"
+    assert f'raise SystemExit("{jax_message}")' in \
         (ROOT / "src" / "repro" / "launch" / "serve.py").read_text()
+    # the port's message adds the port's decode dry run
+    assert message == (f"{jax_message} (python -m repro_torch.launch.dryrun --arch {NAME} "
+                       "--cell decode_32k)")
 
 
 def test_train_launcher_runs_on_the_cpu(capsys, tmp_path):

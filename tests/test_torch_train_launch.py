@@ -101,9 +101,18 @@ def test_main_without_steps_past_a_checkpoint_saves_none(tmp_path):
     assert len(losses) == 3 and ckpt.latest_checkpoint(str(tmp_path / "ck")) is None
 
 
-def test_dry_run_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        launch.main(["--arch", ARCH, "--dry-run"])
+def test_dry_run_is_not_ported_yet(monkeypatch):
+    """The dry run is ported now: ``--dry-run`` runs the port's dry run of
+    the ``--shape`` cell in a fresh process (the mesh from ``--multi-pod``)
+    and exits with its code, as the JAX launcher does."""
+    import subprocess
+    calls = []
+    monkeypatch.setattr(subprocess, "call", lambda cmd: calls.append(cmd) or 3)
+    with pytest.raises(SystemExit) as exit_:
+        launch.main(["--arch", ARCH, "--dry-run", "--shape", "prefill_32k", "--multi-pod"])
+    assert exit_.value.code == 3
+    assert calls[0][1:] == ["-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+                            "--cell", "prefill_32k", "--mesh", "multi"]
 
 
 def test_port_checkpoint_restores_in_jax(tmp_path):

@@ -19,6 +19,7 @@ a test helper, not a test file; nothing in ``src/repro`` is changed.
 from __future__ import annotations
 
 import importlib
+import os
 import sys
 import types
 
@@ -26,7 +27,8 @@ from jax._src.interpreters import batching as _batching_impl
 from jax.interpreters import batching as _batching
 
 MODULES = ("repro.models.lm", "repro.serving.engine", "repro.serving.loadgen",
-           "repro.serving.scheduler", "repro.serving.surrogate_engine")
+           "repro.serving.scheduler", "repro.serving.surrogate_engine",
+           "repro.launch.dryrun", "repro.launch.mesh")
 
 _loaded = None
 
@@ -48,13 +50,16 @@ def _repro_modules() -> dict:
 
 
 def load() -> types.SimpleNamespace:
-    """``lm``, ``engine``, ``loadgen``, ``scheduler`` and ``surrogate_engine``
-    of the JAX package, imported once per process; ``sys.modules`` is left
-    as it was."""
+    """``lm``, ``engine``, ``loadgen``, ``scheduler``, ``surrogate_engine``,
+    ``dryrun`` and ``mesh`` of the JAX package, imported once per process;
+    ``sys.modules`` is left as it was, and so is ``XLA_FLAGS``, which
+    ``repro/launch/dryrun.py`` sets at import (jax has its devices by then,
+    so the flag would only reach processes started later)."""
     global _loaded
     if _loaded is not None:
         return _loaded
     before = set(sys.modules)
+    flags = os.environ.get("XLA_FLAGS")
     attrs = {name: set(vars(mod)) for name, mod in _repro_modules().items()}
     real = _batching.primitive_batchers
     _batching.primitive_batchers = _BatchersStandIn(real)
@@ -62,11 +67,16 @@ def load() -> types.SimpleNamespace:
         mods = [importlib.import_module(name) for name in MODULES]
     finally:
         _batching.primitive_batchers = real
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
         for name in set(sys.modules) - before:
             del sys.modules[name]
         for name, mod in _repro_modules().items():
             for attr in set(vars(mod)) - attrs.get(name, set()):
                 delattr(mod, attr)
     _loaded = types.SimpleNamespace(lm=mods[0], engine=mods[1], loadgen=mods[2],
-                                    scheduler=mods[3], surrogate_engine=mods[4])
+                                    scheduler=mods[3], surrogate_engine=mods[4],
+                                    dryrun=mods[5], mesh=mods[6])
     return _loaded
