@@ -17,7 +17,7 @@ decode on the resident store and on small ragged stores at every width and
 plane count) and each of the attention kernel's
 three variants (the wgmma + TMA prefill, the split-KV decode and the
 scalar kernel) against its plain version on the card to a stated
-tolerance, asserting which variant ran, then runs eleven paths at full
+tolerance, asserting which variant ran, then runs twelve paths at full
 model width:
 
 * the device-resident path (the paper's workflow 2 with the store in device
@@ -80,6 +80,16 @@ model width:
   fixed-rate store to a temporary directory (removed at exit), and train
   from each, with and without the prefetch worker and, for the raw and
   sharded stores, at the paper's emulated workspace bandwidth;
+* the paper's study and the surrogate examples: the quickstart as
+  written, ``examples/train_surrogate_torch.py`` at full width (RT_SPEC,
+  base 256, a compressed store, 16-bit lossy checkpoints: kernel 4) and
+  again on its checkpoint directory (it resumes and trains nothing),
+  ``repro_torch.study.build_study`` at ``benchmarks/common.py``'s sizes
+  (16 RT members of 48x16, 5 seeds, lossy models at x0.5-x16; array
+  shapes those of the JAX study's ``study.npz``, ratios rising with the
+  multiple, Algorithm 1 equal to the plain search on the CPU bit for bit)
+  and ``examples/compression_study_torch.py`` on that study (exact resume
+  under deterministic algorithms), printed beside the JAX study;
 * LM serving: ``internlm2-1.8b`` at full width (24 layers, bf16, random
   weights from a seeded generator) serves 16 mixed-length requests with
   continuous batching and the first 8 again in lockstep, 8 slots, an f32 KV cache of
@@ -188,11 +198,15 @@ at both groups), one ``frontend_lm`` JSON line (per family the serving
 readings, the decode against the forward, the solo check, the decode
 profile, training, the CPU check; kernel 5 at seamless's shapes), one ``sharded_lm`` JSON
 line (the sharded and plain steps' times and readings, the variants under
-``local_map``, the exchange), one ``kernels`` JSON line (launches on the paths, agreement, times,
+``local_map``, the exchange), one ``examples`` JSON line (the card's
+study and the JAX study's, each section's seconds and launches), one
+``kernels`` JSON line (launches on the paths, agreement, times,
 bounds and the library yardstick; kernel 5 also per variant), and as its
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
-that line.  Precision: float32 with TF32 off; the LM runs in bf16.
+that line.  A device busy share is the union of the device's activity
+intervals over the wall time (``device_busy_us``), never over 100%.
+Precision: float32 with TF32 off; the LM runs in bf16.
 
 With ``--codec`` it builds, checks and times only the four ZFP kernels
 (each with its registers and spills from ``ptxas``) and ends with a
@@ -827,6 +841,27 @@ def check_profile_rows(prof) -> None:
                      f"({sum(e.count for e in slow.values())} events; differing: {bad[:5]})")
 
 
+def device_busy_us(prof) -> float:
+    """The device's busy time over a torch.profiler run, in us: the union of
+    the intervals of its activities (kernels, copies, sets) from the raw
+    events ``profile_rows`` walks.  Activities on different streams
+    overlap, so the sum of their times can pass the wall time; the union
+    cannot."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != DeviceType.CPU and not e.is_hidden_event()
+                   and e.name() not in PROFILE_SKIP)
+    busy_ns, start, end = 0, None, None
+    for s, e in spans:
+        if end is None or s > end:          # a gap: close the running interval
+            busy_ns += 0 if end is None else end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    busy_ns += 0 if end is None else end - start
+    return busy_ns / 1e3
+
+
 def print_profile(prof, wall_ms: float, per: int, unit: str):
     """The device's busy share and the kernels that take most of its time,
     from a torch.profiler run over ``per`` units of work; returns the
@@ -840,9 +875,13 @@ def print_profile(prof, wall_ms: float, per: int, unit: str):
         print(f"profile: {wall_ms:.3f} ms/{unit} wall; the profiler recorded no "
               "device time (device busy share not measured)")
         return None
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
+    busy_ms = device_busy_us(prof) / 1e3 / per
+    sum_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
+    require(busy_ms <= wall_ms, f"device busy {busy_ms:.3f} ms/{unit} (the union of its "
+                                f"intervals) within the wall {wall_ms:.3f} ms/{unit}")
     print(f"profile: {per} {unit}s, {wall_ms:.3f} ms/{unit} wall (profiler on), device "
-          f"busy {busy_ms:.3f} ms/{unit} ({100 * busy_ms / wall_ms:.1f}%), "
+          f"busy {busy_ms:.3f} ms/{unit} ({100 * busy_ms / wall_ms:.1f}%; kernels' times "
+          f"summed {sum_ms:.3f} ms/{unit}), "
           f"{sum(e.count for e in events) / per:.0f} kernels/{unit}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         ms = e.self_device_time_total / 1e3 / per
@@ -1244,6 +1283,14 @@ def main(argv) -> int:
     del store, model, samples, cond
     torch.cuda.empty_cache()
 
+    # -- 11b. the paper's study and the three surrogate examples -----------------
+    print(f"examples phase starts {time.perf_counter() - t_start:.1f} s since start",
+          flush=True)
+    t0 = time.perf_counter()
+    examples = examples_path(dev, smi)
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # -- 12. LM serving path at full width: internlm2-1.8b, kernel 5 --------------
     print(f"LM phase starts {time.perf_counter() - t_start:.1f} s since start", flush=True)
     attn = lm_serving_path(dev, smi)
@@ -1326,7 +1373,8 @@ def main(argv) -> int:
         return (resident_launches[name] + cert["launches"][name] + ckpt_res["launches"][name]
                 + datagen["launches"][name] + host_launches[name]
                 + serving["launches"][name] + lm_train["launches"][name]
-                + rec["launches"][name] + sharded["launches"][name])
+                + rec["launches"][name] + sharded["launches"][name]
+                + examples["launches"][name])
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
@@ -1359,6 +1407,7 @@ def main(argv) -> int:
           f"tok/s"
           + f"; sharded train step {sharded['train']['sharded_s']:.4f} s vs plain "
           f"{sharded['train']['plain_s']:.4f} s"
+          + f"; examples phase {sum(examples['seconds'].values()):.1f} s"
           + f"; surrogate serving {serving['qps']:.1f} queries/s "
           f"closed loop, fleet step {serving['fleet_ms']:.3f} ms; flash_attention prefill {attn['ms']:.4f} ms, decode "
           f"{attn['timings']['decode']['ms']:.4f} ms; RT_SPEC member on the card "
@@ -2440,7 +2489,9 @@ def profile_lm_steps(step, steps: int) -> dict:
         print("LM training profile: the profiler recorded no device time")
         return {"wall_ms": wall_ms, "busy_ms": None, "busy_share": None,
                 "kernels": None, "operator_calls": None, "top": [], "by_kind_ms": None}
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    busy_ms = device_busy_us(prof) / 1e3 / steps
+    require(busy_ms <= wall_ms, f"device busy {busy_ms:.3f} ms/step (the union of its "
+                                f"intervals) within the wall {wall_ms:.3f} ms/step")
     top = [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3 / steps,
             "count": e.count / steps}
            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]]
@@ -4532,18 +4583,18 @@ LAYOUT_KERNELS = ("genericTranspose", "nchwToNhwc", "nhwcToNchw")
 
 
 def device_time(prof, per: int):
-    """(device busy ms per unit, the share of it in cuDNN's layout changes,
-    ``LAYOUT_KERNELS``) from a torch.profiler run over ``per`` units;
-    (None, None) where it recorded no device time."""
+    """(device busy ms per unit, the share of the kernels' time in cuDNN's
+    layout changes, ``LAYOUT_KERNELS``) from a torch.profiler run over
+    ``per`` units; (None, None) where it recorded no device time."""
     from torch.autograd import DeviceType
     events = [e for e in profile_rows(prof)
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events)
-    if not busy:
+    total = sum(e.self_device_time_total for e in events)
+    if not total:
         return None, None
     layout = sum(e.self_device_time_total for e in events
                  if any(k in e.key for k in LAYOUT_KERNELS))
-    return busy / 1e3 / per, layout / busy
+    return device_busy_us(prof) / 1e3 / per, layout / total
 
 
 def profile_fleet(engine, cond_np: np.ndarray, fleet, cfg, steps: int = 10) -> dict:
@@ -5854,6 +5905,166 @@ def host_streaming_path(tmp: str, samples: np.ndarray, cond: np.ndarray, cfg,
     shard_batch = (torch.from_numpy(payload.reshape(-1, payload.shape[-1])),
                    torch.from_numpy(emax.reshape(-1)))
     return host_launches, torch.from_numpy(fr_words), shard_batch
+
+
+# -- the paper's study and the three surrogate examples ----------------------
+# train_surrogate at full width: RT_SPEC's 96x32 grid, SurrogateConfig()'s
+# base 256, the example's own 8 members and 4 epochs, a compressed store
+# and 16-bit fixed-rate checkpoints
+EX_SURROGATE = ["--sims", "8", "--epochs", "4", "--channels", "256", "--compressed",
+                "--lossy-ckpt-bits", "16"]
+EX_SURROGATE_STEPS = 4 * (8 * 51 // 32)
+STUDY_ARRAYS = ("raw_preds", "lossy_preds", "student_preds", "test_nf", "test_cond",
+                "test_pvec")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module, loaded by file path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"{name}_on_the_card",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_study_files() -> dict:
+    """The JAX study checked in under ``experiments/data/`` (a JAX build on
+    a CPU), read with json and numpy: its meta and arrays."""
+    root = ROOT / "experiments" / "data"
+    with open(root / "study.json") as f:
+        meta = json.load(f)
+    with np.load(root / "study.npz") as z:
+        return {"meta": meta, **{k: z[k] for k in z.files}}
+
+
+def examples_path(dev, smi: str) -> dict:
+    """The quickstart as written; ``train_surrogate`` at full width with
+    lossy checkpoints, then again on its checkpoint directory (it must
+    resume and train nothing); ``study.build_study`` at
+    ``benchmarks/common.py``'s sizes into a temporary directory (its array
+    shapes those of the JAX study's ``study.npz``, its lossy ratios rising
+    with the multiple, its Algorithm 1 tolerance equal to the plain search
+    on the CPU at the card's model error, bit for bit); and the compression
+    study on it (exact resume under deterministic algorithms).  Each piece
+    runs with the codec kernels' counts set to 0 just before it; kernels 1,
+    2 and 4 must launch in the phase.  Prints the card's study beside the
+    JAX study's meta and, through the same functions, its band and PSNR."""
+    from repro_torch import study as study_mod
+    from repro_torch.kernels import zfp_codec
+    from repro_torch.train import checkpoint as ckpt
+
+    launches = {k: 0 for k in zfp_codec.LAUNCHES}
+    seconds, by_section = {}, {}
+
+    def section(name, fn):
+        t0 = time.perf_counter()
+        out, got = count_launches(launches, fn)
+        seconds[name] = time.perf_counter() - t0
+        by_section[name] = got
+        print(f"examples phase, {name}: {seconds[name]:.1f} s; launches {got}", flush=True)
+        return out
+
+    # -- the quickstart as written (48x16, base 16) ---------------------------
+    qs = section("quickstart", lambda: load_example("quickstart_torch").main([]))
+    require(qs["device"] == dev.type, f"the quickstart ran on {dev.type}")
+    for c in qs["compression"]:
+        require(c["bound_holds"] and c["max_err"] <= c["tolerance"],
+                f"quickstart on the card: max error {c['max_err']:.4e} within tol "
+                f"{c['tolerance']:g} (ratio {c['ratio']:.4f})")
+    require([s for s, _ in qs["losses"]] == [5, 10, 15, 20]
+            and all(np.isfinite(l) for _, l in qs["losses"]),
+            f"quickstart: finite losses at steps 5-20 ({qs['losses']})")
+
+    # -- train_surrogate at full width, then resumed from its directory -------
+    ts = load_example("train_surrogate_torch")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        ck = os.path.join(tmp, "ckpt")
+        argv = EX_SURROGATE + ["--ckpt-dir", ck]
+        first = section("train_surrogate", lambda: ts.main(argv))
+        again = section("train_surrogate_resumed", lambda: ts.main(argv))
+        with open(os.path.join(ckpt.latest_checkpoint(ck), "manifest.json")) as f:
+            manifest = json.load(f)
+    require(first["device"] == again["device"] == dev.type,
+            f"train_surrogate ran on {dev.type}")
+    require(first["steps"] == list(range(1, EX_SURROGATE_STEPS + 1))
+            and len(first["losses"]) == EX_SURROGATE_STEPS // 10
+            and all(np.isfinite(l) for _, l in first["losses"])
+            and np.isfinite(first["psnr_db"]),
+            f"train_surrogate at full width: {EX_SURROGATE_STEPS} steps, finite losses "
+            f"{first['losses']}, PSNR {first['psnr_db']:.4f} dB, mass error "
+            f"{first['mass_rel_err']:.4f}, store ratio {first['store_ratio']:.4f}")
+    require(again["steps"] == [] and again["losses"] == []
+            and manifest["step"] == EX_SURROGATE_STEPS and manifest["lossy_bits"] == 16,
+            f"run again on its checkpoint directory: resumed from the 16-bit checkpoint "
+            f"of step {manifest['step']}, trained no step (PSNR {again['psnr_db']:.4f} dB)")
+    require(by_section["train_surrogate"]["zfp_encode_blocks"] > 0,
+            "kernel 4 (fixed-rate encode) saved the lossy checkpoints")
+
+    # -- the study at benchmarks/common.py's sizes, and the compression study --
+    jax_study = jax_study_files()
+    real_find, searched = study_mod.find_tolerance, []
+
+    def find_tolerance(sample, e, **kw):
+        searched.append((np.array(sample), e))
+        return real_find(sample, e, **kw)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_study_") as sdir, \
+            mock.patch.object(study_mod, "find_tolerance", find_tolerance):
+        st = section("build_study", lambda: study_mod.build_study(
+            force=True, data_dir=sdir, device=DEV))
+        cs_mod = load_example("compression_study_torch")
+        cs = section("compression_study", lambda: cs_mod.main(["--data-dir", sdir]))
+    study_mod._STUDY = None
+    meta = st["meta"]
+    for k in STUDY_ARRAYS:
+        require(st[k].shape == jax_study[k].shape and bool(np.isfinite(st[k]).all()),
+                f"study {k}: finite, of the JAX study's shape {jax_study[k].shape}")
+    ratios = meta["lossy_ratios"]
+    require(all(a < b for a, b in zip(ratios, ratios[1:])),
+            f"the lossy ratios rise with the multiple ({ratios})")
+    (sample, e), = searched
+    plain = real_find(sample, e, device="cpu")
+    require(e == meta["model_l1_error"] and plain.tolerance == meta["alg1_tolerance"]
+            and plain.iterations == meta["alg1_iterations"]
+            and plain.ratio == meta["alg1_ratio"],
+            f"Algorithm 1 on the card == the plain search on the CPU at the card's e "
+            f"{e:.6f}: tolerance {meta['alg1_tolerance']!r} ({plain.tolerance!r}), ratio "
+            f"{meta['alg1_ratio']:.4f}, {meta['alg1_iterations']} iterations")
+    require(cs["device"] == dev.type, f"the compression study ran on {dev.type}")
+    require(cs["exact_resume"], "compression study: kill at step 5 + resume == the "
+                                "uninterrupted run, bit for bit (deterministic algorithms)")
+    require(cs["resident_same"] and cs["produce"]["finalized"],
+            "compression study: resident batch == host batch; production finalized")
+    for name in ("zfp_decode_blocks_fa", "zfp_encode_blocks_fa", "zfp_encode_blocks"):
+        require(launches[name] > 0, f"{name} launched in the examples phase "
+                                    f"({launches[name]} times)")
+
+    # -- the card's study beside the JAX study --------------------------------
+    jm = jax_study["meta"]
+    for who, m in (("card", meta), ("JAX study.json", jm)):
+        print(f"study ({who}): e {m['model_l1_error']:.4f}; Algorithm 1 tolerance "
+              f"{m['alg1_tolerance']:.4f}, ratio {m['alg1_ratio']:.2f}x, "
+              f"{m['alg1_iterations']} iterations; lossy ratios "
+              + ", ".join(f"x{a:g} {r:.2f}x" for a, r in zip(m["lossy_multiples"],
+                                                              m["lossy_ratios"]))
+              + f"; built in {m['build_seconds']} s", flush=True)
+    print("the JAX study's models through the same band and PSNR functions, on the card:")
+    jax_quality = cs_mod.study_verdicts(jax_study, dev)
+    out = {"launches": launches, "by_section": by_section, "seconds": seconds,
+           "compression_study_seconds": cs["seconds"], "meta": meta,
+           "card": {k: cs[k] for k in ("band_width", "verdicts", "raw_psnr", "lossy_psnr")},
+           "jax": {"meta": {k: jm[k] for k in ("model_l1_error", "alg1_tolerance",
+                                               "alg1_ratio", "alg1_iterations",
+                                               "lossy_ratios")}, **jax_quality},
+           "quickstart": {k: qs[k] for k in ("compression", "algorithm1", "losses",
+                                             "store_ratio")},
+           "train_surrogate": {k: first[k] for k in ("losses", "psnr_db", "mass_rel_err",
+                                                     "store_ratio")},
+           "resumed_psnr_db": again["psnr_db"], "exact_resume": cs["exact_resume"],
+           "certify": cs["candidates"], "card_name": smi}
+    print(json.dumps({"examples": out}, default=float))
+    return out
 
 
 if __name__ == "__main__":

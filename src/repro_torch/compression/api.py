@@ -327,11 +327,14 @@ def codec_names() -> list:
     return sorted(_REGISTRY)
 
 
-def get_codec(name: str, **params):
+def get_codec(name: str, *, backend: str = SPEC_BACKEND, **params):
     """Instantiate a codec of the port: ``get_codec("fixed_accuracy",
-    tolerance=1e-3)`` or ``get_codec("fixed_rate", bits_per_value=12)``."""
+    tolerance=1e-3)`` or ``get_codec("fixed_rate", bits_per_value=12)``.
+    ``backend`` must be one of the JAX package's and selects nothing: the
+    tensors' device picks the route."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown codec {name!r}; registered: {codec_names()}")
+    _check_backend(backend)
     return _REGISTRY[name](**params)
 
 

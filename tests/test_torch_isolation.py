@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
 An AST scan of every module under ``src/repro_torch/``, of
-``chip_smoke.py`` and of the port's example shows no import of ``jax``,
-``repro`` or ``triton`` at module level; the entry points raise without a
-GPU unless the caller asks for the CPU.
+``chip_smoke.py`` and of the port's examples shows no import of ``jax``,
+``repro``, ``benchmarks`` (whose ``common.py`` imports JAX) or ``triton``
+at module level; the entry points raise without a GPU unless the caller
+asks for the CPU.
 """
 import ast
 import importlib
@@ -35,9 +36,11 @@ from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
 torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_EXAMPLES = [ROOT / "examples" / f"{name}_torch.py" for name in
+                 ("lm_pretrain", "quickstart", "train_surrogate", "compression_study")]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "examples" / "lm_pretrain_torch.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+    [ROOT / "chip_smoke.py"] + PORT_EXAMPLES
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path):
@@ -61,7 +64,9 @@ def test_scan_covers_every_package_of_the_port():
             "flash_attention.py", "ensemble.py", "tolerance.py", "variability.py",
             "image.py", "physics.py", "solver.py", "plan.py", "produce.py",
             "writer.py", "checkpoint.py", "grad_compress.py", "torchprof.py",
-            "surrogate_engine.py", "train.py", "lm_pretrain_torch.py"} <= names
+            "surrogate_engine.py", "train.py", "study.py", "lm_pretrain_torch.py",
+            "quickstart_torch.py", "train_surrogate_torch.py",
+            "compression_study_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -219,12 +224,16 @@ def test_compression_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_pa
                                          device="cpu")
 
 
-def test_lm_training_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_path):
+def _example(name):
     import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "lm_pretrain_torch", ROOT / "examples" / "lm_pretrain_torch.py")
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
+    return example
+
+
+def test_lm_training_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_path):
+    example = _example("lm_pretrain_torch")
     args = ["--arch", "internlm2-1.8b", "--steps", "1"]
     for call in (lambda: train_launcher.main(args),
                  lambda: example.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])):
@@ -232,3 +241,20 @@ def test_lm_training_entry_points_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_pa
             call()
     assert not any(tmp_path.iterdir())
     assert len(train_launcher.main(args + ["--device", "cpu", "--seq", "16"])) == 1
+
+
+def test_study_and_surrogate_examples_need_a_gpu_unless_cpu_is_asked(no_cuda, tmp_path):
+    from repro_torch import study
+    data_dir = str(tmp_path / "study")
+    for call in (lambda: study.build_study(force=True, data_dir=data_dir),
+                 lambda: study.build_study(data_dir=data_dir),
+                 lambda: _example("quickstart_torch").main([]),
+                 lambda: _example("train_surrogate_torch").main(
+                     ["--ckpt-dir", str(tmp_path / "ck")]),
+                 lambda: _example("compression_study_torch").main(
+                     ["--data-dir", data_dir])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not any(tmp_path.iterdir())
+    res = _example("quickstart_torch").main(["--device", "cpu"])
+    assert res["device"] == "cpu" and all(c["bound_holds"] for c in res["compression"])

@@ -5,7 +5,10 @@
 full-width decode steps holds hundreds of thousands).  Here on the CPU the
 two aggregations are held equal on host work with nested operators, an
 autograd backward and a second thread; ``chip_smoke.py`` holds them equal
-on a card's profile, kernels included (``check_profile_rows``).
+on a card's profile, kernels included (``check_profile_rows``).  The
+device's busy time (``device_busy_us``) is the union of its activities'
+intervals: overlapping kernels on two streams count once, so a busy share
+never passes 100%.
 """
 import importlib.util
 import pathlib
@@ -61,3 +64,53 @@ def test_profile_rows_equal_key_averages(threads):
         if s.device_type == DeviceType.CPU:
             assert f.self_cpu_time_total == pytest.approx(s.self_cpu_time_total,
                                                           abs=1e-3 * s.count), k
+
+
+class _Event:
+    """The fields of a raw profiler event that ``device_busy_us`` reads."""
+
+    def __init__(self, start, end, kind=DeviceType.CUDA, name="kernel", hidden=False):
+        self.start, self.end, self.kind, self._name, self.hidden = start, end, kind, name, hidden
+
+    def start_ns(self):
+        return self.start
+
+    def end_ns(self):
+        return self.end
+
+    def device_type(self):
+        return self.kind
+
+    def name(self):
+        return self._name
+
+    def is_hidden_event(self):
+        return self.hidden
+
+
+class _Prof:
+    def __init__(self, events):
+        results = type("Results", (), {"events": lambda _self: events})()
+        self.profiler = type("Profiler", (), {"kineto_results": results})()
+
+
+@pytest.mark.parametrize("events, want_us", [
+    ([], 0.0),
+    # two streams overlapping by 4 us, a third kernel after a gap: 20 + 6
+    ([_Event(0, 10_000), _Event(6_000, 20_000), _Event(30_000, 36_000)], 26.0),
+    # nested and touching intervals, given out of order
+    ([_Event(5_000, 8_000), _Event(0, 10_000), _Event(10_000, 12_000)], 12.0),
+    # host events, hidden events and the profiler's own are not device time
+    ([_Event(0, 50_000, kind=DeviceType.CPU), _Event(0, 4_000, hidden=True),
+      _Event(0, 4_000, name="[memory]"), _Event(1_000, 3_000)], 2.0),
+])
+def test_device_busy_is_the_union_of_intervals(events, want_us):
+    cs = _chip_smoke()
+    assert cs.device_busy_us(_Prof(events)) == want_us
+    summed = sum((e.end - e.start) / 1e3 for e in events
+                 if e.kind != DeviceType.CPU and not e.hidden and e.name() != "[memory]")
+    assert cs.device_busy_us(_Prof(events)) <= summed
+
+
+def test_device_busy_of_a_host_profile_is_zero():
+    assert _chip_smoke().device_busy_us(_work(0)) == 0.0

@@ -101,10 +101,10 @@ def test_main_without_steps_past_a_checkpoint_saves_none(tmp_path):
     assert len(losses) == 3 and ckpt.latest_checkpoint(str(tmp_path / "ck")) is None
 
 
-def test_dry_run_is_not_ported_yet(monkeypatch):
-    """The dry run is ported now: ``--dry-run`` runs the port's dry run of
-    the ``--shape`` cell in a fresh process (the mesh from ``--multi-pod``)
-    and exits with its code, as the JAX launcher does."""
+def test_dry_run_runs_the_ports_dry_run(monkeypatch):
+    """``--dry-run`` runs the port's dry run of the ``--shape`` cell in a
+    fresh process (the mesh from ``--multi-pod``) and exits with its code,
+    as the JAX launcher does."""
     import subprocess
     calls = []
     monkeypatch.setattr(subprocess, "call", lambda cmd: calls.append(cmd) or 3)
