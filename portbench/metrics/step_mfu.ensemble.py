@@ -1,0 +1,5 @@
+"""``step_mfu`` of a seed-ensemble cell, which reports ``ensemble_samples_per_s``:
+the same reader."""
+from portbench.harness import load_reader
+
+read = load_reader("step_mfu")

@@ -1,0 +1,5 @@
+"""``zfp_fa_decode_roofline`` of a seed-ensemble cell, which reports ``ensemble_samples_per_s``:
+the same reader."""
+from portbench.harness import load_reader
+
+read = load_reader("zfp_fa_decode_roofline")
