@@ -172,8 +172,8 @@ model width:
 
 It prints the card's name and power limit, per run the median step time,
 the summed fetch wait and the store's ``IoStats``, the ensemble's and the
-sweep's step medians beside the single model's, the kernels per ensemble
-step and its device busy share, Algorithm 1's seconds and iterations, the
+sweep's dispatch medians beside the single model's step median, the
+kernels per ensemble step and its device busy share, Algorithm 1's seconds and iterations, the
 candidate stores' build times and the certification's summary and verdict,
 the serving phase's queries/s, p50/p99 and fleet-step profiles (one
 ``surrogate_serving`` JSON line) and the traced runs' first-step and
@@ -1393,9 +1393,9 @@ def main(argv) -> int:
     require(recompiles == 0, f"no kernel library was built after a run's first step "
                              f"({recompiles} flagged by the recompile watcher)")
     print(f"card: {smi}; device-resident step median {statistics.median(step_ms):.3f} "
-          f"ms; ensemble step median ({len(ENS_SEEDS)} members) {cert['ensemble_ms']:.3f} "
-          f"ms, sweep step median ({len(CERT_MULTIPLES)} candidates) "
-          f"{cert['sweep_ms']:.3f} ms; LM train step median "
+          f"ms; ensemble dispatch median ({len(ENS_SEEDS)} members) "
+          f"{cert['ensemble_ms']:.3f} ms, sweep dispatch median ({len(CERT_MULTIPLES)} "
+          f"candidates) {cert['sweep_ms']:.3f} ms; LM train step median "
           f"{lm_train['train']['median_s']:.4f} s, compressed "
           f"{lm_train['compressed']['median_s']:.4f} s; "
           + "; ".join(f"{n} decode {rec[n]['serve']['run']['decode_tok_s']:.1f} tok/s, train "
@@ -4758,7 +4758,7 @@ def surrogate_serving_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, stor
 
     # one traced run: serve, device-resident steps, host-streaming steps
     reg = get_registry()
-    step_hist = reg.histogram("train.step_seconds")
+    step_hist = reg.histogram("train.dispatch_seconds")
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trace_")
     tracer = obs_trace.configure(tmp.name, run="surrogate_serving")
     try:
@@ -4791,12 +4791,12 @@ def surrogate_serving_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, stor
             print(f"traced {name} run: {len(steps)} steps, first step "
                   f"{1e3 * compile_s.value:.3f} ms (train.compile_seconds), steady "
                   f"median {1e3 * step_hist.percentile(50):.3f} ms over "
-                  f"{step_hist.count} steps (train.step_seconds, dispatch without a "
-                  f"sync); launches {got}", flush=True)
+                  f"{step_hist.count} steps (train.dispatch_seconds, dispatch without "
+                  f"a sync); launches {got}", flush=True)
             require(len(compiles) == 1 and len(steps) == TRACE_STEPS
                     and step_hist.count == TRACE_STEPS - 1,
                     f"{name}: train.compile once ({len(compiles)}), {TRACE_STEPS} "
-                    f"train.step spans ({len(steps)}), train.step_seconds count "
+                    f"train.step spans ({len(steps)}), train.dispatch_seconds count "
                     f"{step_hist.count} == {TRACE_STEPS - 1}")
         events = tracer.events()
     finally:
@@ -4873,7 +4873,7 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
     samples (and against the CPU on ``CHECK_SAMPLES``), ``certify_tolerance``
     with device-resident candidate stores, and the ensemble on host-streaming
     sharded stores.  Returns {"launches": kernel launches on these paths,
-    "ensemble_ms", "sweep_ms": step medians}.  Launches made by the checks
+    "ensemble_ms", "sweep_ms": dispatch medians}.  Launches made by the checks
     (the runs one by one, the CPU comparisons, the stores' bound checks)
     are not counted."""
     import dataclasses
@@ -4891,7 +4891,7 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
 
     launches = {k: 0 for k in zfp_codec.LAUNCHES}
     counted = functools.partial(count_launches, launches)
-    hist = get_registry().histogram("ensemble.step_seconds")
+    hist = get_registry().histogram("ensemble.dispatch_seconds")
     n = len(samples)
     seeds = list(ENS_SEEDS)
 
@@ -4907,7 +4907,7 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
                                               loader=loader(), device=DEV))
     ens_ms = 1e3 * hist.percentile(50)
     print(f"seed ensemble ({len(seeds)} members, device-resident): {ens.steps} steps "
-          f"{ens.seconds:.3f} s, step median {ens_ms:.3f} ms (steps 2..{ens.steps}; "
+          f"{ens.seconds:.3f} s, dispatch median {ens_ms:.3f} ms (steps 2..{ens.steps}; "
           f"single model, phase 4: {single_ms:.3f} ms); launches {got}", flush=True)
     require(ens.steps == ENS_STEPS and all(np.isfinite(l).all() for _, l in ens.losses),
             f"{ENS_STEPS} ensemble steps with finite losses")
@@ -5048,10 +5048,10 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
           f"{spans['tolerance.search_batch']['args'].get('max_iterations')}; launches {got_c}")
     require(len(runs) == 2, f"certification trained two ensembles ({len(runs)})")
     (n_raw, steps_raw, raw_ms), (n_sweep, steps_sweep, sweep_ms) = runs
-    print(f"step medians: seed ensemble ({n_raw} members, raw store) {raw_ms:.3f} ms over "
-          f"{steps_raw} steps, lossy sweep ({n_sweep} candidates, one stacked resident "
-          f"payload) {sweep_ms:.3f} ms over {steps_sweep} steps; single model (phase 4) "
-          f"{single_ms:.3f} ms")
+    print(f"dispatch medians: seed ensemble ({n_raw} members, raw store) {raw_ms:.3f} ms "
+          f"over {steps_raw} steps, lossy sweep ({n_sweep} candidates, one stacked "
+          f"resident payload) {sweep_ms:.3f} ms over {steps_sweep} steps; single model's "
+          f"step (phase 4) {single_ms:.3f} ms")
     stores = [st for st, _ in builds]
     wmax = max(int(st.payload.shape[-1]) for st in stores)
     stacked = len(stores) * n * stores[0].nb * (wmax + 2) * 4
@@ -5121,7 +5121,7 @@ def certification_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, store,
         hist.reset()
         (stores, run), got_h = counted(lambda: host_run(tols, member_seeds))
         batches = sum(st.stats.batches for st in stores)
-        print(f"host ensemble, {what}: {run.steps} steps, step median "
+        print(f"host ensemble, {what}: {run.steps} steps, dispatch median "
               f"{1e3 * hist.percentile(50):.3f} ms, {batches} batches read, launches "
               f"{got_h}", flush=True)
         require(run.steps == ENS_STEPS and all(np.isfinite(l).all() for _, l in run.losses),

@@ -195,11 +195,12 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     # telemetry: the train loop's first-step split.  The first step (kernel
     # build, allocator growth, cuDNN's algorithm choice) is synced and
     # reported once (ensemble.compile_seconds) and kept out of
-    # ensemble.step_seconds: host seconds from a step's dispatch to its
-    # logged loss on the host (dispatch alone on a step that does not log).
-    # A kernel library built after the first step is flagged by the watcher
+    # ensemble.dispatch_seconds: host seconds from the step function's call
+    # to its return, no sync (the ensemble.dispatch span; the step's device
+    # ranges carry its step).  A kernel library built after the first step
+    # is flagged by the watcher
     reg = obs_metrics.get_registry()
-    step_hist = reg.histogram("ensemble.step_seconds")
+    dispatch_hist = reg.histogram("ensemble.dispatch_seconds")
     watcher = torchprof.get_watcher()
     watcher.watch("ensemble.fused_step" if device_path else "ensemble.step",
                   zfp_codec.build)
@@ -211,8 +212,10 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     stream = batch_stream(loader, source.fetch, train_cfg.epochs, prefetch)
     try:
         for _lstate, item in stream:
-            t0s = time.perf_counter()
-            params, opt_state, loss = step_fn(params, opt_state, item)
+            with obs_trace.span("ensemble.dispatch", cat="ensemble", step=step + 1):
+                t0s = time.perf_counter()
+                params, opt_state, loss = step_fn(params, opt_state, item)
+                dispatch_s = time.perf_counter() - t0s
             step += 1
             if step == 1:
                 torchprof.block_until_ready(loss)
@@ -221,10 +224,10 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
                 obs_trace.instant("ensemble.compile", cat="ensemble",
                                   members=len(seeds), seconds=compile_s)
                 watcher.rebase()
+            else:
+                dispatch_hist.observe(dispatch_s)
             if step % train_cfg.log_every == 0:
                 losses.append((step, loss.cpu().numpy()))
-            if step > 1:
-                step_hist.observe(time.perf_counter() - t0s)
             if do_eval and step % spe == 0 and (step // spe) % eval_every == 0:
                 with obs_trace.span("ensemble.eval", cat="ensemble",
                                     step=step, members=len(seeds)):

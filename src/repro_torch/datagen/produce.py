@@ -250,6 +250,10 @@ def _produce_scenario(plan: ProductionPlan, sc: ScenarioPlan, sdir: str,
     codec = codec_from_plan(plan.codec)
     try:
         for i in sims:
+            # on the card this span ends in a wait for the member's whole
+            # simulation: the solver's last scalar upload is a synchronous
+            # copy behind the graph's replays (it also holds the capture's
+            # device synchronise, a datagen.capture span)
             with obs_trace.span("datagen.simulate", cat="datagen",
                                 scenario=sc.name, member=i):
                 fields = run_simulation(params[i], ny=sc.spec.ny,
@@ -258,9 +262,10 @@ def _produce_scenario(plan: ProductionPlan, sc: ScenarioPlan, sdir: str,
             samples = fields.movedim(-1, 1)              # (T, C, H, W)
             for lo in range(0, nsnaps, size):
                 chunk = samples[lo:lo + size]
-                # the encode is queued on the card; the worker's copy waits
-                # for it, so this span is dispatch cost and datagen.transfer
-                # is the true wait
+                # the encode kernel is queued on the card and the worker's
+                # copy waits for it (datagen.transfer); this span is its
+                # dispatch, which waits for the stream once: the tolerances'
+                # upload is a synchronous copy behind the chunk's blocking
                 with obs_trace.span("datagen.encode", cat="datagen",
                                     scenario=sc.name, samples=len(chunk)):
                     cf = codec.encode_batch(chunk)

@@ -14,7 +14,10 @@ each chunk until then, so the producer never overwrites a chunk the worker
 has not copied.  With the default queue depth of 2 the pipeline is
 double-buffered: while the worker transfers and writes shard ``k``, the
 producer is already dispatching the simulation and encode for shard
-``k+1``.  ``overlap=False`` runs the identical ingest inline.
+``k+1``.  ``overlap=False`` runs the identical ingest inline.  The
+producer's waits on the worker are ``datagen.writer_wait`` spans: a
+``put`` that found the queue full (``op="put"``) and ``close`` joining
+the worker (``op="close"``).
 
 Crash safety contract:
   * shard files appear atomically (never truncated);
@@ -100,8 +103,13 @@ class ShardWriter:
             ready.record(torch.cuda.current_stream(cf.payload.device))
         if self._q is None:
             self._ingest(start_index, cf, ready)
-        else:
-            self._q.put((start_index, cf, ready))
+            return
+        item = (start_index, cf, ready)
+        try:
+            self._q.put_nowait(item)
+        except queue.Full:              # the worker is behind: wait for it
+            with obs_trace.span("datagen.writer_wait", cat="datagen", op="put"):
+                self._q.put(item)
 
     def close(self) -> None:
         """Flush, join the worker, and re-raise any worker failure."""
@@ -109,8 +117,9 @@ class ShardWriter:
             return
         self._closed = True
         if self._q is not None:
-            self._q.put(self._DONE)
-            self._thread.join()
+            with obs_trace.span("datagen.writer_wait", cat="datagen", op="close"):
+                self._q.put(self._DONE)
+                self._thread.join()
         self._check()
         if self._pending:
             missing = sorted({i // self.shard_size for i in self._pending})

@@ -6,9 +6,11 @@ in production code:
   * :func:`annotation` / :func:`named_scope` -- a
     ``torch.profiler.record_function`` region (the profiler's CPU track and
     the kernels launched under it carry its name), inside an NVTX range
-    when this process works on the card; the tracer's null span when
-    telemetry is off, so hot loops pay one global read when disabled.
-    Eager PyTorch has no compiled graph whose regions need naming apart
+    when this process works on the card; the tracer's null span when no
+    tracer is configured, so hot loops pay one global read when disabled.
+    A running ``torch.profiler`` capture alone never enters one: the
+    ``gpu_user_annotation`` range it would leave on the device track reads
+    as device work to a consumer of the capture.  Eager PyTorch has no compiled graph whose regions need naming apart
     from the host's, so the two are one function;
   * :func:`profiler_trace` -- the opt-in ``torch.profiler.profile`` capture
     (CPU and, with a card, CUDA activities) written as a Chrome trace into

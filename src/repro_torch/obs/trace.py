@@ -1,25 +1,55 @@
 """Lightweight thread-safe span tracer: Perfetto/Chrome traces + JSONL events.
 
 The observability layer's timeline half.  A ``Tracer`` records *spans*
-(named, nested, attributed intervals), *instants* (point events) and
-*counter* samples (e.g. serving slot occupancy), each stamped with the
-recording thread -- so the prefetch worker, the shard-writer worker and the
-main loop land on separate tracks and pipeline overlap is visible in one
-timeline.  Export is dual:
+(named, nested, attributed intervals), *instants* (point events),
+*counter* samples (e.g. serving slot occupancy) and *device ranges* (the
+device time of a stretch of queued work, between two CUDA events), each
+stamped with the recording thread -- so the prefetch worker, the
+shard-writer worker and the main loop land on separate tracks and
+pipeline overlap is visible in one timeline.  Every record carries an id,
+its depth and the id of its parent: the span open on the recording thread
+when it began.  A device range also carries the ``step`` of the nearest
+enclosing span that has one, the identifier that the records of one unit
+of work share.  Export is dual:
 
   * ``<run>.trace.json``   -- Chrome trace-event format (``traceEvents``
-    with ``ph`` in {X, i, C}), loadable directly in Perfetto / chrome://tracing;
+    with ``ph`` in {X, i, C}, device ranges as async ``b``/``e`` pairs),
+    loadable directly in Perfetto / chrome://tracing.  ``ts`` is on the
+    Unix-epoch clock that ``torch.profiler`` (kineto) stamps its events
+    with, less the same ``baseTimeNanoseconds`` that its Chrome export
+    subtracts, so the events of a ``torch_profile.*.trace.json`` of the
+    same run overlay these;
   * ``<run>.events.jsonl`` -- one structured JSON event per line (seconds,
-    depth, attrs), the stream ``tools/trace_report.py`` summarizes.
+    id, parent, depth, attrs), the stream ``tools/trace_report.py``
+    summarizes.
+
+Records are stamped with ``time.perf_counter()`` relative to the tracer's
+start (``rel()`` maps a raw stamp onto it); the tracer also keeps one pair
+of ``perf_counter_ns`` and ``time_ns`` readings taken at its start, which
+puts the Chrome export on the epoch clock.
+
+The program records when either of two switches is on:
+
+  * a tracer is configured (:func:`configure`);
+  * a ``torch.profiler`` capture is running (between its ``start()`` and
+    ``stop()``).  With no tracer configured, records then go to one
+    in-memory tracer of the process (no ``trace_dir``, the same
+    ``max_events`` bound), which stays readable after the capture stops:
+    :func:`capture_tracer`.
 
 Design constraints (the hot paths this instruments are per-train-step and
 per-decode-step):
 
   * **off by default, near-zero when off** -- the module-level ``span()`` /
-    ``instant()`` / ``counter()`` helpers check one global and return a
-    shared no-op context manager when no tracer is configured; no clock is
-    read, no object is allocated;
-  * **zero dependencies** -- stdlib only, importable from any layer
+    ``device_range()`` / ``instant()`` / ``counter()`` helpers read the
+    configured tracer and the profiler's flag and return a shared no-op
+    context manager when both are off; no clock is read, no object is
+    allocated, no CUDA event is made;
+  * **no synchronise** -- a device range is a pair of CUDA events on the
+    current stream, resolved by ``query()`` when a later range begins, or
+    when the tracer is read;
+  * **few dependencies** -- the stdlib, and torch for the profiler's flag
+    and the CUDA events; importable from any layer
     (``tools/check_layering.py`` ranks ``obs`` at the bottom of the ladder);
   * **thread-safe** -- per-thread span stacks via ``threading.local``, one
     lock around the shared event list;
@@ -29,11 +59,23 @@ per-decode-step):
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import json
 import os
 import threading
 import time
 from typing import Optional
+
+import torch
+import torch.autograd.profiler as _profiler
+
+# kineto's Chrome export subtracts the Unix time rounded down to a multiple
+# of this many seconds (``baseTimeNanoseconds``), to keep ``ts`` exact in a
+# double; the tracer's export subtracts the same
+KINETO_BASE_SECONDS = 7889238
+
+PHASES = {"X": "span", "i": "instant", "C": "counter", "R": "range"}
 
 
 class _NullSpan:
@@ -54,7 +96,8 @@ NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "name", "cat", "attrs", "_t0", "_depth")
+    __slots__ = ("_tracer", "name", "cat", "attrs", "id", "_t0", "_depth",
+                 "_parent")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, attrs: dict):
         self._tracer = tracer
@@ -70,6 +113,8 @@ class _Span:
     def __enter__(self):
         stack = self._tracer._stack()
         self._depth = len(stack)
+        self._parent = stack[-1].id if stack else None
+        self.id = next(self._tracer._ids)
         stack.append(self)
         self._t0 = time.perf_counter()
         return self
@@ -81,7 +126,50 @@ class _Span:
             self.attrs["error"] = exc_type.__name__
         self._tracer._record("X", self.name, self.cat,
                              self._t0 - self._tracer._t0, dur,
-                             self.attrs, self._depth)
+                             self.attrs, self._depth, self._parent, self.id)
+        return False
+
+
+class _Range:
+    """The device time of the work queued inside it: CUDA events on the
+    current stream of ``device`` around it (a host interval elsewhere).
+    Not a span: nothing nests in it, and its parent is the span open
+    around it."""
+    __slots__ = ("_tracer", "name", "_device", "_t0", "_start", "_ctx")
+
+    def __init__(self, tracer: "Tracer", name: str, device):
+        self._tracer = tracer
+        self.name = name
+        self._device = torch.device(device)
+
+    def __enter__(self):
+        tracer = self._tracer
+        tracer._poll()
+        stack = tracer._stack()
+        step = next((s.attrs["step"] for s in reversed(stack) if "step" in s.attrs),
+                    None)
+        self._ctx = (len(stack), stack[-1].id if stack else None,
+                     {} if step is None else {"step": step})
+        self._start = None
+        if self._device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self._device))
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        tracer = self._tracer
+        depth, parent, args = self._ctx
+        ts = self._t0 - tracer._t0
+        if self._start is None:
+            tracer._record("R", self.name, "device", ts, time.perf_counter() - self._t0,
+                           args, depth, parent)
+            return False
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(self._device))
+        with tracer._lock:
+            tracer._pending.append((self.name, ts, threading.get_ident(), depth,
+                                    parent, args, self._start, end))
         return False
 
 
@@ -94,8 +182,14 @@ class Tracer:
         self.run = run
         self.max_events = int(max_events)
         self.dropped = 0
-        self._t0 = time.perf_counter()
+        # one reading of each clock, the perf counter's taken around the epoch's
+        p0 = time.perf_counter_ns()
+        self.epoch_ns = time.time_ns()
+        self.perf_ns = (p0 + time.perf_counter_ns()) // 2
+        self._t0 = self.perf_ns * 1e-9
         self._events: list = []
+        self._pending: collections.deque = collections.deque()
+        self._ids = itertools.count(1)
         self._lock = threading.Lock()
         self._local = threading.local()
         self._pid = os.getpid()
@@ -113,19 +207,45 @@ class Tracer:
         return len(self._stack())
 
     def _record(self, ph: str, name: str, cat: str, ts: float, dur: float,
-                attrs: Optional[dict], depth: int = 0) -> None:
+                attrs: Optional[dict], depth: Optional[int] = None,
+                parent: Optional[int] = None, rid: Optional[int] = None,
+                tid: Optional[int] = None) -> None:
+        if depth is None:               # the enclosing span of this thread
+            stack = self._stack()
+            depth, parent = len(stack), (stack[-1].id if stack else None)
         rec = {"ph": ph, "name": name, "cat": cat, "ts": ts, "dur": dur,
-               "tid": threading.get_ident(), "depth": depth,
-               "args": attrs or {}}
+               "tid": threading.get_ident() if tid is None else tid,
+               "id": next(self._ids) if rid is None else rid,
+               "parent": parent, "depth": depth, "args": attrs or {}}
         with self._lock:
             if len(self._events) >= self.max_events:
                 self.dropped += 1
                 return
             self._events.append(rec)
 
+    def _poll(self) -> None:
+        """Record the device ranges whose work has finished (no wait)."""
+        while True:
+            with self._lock:
+                if not self._pending or not self._pending[0][-1].query():
+                    return
+                item = self._pending.popleft()
+            self._resolve(item)
+
+    def _resolve(self, item) -> None:
+        name, ts, tid, depth, parent, args, start, end = item
+        end.synchronize()
+        self._record("R", name, "device", ts, start.elapsed_time(end) * 1e-3, args,
+                     depth, parent, tid=tid)
+
     def span(self, name: str, cat: str = "span", **attrs) -> _Span:
         """Context manager timing a nested, attributed interval."""
         return _Span(self, name, cat, attrs)
+
+    def device_range(self, name: str, device) -> _Range:
+        """Context manager recording the device seconds of the work queued
+        inside it on ``device`` (host seconds off the card)."""
+        return _Range(self, name, device)
 
     def complete(self, name: str, start: float, dur: float, cat: str = "span",
                  **attrs) -> None:
@@ -154,25 +274,43 @@ class Tracer:
         return perf_t - self._t0
 
     def events(self) -> list:
+        """Every record, the device ranges still in flight resolved first
+        (waiting for their work to finish)."""
+        with self._lock:
+            pending, self._pending = list(self._pending), collections.deque()
+        for item in pending:
+            self._resolve(item)
         with self._lock:
             return list(self._events)
 
     # -- export --------------------------------------------------------------
 
     def chrome_trace(self) -> dict:
-        """The run as a Chrome trace-event object (``ph`` X / i / C)."""
+        """The run as a Chrome trace-event object (``ph`` X / i / C, a
+        device range as a ``b``/``e`` pair under its ``id``), ``ts`` in
+        microseconds on the Unix-epoch clock less ``baseTimeNanoseconds``;
+        each event carries ``record_id``, ``parent`` and ``depth`` (not
+        ``id``, which a counter would take for a series of its own)."""
+        base = self.epoch_ns // 10**9 // KINETO_BASE_SECONDS * KINETO_BASE_SECONDS * 10**9
+        shift_us = (self.epoch_ns - base) / 1e3
         out = []
         for e in self.events():
             ev = {"name": e["name"], "cat": e["cat"], "ph": e["ph"],
-                  "ts": e["ts"] * 1e6, "pid": self._pid, "tid": e["tid"],
+                  "ts": shift_us + e["ts"] * 1e6, "pid": self._pid, "tid": e["tid"],
+                  "record_id": e["id"], "parent": e["parent"], "depth": e["depth"],
                   "args": e["args"]}
             if e["ph"] == "X":
                 ev["dur"] = e["dur"] * 1e6
             if e["ph"] == "i":
                 ev["s"] = "t"                      # thread-scoped instant
+            if e["ph"] == "R":                     # overlapping: an async pair
+                out.append(dict(ev, ph="b", id=e["id"]))
+                ev = dict(ev, ph="e", id=e["id"], ts=ev["ts"] + e["dur"] * 1e6)
             out.append(ev)
         return {"traceEvents": out, "displayTimeUnit": "ms",
-                "otherData": {"run": self.run, "dropped": self.dropped}}
+                "baseTimeNanoseconds": base,
+                "otherData": {"run": self.run, "dropped": self.dropped,
+                              "epoch_ns": self.epoch_ns, "perf_ns": self.perf_ns}}
 
     def write(self, trace_dir: Optional[str] = None) -> dict:
         """Export ``<run>.trace.json`` + ``<run>.events.jsonl``; returns
@@ -188,20 +326,22 @@ class Tracer:
         with open(events_path, "w") as f:
             for e in self.events():
                 f.write(json.dumps({
-                    "type": {"X": "span", "i": "instant",
-                             "C": "counter"}[e["ph"]],
+                    "type": PHASES[e["ph"]],
                     "name": e["name"], "cat": e["cat"],
                     "ts_s": round(e["ts"], 9), "dur_s": round(e["dur"], 9),
-                    "thread": e["tid"], "depth": e["depth"],
-                    "attrs": e["args"]}) + "\n")
+                    "thread": e["tid"], "id": e["id"], "parent": e["parent"],
+                    "depth": e["depth"], "attrs": e["args"]}) + "\n")
         return {"trace": trace_path, "events": events_path}
 
 
 # ---------------------------------------------------------------------------
-# module-level API: one optional global tracer, null-object when disabled
+# module-level API: one optional global tracer, the capture's tracer, and
+# the null object when neither records
 # ---------------------------------------------------------------------------
 
 _TRACER: Optional[Tracer] = None
+_CAPTURED: Optional[Tracer] = None
+_CAPTURED_LOCK = threading.Lock()
 
 
 def configure(trace_dir: Optional[str] = None, run: str = "run",
@@ -217,33 +357,70 @@ def get_tracer() -> Optional[Tracer]:
 
 
 def enabled() -> bool:
+    """Whether a tracer is configured (a running capture alone does not
+    count: ``annotation()`` regions follow this)."""
     return _TRACER is not None
 
 
+def capture_tracer() -> Optional[Tracer]:
+    """The in-memory tracer that records while a ``torch.profiler`` capture
+    runs and no tracer is configured; None until it first records."""
+    return _CAPTURED
+
+
+def _recorder() -> Tracer:
+    """The capture's tracer, made at its first record."""
+    global _CAPTURED
+    with _CAPTURED_LOCK:
+        if _CAPTURED is None:
+            _CAPTURED = Tracer(run="capture")
+        return _CAPTURED
+
+
 def shutdown(write: bool = True) -> Optional[dict]:
-    """Tear the global tracer down; exports first when it has a trace_dir."""
-    global _TRACER
-    t, _TRACER = _TRACER, None
+    """Tear the global tracer down, and drop the capture's; exports the
+    global one first when it has a trace_dir."""
+    global _TRACER, _CAPTURED
+    t, _TRACER, _CAPTURED = _TRACER, None, None
     if t is not None and write and t.trace_dir is not None:
         return t.write()
     return None
 
 
 def span(name: str, cat: str = "span", **attrs):
-    """Global-tracer span; the shared no-op when telemetry is off."""
+    """Global-tracer span; the shared no-op when nothing records."""
     t = _TRACER
     if t is None:
-        return NULL_SPAN
+        if not _profiler._is_profiler_enabled:
+            return NULL_SPAN
+        t = _recorder()
     return t.span(name, cat, **attrs)
+
+
+def device_range(name: str, device):
+    """Device range of the work queued inside it on ``device``; the shared
+    no-op when nothing records."""
+    t = _TRACER
+    if t is None:
+        if not _profiler._is_profiler_enabled:
+            return NULL_SPAN
+        t = _recorder()
+    return t.device_range(name, device)
 
 
 def instant(name: str, cat: str = "event", **attrs) -> None:
     t = _TRACER
-    if t is not None:
-        t.instant(name, cat, **attrs)
+    if t is None:
+        if not _profiler._is_profiler_enabled:
+            return
+        t = _recorder()
+    t.instant(name, cat, **attrs)
 
 
 def counter(name: str, **values) -> None:
     t = _TRACER
-    if t is not None:
-        t.counter(name, **values)
+    if t is None:
+        if not _profiler._is_profiler_enabled:
+            return
+        t = _recorder()
+    t.counter(name, **values)

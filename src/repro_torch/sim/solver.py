@@ -23,8 +23,14 @@ On the card one snapshot interval (``nsteps // (nsnaps - 1)`` RK3 steps,
 then the snapshot) is captured once per call in a CUDA graph and replayed
 per snapshot with ``g`` in a device tensor; the same interval run eagerly
 (``_simulate(..., graph=False)``) launches the same kernels and gives the
-same bits.  Two calls with the same arguments on one device give the same
-bits, which exact resume of a production run relies on.
+same bits.  Two ``datagen.capture`` spans hold what the graph costs the
+host: its capture (the warm-up interval's dispatch; ``torch.cuda.graph``'s
+device synchronise and ``empty_cache``, which frees every cached block;
+the capture, its private pool's allocations and the instantiation) and
+its release at the call's end (``phase="release"``: the graph destroyed
+and its pool handed back).  Two calls with the same arguments on one
+device give the same bits, which exact resume of a production run relies
+on.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace as obs_trace
 
 FIELD_NAMES = ("density", "velocity_x", "velocity_y", "pressure", "energy", "material")
 GAMMA = 5.0 / 3.0
@@ -261,11 +268,15 @@ def _simulate(params: SimParams, ny: int, nx: int, nsteps: int, nsnaps: int,
     out = torch.empty((nsnaps, ny, nx, 6), dtype=torch.float32, device=dev)
     out[0] = _snapshot(s, g_now, op)
     if graph and nsnaps > 1:
-        cuda_graph, snap = _captured_interval(s, g_now, steps, dt, op)
+        with obs_trace.span("datagen.capture", cat="datagen", phase="capture"):
+            cuda_graph, snap = _captured_interval(s, g_now, steps, dt, op)
         for t in range(1, nsnaps):
             g_now.copy_(g_t[t])
             cuda_graph.replay()
             out[t] = snap
+        with obs_trace.span("datagen.capture", cat="datagen", phase="release"):
+            del snap
+            cuda_graph.reset()
     else:
         for t in range(1, nsnaps):
             g_now.copy_(g_t[t])

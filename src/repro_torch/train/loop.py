@@ -17,14 +17,15 @@ sharded stores), the same as the JAX package's.
 Telemetry, with the JAX loop's names: the first step of a run pays the
 kernel build, cuDNN's algorithm choice and the allocator's growth; it is
 timed to a device sync and reported once (``train.compile_seconds`` gauge,
-``train.compile`` instant), then kept out of the steady-state
-``train.step_seconds`` histogram, the ``train.steady_seconds`` counter and
-the ``train.window`` rates.  Steady steps are timed without a sync, as the
-JAX loop times its asynchronous dispatch.  Every step is a ``train.step``
-span, every periodic save a ``train.checkpoint`` span; the summed wait for
-batches goes to the ``train.fetch_wait_seconds`` counter.  The recompile
-watcher (:mod:`repro_torch.obs.torchprof`) flags a kernel library built
-after the first step.
+``train.compile`` instant).  The later steps are timed without a sync, so
+their histogram is the host's dispatch, ``train.dispatch_seconds``; what
+the device spends in each phase of a step is a device range of the
+tracer (:mod:`repro_torch.train.source`).  Every step is a ``train.step``
+span (its ``step`` is the one the step's device ranges carry), every
+periodic save a ``train.checkpoint`` span; the summed wait for batches
+goes to the ``train.fetch_wait_seconds`` counter.  The recompile watcher
+(:mod:`repro_torch.obs.torchprof`) flags a kernel library built after the
+first step.
 
 Checkpoints and exact resume: with ``TrainConfig.ckpt_dir`` the loop saves
 every ``ckpt_every_steps`` steps, and at the end unless the last step was
@@ -199,14 +200,11 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
 
     reg = get_registry()
     fetch_wait = reg.counter("train.fetch_wait_seconds")
-    step_hist = reg.histogram("train.step_seconds")
+    dispatch_hist = reg.histogram("train.dispatch_seconds")
     watcher = torchprof.get_watcher()
     watcher.watch("train.fused_step" if source.kind == "device" else "train.step",
                   zfp_codec.build)
-    tracer = obs_trace.get_tracer()
     first_in_run = True
-    steady_s = 0.0
-    win_steps, win_s = 0, 0.0
     start_step = step
     losses = []
     # the loader position to store in the next checkpoint: with prefetch
@@ -221,33 +219,24 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
             if params_prev is not None:
                 torch._foreach_copy_(list(params_prev.values()),
                                      list(live.values()))
-            t0s = time.perf_counter()
-            opt_state, loss = train_step(opt_state, item)
+            with obs_trace.span("train.step", cat="train", step=step + 1):
+                t0s = time.perf_counter()
+                opt_state, loss = train_step(opt_state, item)
+                if first_in_run:
+                    torchprof.block_until_ready(loss)
+                dur = time.perf_counter() - t0s
             step += 1
             if first_in_run:
                 first_in_run = False
-                torchprof.block_until_ready(loss)
-                dur = time.perf_counter() - t0s
                 reg.gauge("train.compile_seconds").set(dur)
                 obs_trace.instant("train.compile", cat="train", step=step,
                                   seconds=dur)
                 watcher.rebase()        # first-step builds are expected
             else:
-                dur = time.perf_counter() - t0s
-                steady_s += dur
-                step_hist.observe(dur)
-                win_steps += 1
-                win_s += dur
-            if tracer is not None:
-                tracer.complete("train.step", tracer.rel(t0s), dur,
-                                cat="train", step=step)
+                dispatch_hist.observe(dur)
             last_state = lstate
             if step % train_cfg.log_every == 0:
                 losses.append((step, float(loss)))
-                if win_steps:           # steady-state only: first step excluded
-                    obs_trace.instant("train.window", cat="train", step=step,
-                                      steps_per_s=win_steps / max(win_s, 1e-9))
-                win_steps, win_s = 0, 0.0
             for h in hooks:
                 h(step, model, loss)
             if train_cfg.ckpt_dir and step % train_cfg.ckpt_every_steps == 0:
@@ -261,7 +250,6 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     finally:
         stream.close()
         reg.counter("train.steps").add(step - start_step)
-        reg.counter("train.steady_seconds").add(steady_s)
         watcher.check()     # flags (event + counter) steady-state rebuilds
     if train_cfg.ckpt_dir and step != saved_step:
         _save(train_cfg, step, live, opt_state, last_state, params_prev)

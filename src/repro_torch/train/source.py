@@ -12,6 +12,11 @@ backends, picked per store by :func:`make_batch_source`:
     upload and gather -> decode -> L1 -> backward -> Adam run in the step.
 
 Both steps share one update (:func:`make_update`), so they cannot drift.
+Each phase of a step is a device range of the tracer (``train.gather_decode``
+in the fused step, ``train.forward``, ``train.backward``,
+``train.optimizer``; ``ensemble.gather_decode``, ``ensemble.grad``,
+``ensemble.optimizer`` in the ensemble's), recorded when a tracer is
+configured or a ``torch.profiler`` capture runs.
 
 The seed ensemble has the same two backends (:func:`make_ensemble_source`)
 and one update for all members (:func:`make_ensemble_update`):
@@ -35,6 +40,7 @@ from repro_torch.device import same_device
 from repro_torch.models.surrogate import Surrogate, functional_l1_loss, l1_loss
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.torchprof import named_scope
+from repro_torch.obs.trace import device_range
 from repro_torch.train.optimizer import AdamConfig, AdamState, adam_update
 
 
@@ -159,19 +165,23 @@ def make_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
     backward -> Adam; the model's parameters are replaced in place by the
     updated ones."""
     names = [n for n, _ in model.named_parameters()]
+    dev = next(model.parameters()).device
 
     def update(opt_state: AdamState, cond, target):
         model.zero_grad(set_to_none=True)
-        loss = l1_loss(model, cond, target)
-        loss.backward()
-        params = dict(model.named_parameters())
-        grads = {n: params[n].grad for n in names}
-        new, opt_state = adam_update(grads, opt_state,
-                                     {n: params[n].detach() for n in names},
-                                     opt_cfg)
-        with torch.no_grad():
-            for n in names:
-                params[n].copy_(new[n])
+        with device_range("train.forward", dev):
+            loss = l1_loss(model, cond, target)
+        with device_range("train.backward", dev):
+            loss.backward()
+        with device_range("train.optimizer", dev):
+            params = dict(model.named_parameters())
+            grads = {n: params[n].grad for n in names}
+            new, opt_state = adam_update(grads, opt_state,
+                                         {n: params[n].detach() for n in names},
+                                         opt_cfg)
+            with torch.no_grad():
+                for n in names:
+                    params[n].copy_(new[n])
         return opt_state, loss.detach()
 
     return update
@@ -184,7 +194,8 @@ def make_fused_step(source: DeviceResidentSource, model: Surrogate,
     update = make_update(model, opt_cfg)
 
     def step(opt_state: AdamState, idx: torch.Tensor):
-        cond, target = source.gather(idx)
+        with device_range("train.gather_decode", source.device):
+            cond, target = source.gather(idx)
         with named_scope("train_update"):
             return update(opt_state, cond, target)
 
@@ -348,11 +359,14 @@ def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
         return functional_l1_loss(model, p, cond, target)
 
     grad_and_loss = torch.func.vmap(torch.func.grad_and_value(member_loss))
+    dev = next(model.parameters()).device
 
     def update(params, opt_state: AdamState, cond, target):
-        grads, loss = grad_and_loss(params, cond, target)
-        params, opt_state = adam_update(grads, opt_state, params, opt_cfg,
-                                        stacked=True)
+        with device_range("ensemble.grad", dev):
+            grads, loss = grad_and_loss(params, cond, target)
+        with device_range("ensemble.optimizer", dev):
+            params, opt_state = adam_update(grads, opt_state, params, opt_cfg,
+                                            stacked=True)
         return params, opt_state, loss.detach()
 
     return update
@@ -366,7 +380,9 @@ def make_fused_ensemble_step(source: DeviceEnsembleSource, model: Surrogate,
     update = make_ensemble_update(model, opt_cfg)
 
     def step(params, opt_state, idx: torch.Tensor):
-        return update(params, opt_state, *source.gather(idx))
+        with device_range("ensemble.gather_decode", source.device):
+            cond, target = source.gather(idx)
+        return update(params, opt_state, cond, target)
 
     return step
 

@@ -7,13 +7,14 @@
     and build nothing;
   * ``annotation`` is the null span when telemetry is off, and
     ``profiler_trace`` writes a trace on the CPU;
-  * the train loop's compile/steady split, the prefetch worker's
+  * the train loop's compile/dispatch split, the prefetch worker's
     ``train.fetch`` spans, every store's ``data.get_batch`` span and the
-    ensemble's compile gauge, as ``tests/test_obs.py`` runs them (at width
-    16, not 8: ROADMAP Queue 3, F6);
+    ensemble's compile gauge and dispatch spans, as ``tests/test_obs.py``
+    runs them (at width 16, not 8: ROADMAP Queue 3, F6);
   * a traced ``train_surrogate`` run of the port emits the span and instant
-    names of the JAX package's run on the same inputs, and
-    ``tools/trace_report.py`` reads the port's trace unchanged;
+    names of the JAX package's run on the same inputs, less its
+    ``train.window`` rate, plus the step phases' device ranges, and
+    ``tools/trace_report.py`` reads the port's trace;
   * ``cosine_lr_scale`` against JAX's.
 """
 import json
@@ -175,25 +176,26 @@ def test_train_loop_compile_steady_split(tmp_path, clean_telemetry):
     snap = obs_metrics.get_registry().snapshot()
     assert snap["train.compile_seconds"] > 0
     assert snap["train.steps"] == 8
-    assert snap["train.step_seconds"]["count"] == 7
-    assert snap["train.steady_seconds"] > 0
+    assert snap["train.dispatch_seconds"]["count"] == 7
+    # the removed aggregates take nothing (other tests of the process may
+    # have registered the names, e.g. the LM launcher's train.step_seconds)
+    assert snap.get("train.steady_seconds", 0) == 0
+    assert snap.get("train.step_seconds", {"count": 0})["count"] == 0
     assert snap.get("jax.recompiles", 0) == 0
 
     evs = obs_trace.get_tracer().events()
     steps = [e for e in evs if e["name"] == "train.step"]
     assert [e["args"]["step"] for e in steps] == list(range(1, 9))
-    # the first step is the gauge, and the steady-state histogram and
-    # counter hold exactly the other seven.  On the CPU the first step
-    # builds nothing, so it need not be the slowest: the split is checked
-    # by identity, not by order
+    # the first step is the gauge, and the dispatch histogram holds the
+    # other seven, each timed inside its step's span.  On the CPU the first
+    # step builds nothing, so it need not be the slowest: the split is
+    # checked by containment, not by order
     first, rest = steps[0]["dur"], [e["dur"] for e in steps[1:]]
-    assert first == snap["train.compile_seconds"]
-    assert snap["train.steady_seconds"] == pytest.approx(sum(rest), rel=1e-12)
-    assert snap["train.step_seconds"]["max"] == max(rest)
-    assert snap["train.step_seconds"]["min"] == min(rest)
+    assert snap["train.compile_seconds"] <= first < snap["train.compile_seconds"] + 0.01
+    hist = obs_metrics.get_registry().histogram("train.dispatch_seconds")
+    assert hist.total <= sum(rest) < hist.total + 7 * 0.01
     assert sum(1 for e in evs if e["name"] == "train.compile") == 1
-    windows = [e for e in evs if e["name"] == "train.window"]
-    assert windows and all(e["args"]["steps_per_s"] > 0 for e in windows)
+    assert not [e for e in evs if e["name"] == "train.window"]
     fetches = [e for e in evs if e["name"] == "train.fetch"]
     assert len(fetches) >= 8                   # prefetch worker traced
     assert {e["tid"] for e in fetches} != {steps[0]["tid"]}
@@ -245,9 +247,14 @@ def test_ensemble_compile_gauge(clean_telemetry):
     snap = obs_metrics.get_registry().snapshot()
     assert res.steps == 4 and snap["ensemble.steps"] == 4
     assert snap["ensemble.compile_seconds"] > 0
-    assert snap["ensemble.step_seconds"]["count"] == 3
+    assert snap["ensemble.dispatch_seconds"]["count"] == 3
+    assert snap.get("ensemble.step_seconds", {"count": 0})["count"] == 0
     (ev,) = [e for e in tracer.events() if e["name"] == "ensemble.compile"]
     assert ev["args"]["members"] == 2 and ev["args"]["seconds"] > 0
+    dispatches = [e for e in tracer.events() if e["name"] == "ensemble.dispatch"]
+    assert [e["args"]["step"] for e in dispatches] == [1, 2, 3, 4]
+    hist = obs_metrics.get_registry().histogram("ensemble.dispatch_seconds")
+    assert hist.total <= sum(e["dur"] for e in dispatches[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -283,11 +290,18 @@ def test_trace_names_equal_the_jax_runs(tmp_path, clean_telemetry, kind):
     train_surrogate(SurrogateConfig(**CFG), TrainConfig(ckpt_dir=str(tmp_path / "port"),
                                                         **common),
                     cond, pstore, target_transform=transform, device="cpu")
-    got = _names(obs_trace.get_tracer().events())
-    assert got == want
+    events = obs_trace.get_tracer().events()
+    got = _names(events)
+    # the port has no train.window rate (a rate of dispatch times), and
+    # adds each step phase's device range
+    assert got == want - {("i", "train.window")}
     assert {("X", "train.step"), ("X", "train.fetch"), ("i", "train.compile"),
-            ("i", "train.window"), ("X", "train.checkpoint")} <= got
+            ("X", "train.checkpoint")} <= got
     assert (("X", "data.get_batch") in got) == (kind == "raw")
+    phases = {"train.forward", "train.backward", "train.optimizer"}
+    if kind == "device_resident":
+        phases.add("train.gather_decode")
+    assert {e["name"] for e in events if e["ph"] == "R"} == phases
 
     import trace_report
     paths = obs_trace.shutdown()
