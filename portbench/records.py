@@ -18,15 +18,14 @@ def in_stretch(run, name: str) -> List[dict]:
     if w is None or w.t_open is None or w.t_trace_end is None:
         return []
     from repro_torch.obs import trace
-    captured = getattr(trace, "capture_tracer", lambda: None)()
-    for tracer in (trace.get_tracer(), captured):
-        if tracer is None:
-            continue
-        lo, hi = tracer.rel(w.t_open), tracer.rel(w.t_trace_end)
-        found = [e for e in tracer.events() if e["name"] == name and lo <= e["ts"] <= hi]
-        if found:
-            return found
-    return []
+    # an older program has no capture tracer: its traced runs, read with
+    # these files too, then leave these metrics out
+    capture_tracer = getattr(trace, "capture_tracer", lambda: None)
+    tracer = trace.get_tracer() or capture_tracer()
+    if tracer is None:
+        return []
+    lo, hi = tracer.rel(w.t_open), tracer.rel(w.t_trace_end)
+    return [e for e in tracer.events() if e["name"] == name and lo <= e["ts"] <= hi]
 
 
 def seconds(run, name: str) -> Optional[float]:

@@ -212,7 +212,9 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     stream = batch_stream(loader, source.fetch, train_cfg.epochs, prefetch)
     try:
         for _lstate, item in stream:
-            with obs_trace.span("ensemble.dispatch", cat="ensemble", step=step + 1):
+            rec = obs_trace.active()        # no span, nor its attributes, when off
+            with obs_trace.NULL_SPAN if rec is None else rec.span(
+                    "ensemble.dispatch", "ensemble", step=step + 1):
                 t0s = time.perf_counter()
                 params, opt_state, loss = step_fn(params, opt_state, item)
                 dispatch_s = time.perf_counter() - t0s

@@ -6,15 +6,15 @@ capture and the recompile watcher; the counterpart of
 ``repro/obs/jaxprof.py``)."""
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, IoStats,
                                      MetricsRegistry, get_registry)
-from repro_torch.obs.trace import (NULL_SPAN, Tracer, capture_tracer, configure,
-                                   counter, device_range, enabled, get_tracer, instant,
-                                   shutdown, span)
+from repro_torch.obs.trace import (NULL_SPAN, Tracer, active, capture_tracer,
+                                   configure, counter, device_range, enabled, get_tracer,
+                                   instant, shutdown, span)
 from repro_torch.obs.torchprof import (RecompileEvent, RecompileWatcher, annotation,
                                        block_until_ready, cache_size, get_watcher,
                                        named_scope, profiler_trace)
 
 __all__ = ["Counter", "Gauge", "Histogram", "IoStats", "MetricsRegistry",
-           "get_registry", "NULL_SPAN", "Tracer", "capture_tracer", "configure", "counter",
-           "device_range", "enabled", "get_tracer", "instant", "shutdown", "span",
+           "get_registry", "NULL_SPAN", "Tracer", "active", "capture_tracer", "configure",
+           "counter", "device_range", "enabled", "get_tracer", "instant", "shutdown", "span",
            "RecompileEvent", "RecompileWatcher", "annotation", "block_until_ready",
            "cache_size", "get_watcher", "named_scope", "profiler_trace"]

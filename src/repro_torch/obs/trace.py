@@ -40,11 +40,12 @@ The program records when either of two switches is on:
 Design constraints (the hot paths this instruments are per-train-step and
 per-decode-step):
 
-  * **off by default, near-zero when off** -- the module-level ``span()`` /
-    ``device_range()`` / ``instant()`` / ``counter()`` helpers read the
-    configured tracer and the profiler's flag and return a shared no-op
-    context manager when both are off; no clock is read, no object is
-    allocated, no CUDA event is made;
+  * **off by default, near-zero when off** -- :func:`active` reads the
+    configured tracer and the profiler's flag; the module-level ``span()``
+    / ``device_range()`` / ``instant()`` / ``counter()`` helpers return a
+    shared no-op context manager when it finds neither, and a hot loop
+    calls it once and opens its spans on what it returns: no clock is read,
+    no object is allocated, no CUDA event is made;
   * **no synchronise** -- a device range is a pair of CUDA events on the
     current stream, resolved by ``query()`` when a later range begins, or
     when the tracer is read;
@@ -55,7 +56,9 @@ per-decode-step):
     lock around the shared event list;
   * **bounded** -- at most ``max_events`` events are retained; overflow is
     counted and reported in the export metadata instead of growing without
-    limit on long runs.
+    limit on long runs.  A configured tracer keeps the first records; the
+    capture's keeps the newest, since a process may run many captures and
+    only the latest is read.
 """
 from __future__ import annotations
 
@@ -177,17 +180,19 @@ class Tracer:
     """Collects events for one run; ``write()`` exports both formats."""
 
     def __init__(self, trace_dir: Optional[str] = None, run: str = "run",
-                 max_events: int = 200_000):
+                 max_events: int = 200_000, keep_newest: bool = False):
         self.trace_dir = trace_dir
         self.run = run
         self.max_events = int(max_events)
+        self.keep_newest = keep_newest
         self.dropped = 0
         # one reading of each clock, the perf counter's taken around the epoch's
         p0 = time.perf_counter_ns()
         self.epoch_ns = time.time_ns()
         self.perf_ns = (p0 + time.perf_counter_ns()) // 2
         self._t0 = self.perf_ns * 1e-9
-        self._events: list = []
+        self._events: collections.deque = collections.deque(
+            maxlen=self.max_events if keep_newest else None)
         self._pending: collections.deque = collections.deque()
         self._ids = itertools.count(1)
         self._lock = threading.Lock()
@@ -220,8 +225,9 @@ class Tracer:
         with self._lock:
             if len(self._events) >= self.max_events:
                 self.dropped += 1
-                return
-            self._events.append(rec)
+                if not self.keep_newest:
+                    return
+            self._events.append(rec)        # keep_newest: the oldest gives way
 
     def _poll(self) -> None:
         """Record the device ranges whose work has finished (no wait)."""
@@ -364,7 +370,9 @@ def enabled() -> bool:
 
 def capture_tracer() -> Optional[Tracer]:
     """The in-memory tracer that records while a ``torch.profiler`` capture
-    runs and no tracer is configured; None until it first records."""
+    runs and no tracer is configured; None until it first records.  It
+    holds the newest ``max_events`` records of every capture of the process
+    since :func:`shutdown` (older ones give way, counted in ``dropped``)."""
     return _CAPTURED
 
 
@@ -373,8 +381,20 @@ def _recorder() -> Tracer:
     global _CAPTURED
     with _CAPTURED_LOCK:
         if _CAPTURED is None:
-            _CAPTURED = Tracer(run="capture")
+            _CAPTURED = Tracer(run="capture", keep_newest=True)
         return _CAPTURED
+
+
+def active() -> Optional[Tracer]:
+    """The tracer that records now: the configured one, else the capture's
+    while a ``torch.profiler`` capture runs; None when nothing records (a
+    global read and an attribute read).  A hot loop calls this once and
+    opens its spans on the result, so that with recording off it builds no
+    span's attributes either."""
+    t = _TRACER
+    if t is None and _profiler._is_profiler_enabled:
+        t = _CAPTURED or _recorder()
+    return t
 
 
 def shutdown(write: bool = True) -> Optional[dict]:
@@ -389,38 +409,24 @@ def shutdown(write: bool = True) -> Optional[dict]:
 
 def span(name: str, cat: str = "span", **attrs):
     """Global-tracer span; the shared no-op when nothing records."""
-    t = _TRACER
-    if t is None:
-        if not _profiler._is_profiler_enabled:
-            return NULL_SPAN
-        t = _recorder()
-    return t.span(name, cat, **attrs)
+    t = active()
+    return NULL_SPAN if t is None else t.span(name, cat, **attrs)
 
 
 def device_range(name: str, device):
     """Device range of the work queued inside it on ``device``; the shared
     no-op when nothing records."""
-    t = _TRACER
-    if t is None:
-        if not _profiler._is_profiler_enabled:
-            return NULL_SPAN
-        t = _recorder()
-    return t.device_range(name, device)
+    t = active()
+    return NULL_SPAN if t is None else t.device_range(name, device)
 
 
 def instant(name: str, cat: str = "event", **attrs) -> None:
-    t = _TRACER
-    if t is None:
-        if not _profiler._is_profiler_enabled:
-            return
-        t = _recorder()
-    t.instant(name, cat, **attrs)
+    t = active()
+    if t is not None:
+        t.instant(name, cat, **attrs)
 
 
 def counter(name: str, **values) -> None:
-    t = _TRACER
-    if t is None:
-        if not _profiler._is_profiler_enabled:
-            return
-        t = _recorder()
-    t.counter(name, **values)
+    t = active()
+    if t is not None:
+        t.counter(name, **values)

@@ -219,7 +219,11 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
             if params_prev is not None:
                 torch._foreach_copy_(list(params_prev.values()),
                                      list(live.values()))
-            with obs_trace.span("train.step", cat="train", step=step + 1):
+            # the histogram keeps its own clock pair: it is fed with
+            # recording off too, when no span is opened
+            rec = obs_trace.active()
+            with obs_trace.NULL_SPAN if rec is None else rec.span(
+                    "train.step", "train", step=step + 1):
                 t0s = time.perf_counter()
                 opt_state, loss = train_step(opt_state, item)
                 if first_in_run:

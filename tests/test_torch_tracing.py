@@ -11,8 +11,11 @@ datagen spans.
     under one;
   * a device range waits for nothing: it resolves by ``query()`` when a
     later range begins, or when the tracer is read;
-  * every record carries its id, parent and depth in both exports, and
-    ``tools/trace_report.py`` reads them;
+  * every record carries its id, parent and depth in both exports,
+    ``tools/trace_report_torch.py`` takes self times from the parent ids and
+    sums the device ranges, and ``tools/trace_report.py`` still reads both
+    exports;
+  * the capture's tracer keeps the newest records of a process's captures;
   * ``datagen.writer_wait`` is recorded in a tiny ``produce``, for a full
     queue and for ``close``.
 """
@@ -107,6 +110,7 @@ def test_nothing_records_outside_a_capture():
     train_surrogate(SurrogateConfig(**CFG), TrainConfig(epochs=1, batch_size=8, prefetch=0),
                     cond, _resident(fields), target_transform=channels_last, device="cpu")
     assert obs_trace.get_tracer() is None and obs_trace.capture_tracer() is None
+    assert obs_trace.active() is None
     assert obs_trace.span("x") is obs_trace.NULL_SPAN
     assert obs_trace.device_range("x", "cpu") is obs_trace.NULL_SPAN
 
@@ -215,11 +219,10 @@ def test_a_device_range_resolves_by_query_or_when_read():
 
 
 # ---------------------------------------------------------------------------
-# parent ids in both exports, and trace_report
+# parent ids in both exports, and the reports that read them
 # ---------------------------------------------------------------------------
 
-def test_parent_ids_in_both_exports(tmp_path):
-    import trace_report
+def _nested_run(tmp_path):
     tracer = obs_trace.configure(str(tmp_path), run="ids")
     with obs_trace.span("outer", step=7) as outer:
         with obs_trace.span("inner"):
@@ -228,12 +231,17 @@ def test_parent_ids_in_both_exports(tmp_path):
         obs_trace.instant("mark")
         obs_trace.counter("slots", active=1)
     events = {e["name"]: e for e in tracer.events()}
+    return outer, events, obs_trace.shutdown()
+
+
+def test_parent_ids_in_both_exports(tmp_path):
+    import trace_report_torch
+    outer, events, paths = _nested_run(tmp_path)
     assert events["outer"]["id"] == outer.id and events["outer"]["parent"] is None
     assert events["inner"]["parent"] == outer.id and events["inner"]["depth"] == 1
     assert events["phase"]["parent"] == events["inner"]["id"]
     assert events["phase"]["args"] == {"step": 7}
     assert events["mark"]["parent"] == events["slots"]["parent"] == outer.id
-    paths = obs_trace.shutdown()
     lines = [json.loads(line) for line in open(paths["events"])]
     assert {(e["name"], e["type"], e["parent"]) for e in lines} >= {
         ("inner", "span", outer.id), ("phase", "range", events["inner"]["id"])}
@@ -243,12 +251,60 @@ def test_parent_ids_in_both_exports(tmp_path):
     (inner,) = [e for e in chrome["traceEvents"] if e["name"] == "inner"]
     assert (inner["record_id"], inner["parent"]) == (events["inner"]["id"], outer.id)
     for path in (paths["events"], paths["trace"]):
-        rep = trace_report.summarize(trace_report.load_events(path))
+        rep = trace_report_torch.summarize(trace_report_torch.load_events(path))
         assert rep["stages"]["outer"]["self_s"] == pytest.approx(
             events["outer"]["dur"] - events["inner"]["dur"], abs=2e-6)
         assert rep["ranges"]["phase"]["count"] == 1
         assert rep["ranges"]["phase"]["total_s"] == pytest.approx(events["phase"]["dur"],
                                                                   abs=2e-6)
+
+
+@pytest.mark.parametrize("export", ["events", "trace"])
+def test_trace_report_still_reads_the_port_exports(tmp_path, export):
+    import trace_report
+    import trace_report_torch
+    _, events, paths = _nested_run(tmp_path)
+    rep = trace_report.summarize(trace_report.load_events(paths[export]))
+    ours = trace_report_torch.summarize(trace_report_torch.load_events(paths[export]))
+    assert set(rep["stages"]) == set(ours["stages"]) == {"outer", "inner"}
+    for name in ("outer", "inner"):
+        assert rep["stages"][name]["count"] == 1
+        assert rep["stages"][name]["self_s"] == pytest.approx(
+            ours["stages"][name]["self_s"], abs=2e-6)
+    assert rep["instants"]["mark"]["count"] == 1 and rep["counters"] == ["slots"]
+    assert "ranges" not in rep
+
+
+def test_trace_report_torch_prints_the_ranges(tmp_path, capsys):
+    import trace_report_torch
+    _nested_run(tmp_path)
+    assert trace_report_torch.main([str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "outer" in out and "device range phase: x1" in out
+    (tmp_path / "empty").mkdir()
+    assert trace_report_torch.main([str(tmp_path / "empty")]) == 1
+
+
+def test_the_capture_tracer_keeps_the_newest_records():
+    for k in range(3):                      # three captures, one process
+        prof = _capture()
+        try:
+            for i in range(4):
+                obs_trace.instant("mark", capture=k, i=i)
+        finally:
+            prof.stop()
+        obs_trace.instant("between")        # off: nothing records
+    tracer = obs_trace.capture_tracer()
+    assert [e["args"]["capture"] for e in tracer.events()] == [0] * 4 + [1] * 4 + [2] * 4
+    small = obs_trace.Tracer(max_events=5, keep_newest=True)
+    for i in range(8):
+        small.instant("mark", i=i)
+    assert [e["args"]["i"] for e in small.events()] == [3, 4, 5, 6, 7]
+    assert small.dropped == 3 and small.chrome_trace()["otherData"]["dropped"] == 3
+    first = obs_trace.Tracer(max_events=5)  # a configured tracer keeps the first
+    for i in range(8):
+        first.instant("mark", i=i)
+    assert [e["args"]["i"] for e in first.events()] == [0, 1, 2, 3, 4]
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,11 @@ run the report groups spans by name and prints
 
     name  count  total_s  self_s  mean_ms  %wall
 
-where *self* excludes time spent in nested child spans (by the recorded
-parent ids where the run has them; per thread, by depth/containment in
-older runs) and *%wall* is total against the run's observed span extent --
-the quick answer to "where did this run's time actually go".  Device
-ranges (the port's per-phase device seconds), instants (recompiles,
-compile markers) and counter series are summarized below the table.
+where *self* excludes time spent in nested child spans (per thread, by
+depth/containment) and *%wall* is total against the run's observed span
+extent -- the quick answer to "where did this run's time actually go".
+Instants (recompiles, compile markers, window rates) and counter series are
+summarized below the table.
 
 Usage:
   python tools/trace_report.py out/trace                 # whole directory
@@ -34,10 +33,8 @@ from typing import List, Optional
 def load_events(path: str) -> List[dict]:
     """Normalized events from a .events.jsonl or .trace.json file.
 
-    Normalized record: type (span|instant|counter|range), name, cat, ts_s,
-    dur_s, thread, id and parent (None in older runs), depth (None for
-    older Chrome input; recomputed), attrs.  A Chrome trace's device range
-    is its ``b``/``e`` pair.
+    Normalized record: type (span|instant|counter), name, cat, ts_s, dur_s,
+    thread, depth (may be None for Chrome input; recomputed), attrs.
     """
     if path.endswith(".jsonl"):
         out = []
@@ -49,24 +46,16 @@ def load_events(path: str) -> List[dict]:
         return out
     with open(path) as f:
         doc = json.load(f)
-    ph_type = {"X": "span", "i": "instant", "C": "counter", "b": "range"}
-    out, opened = [], {}
+    ph_type = {"X": "span", "i": "instant", "C": "counter"}
+    out = []
     for e in doc.get("traceEvents", []):
-        if e.get("ph") == "e" and (e.get("cat"), e.get("id")) in opened:
-            rec = opened.pop((e.get("cat"), e.get("id")))
-            rec["dur_s"] = e["ts"] / 1e6 - rec["ts_s"]
-            continue
         if e.get("ph") not in ph_type:
             continue
-        rec = {"type": ph_type[e["ph"]], "name": e["name"],
-               "cat": e.get("cat", ""), "ts_s": e["ts"] / 1e6,
-               "dur_s": e.get("dur", 0.0) / 1e6,
-               "thread": e.get("tid", 0), "id": e.get("record_id"),
-               "parent": e.get("parent"), "depth": e.get("depth"),
-               "attrs": e.get("args", {})}
-        if e["ph"] == "b":
-            opened[(e.get("cat"), e.get("id"))] = rec
-        out.append(rec)
+        out.append({"type": ph_type[e["ph"]], "name": e["name"],
+                    "cat": e.get("cat", ""), "ts_s": e["ts"] / 1e6,
+                    "dur_s": e.get("dur", 0.0) / 1e6,
+                    "thread": e.get("tid", 0), "depth": None,
+                    "attrs": e.get("args", {})})
     return out
 
 
@@ -87,18 +76,8 @@ def _assign_depths(spans: List[dict]) -> None:
 
 
 def _self_times(spans: List[dict]) -> None:
-    """self_s = dur_s minus the durations of directly nested child spans:
-    those naming it as parent, or in older runs those on the same thread
-    at depth + 1 inside its interval."""
-    if spans and all(s.get("id") is not None for s in spans):
-        by_id = {s["id"]: s for s in spans}
-        for s in spans:
-            s["self_s"] = s["dur_s"]
-        for s in spans:
-            parent = by_id.get(s.get("parent"))
-            if parent is not None:
-                parent["self_s"] -= s["dur_s"]
-        return
+    """self_s = dur_s minus the durations of directly nested child spans
+    (same thread, depth + 1, inside the parent's interval)."""
     by_thread = defaultdict(list)
     for s in spans:
         s["self_s"] = s["dur_s"]
@@ -118,7 +97,7 @@ def _self_times(spans: List[dict]) -> None:
 
 def summarize(events: List[dict]) -> dict:
     spans = [e for e in events if e["type"] == "span"]
-    if spans and any(s.get("depth") is None for s in spans):
+    if spans and spans[0].get("depth") is None:
         _assign_depths(spans)
     _self_times(spans)
 
@@ -139,15 +118,6 @@ def summarize(events: List[dict]) -> dict:
         st["mean_ms"] = st["total_s"] / st["count"] * 1e3
         st["pct_wall"] = st["total_s"] / wall * 100.0 if wall else 0.0
 
-    ranges: dict = {}
-    for e in events:
-        if e["type"] == "range":
-            rec = ranges.setdefault(e["name"], {"count": 0, "total_s": 0.0})
-            rec["count"] += 1
-            rec["total_s"] += e["dur_s"]
-    for rec in ranges.values():
-        rec["mean_ms"] = rec["total_s"] / rec["count"] * 1e3
-
     instants: dict = {}
     for e in events:
         if e["type"] == "instant":
@@ -156,7 +126,7 @@ def summarize(events: List[dict]) -> dict:
             rec["last"] = e["attrs"]
     counters = sorted({e["name"] for e in events if e["type"] == "counter"})
     return {"wall_s": wall, "spans": len(spans), "stages": stages,
-            "ranges": ranges, "instants": instants, "counters": counters}
+            "instants": instants, "counters": counters}
 
 
 def print_report(path: str, rep: dict) -> None:
@@ -171,9 +141,6 @@ def print_report(path: str, rep: dict) -> None:
             print(f"   {name:<28} {st['count']:>6} {st['total_s']:>9.3f} "
                   f"{st['self_s']:>9.3f} {st['mean_ms']:>9.2f} "
                   f"{st['pct_wall']:>6.1f}%")
-    for name, rec in sorted(rep.get("ranges", {}).items()):
-        print(f"   device range {name}: x{rec['count']}  "
-              f"{rec['total_s']:.3f}s  mean {rec['mean_ms']:.2f} ms")
     for name, rec in sorted(rep["instants"].items()):
         mark = "  ** " if name == "recompile" else "   "
         print(f"{mark}instant {name}: x{rec['count']}  last={rec['last']}")
