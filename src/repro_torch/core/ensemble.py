@@ -14,7 +14,8 @@ tolerance.  Here one step advances all N members:
   * a shared host store is read and decoded once per step for the union of
     the members' indices; per-member stores (one lossy store per tolerance
     candidate) are read per member; device-resident stores decode every
-    member's batch in one launch of the gathered decode;
+    member's batch in one launch of the gathered decode, and on the card
+    their step replays CUDA graphs from its second step on;
   * per-epoch metric trajectories (L1, PSNR, total mass and momentum) come
     from a vmapped eval and feed ``compute_band`` and a persisted
     ``BandArtifact`` (``repro-band-v1``, the JAX package's format: a band

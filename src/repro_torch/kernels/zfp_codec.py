@@ -13,7 +13,8 @@ launch returned an error, and adds one to its entry in :data:`LAUNCHES`
 (under a lock: the prefetch worker launches decodes from its own thread).
 The fixed-accuracy decode has two entries, flat and gathered (the
 device-resident store's batch decode); both count as
-``"zfp_decode_blocks_fa"``.
+``"zfp_decode_blocks_fa"``.  A launch inside a CUDA graph counts when the
+graph replays (:func:`add_launches`), not when it is captured.
 """
 from __future__ import annotations
 
@@ -57,6 +58,21 @@ def reset_launches() -> None:
 def _counted(name: str) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """A copy of :data:`LAUNCHES`."""
+    with _launch_lock:
+        return dict(LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to :data:`LAUNCHES`.  A launch captured
+    into a CUDA graph runs only when the graph replays: its capture takes
+    the count back out (``times=-1``) and each replay adds it."""
+    with _launch_lock:
+        for k, n in counts.items():
+            LAUNCHES[k] += times * n
 
 
 GATHER_ENTRY = "zfp_decode_blocks_fa_gather_launch"

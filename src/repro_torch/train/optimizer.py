@@ -52,35 +52,48 @@ def global_norm(tensors: Tensors, stacked: bool = False) -> torch.Tensor:
 
 @torch.no_grad()
 def adam_update(grads: Tensors, state: AdamState, params: Tensors,
-                cfg: AdamConfig, lr_scale: float = 1.0, stacked: bool = False):
+                cfg: AdamConfig, lr_scale: float = 1.0, stacked: bool = False,
+                inplace: bool = False):
     """Returns (new_params, new_state); inputs are left unchanged.
 
     ``stacked``: every tensor carries a leading member axis ``(N, ...)``
     (the seed ensemble).  The moment updates are elementwise, so one update
     of the stack is N member updates; only ``grad_clip`` differs, and
-    clips each member by its own global norm."""
+    clips each member by its own global norm.
+
+    ``inplace``: the new parameters, moments and step count are written
+    into ``params`` and ``state``'s own tensors, which are returned (the
+    static buffers of a step replayed from a CUDA graph); the same kernels
+    and the same bits.  No host-to-device copy and no synchronise either
+    way, so the update can be captured."""
+    def into(t):
+        return t if inplace else None
+
     if cfg.grad_clip is not None:
         gn = global_norm(grads, stacked)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
         grads = {k: g * (scale.reshape((-1,) + (1,) * (g.dim() - 1))
                          if stacked else scale)
                  for k, g in grads.items()}
-    step = state.step + 1
+    step = torch.add(state.step, 1, out=into(state.step))
     b1, b2 = cfg.b1, cfg.b2
-    m = {k: b1 * state.m[k] + (1 - b1) * g for k, g in grads.items()}
-    v = {k: b2 * state.v[k] + (1 - b2) * g.square() for k, g in grads.items()}
+    m = {k: torch.add(b1 * state.m[k], (1 - b1) * g, out=into(state.m[k]))
+         for k, g in grads.items()}
+    v = {k: torch.add(b2 * state.v[k], (1 - b2) * g.square(), out=into(state.v[k]))
+         for k, g in grads.items()}
     step_f = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                     device=step.device), step_f)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                     device=step.device), step_f)
+    # the bases filled on the device: a scalar upload would wait for the stream
+    bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                   device=step.device), step_f)
+    bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                   device=step.device), step_f)
     lr = cfg.lr * lr_scale
 
     def upd(p, mm, vv):
         delta = (mm / bc1) / (torch.sqrt(vv / bc2) + cfg.eps)
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p
-        return (p - lr * delta).to(p.dtype)
+        return torch.sub(p, lr * delta, out=into(p)).to(p.dtype)
 
     new_params = {k: upd(p, m[k], v[k]) for k, p in params.items()}
     return new_params, AdamState(step=step, m=m, v=v)

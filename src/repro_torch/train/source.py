@@ -24,7 +24,10 @@ and one update for all members (:func:`make_ensemble_update`):
 parameters, then Adam on the stacks.  The gather + decode of every
 member's batch runs outside the vmap (a kernel reached through ``ctypes``
 cannot run inside it), as one launch of the gathered decode for all
-members.
+members.  On the card the device-resident ensemble step replays CUDA
+graphs of its three phases from its second call on
+(:class:`GraphedEnsembleStep`): the host launches three graphs a step
+instead of about a thousand kernels.
 """
 from __future__ import annotations
 
@@ -37,7 +40,9 @@ from repro_torch.data.device_store import DeviceResidentCompressedStore
 from repro_torch.data.loader import PrefetchLoader, ShardAwareLoader, ShardedLoader
 from repro_torch.data.store import ArrayStore, on_device, upload
 from repro_torch.device import same_device
+from repro_torch.kernels import zfp_codec
 from repro_torch.models.surrogate import Surrogate, functional_l1_loss, l1_loss
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.torchprof import named_scope
 from repro_torch.obs.trace import device_range
@@ -349,16 +354,22 @@ def make_ensemble_source(data, conditions, target_transform=None):
 # ensemble steps
 # ---------------------------------------------------------------------------
 
-def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
-    """``update(params, opt_state, cond, target) -> (params, opt_state,
-    loss)`` for stacked parameters ``{name: (N, ...)}``, cond (N, B,
-    cond_dim), target (N, B, H, W, F): ``vmap(grad_and_value(L1))`` over
-    the member axis through ``model``'s skeleton (its own weights are not
-    used), then one Adam update of the stacks.  Returns the (N,) losses."""
+def ensemble_grad(model: Surrogate) -> Callable:
+    """``grad(params, cond, target) -> (grads, (N,) loss)`` for stacked
+    parameters ``{name: (N, ...)}``, cond (N, B, cond_dim), target (N, B,
+    H, W, F): ``vmap(grad_and_value(L1))`` over the member axis through
+    ``model``'s skeleton (its own weights are not used)."""
     def member_loss(p, cond, target):
         return functional_l1_loss(model, p, cond, target)
 
-    grad_and_loss = torch.func.vmap(torch.func.grad_and_value(member_loss))
+    return torch.func.vmap(torch.func.grad_and_value(member_loss))
+
+
+def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
+    """``update(params, opt_state, cond, target) -> (params, opt_state,
+    loss)``: :func:`ensemble_grad`, then one Adam update of the stacks.
+    Returns the (N,) losses."""
+    grad_and_loss = ensemble_grad(model)
     dev = next(model.parameters()).device
 
     def update(params, opt_state: AdamState, cond, target):
@@ -376,15 +387,127 @@ def make_fused_ensemble_step(source: DeviceEnsembleSource, model: Surrogate,
                              opt_cfg: AdamConfig) -> Callable:
     """One step of every member on the device: the gathered decode of all
     members' batches, then the vmapped update.
-    ``step(params, opt_state, idx (N, B)) -> (params, opt_state, loss)``."""
-    update = make_ensemble_update(model, opt_cfg)
+    ``step(params, opt_state, idx (N, B)) -> (params, opt_state, loss)``.
+    On the card the step replays CUDA graphs from its second call on
+    (:class:`GraphedEnsembleStep`); elsewhere it runs eagerly."""
+    if source.device.type == "cuda":
+        return GraphedEnsembleStep(source, model, opt_cfg)
+    return _eager_fused_ensemble_step(source, make_ensemble_update(model, opt_cfg))
 
+
+def _eager_fused_ensemble_step(source: DeviceEnsembleSource,
+                               update: Callable) -> Callable:
     def step(params, opt_state, idx: torch.Tensor):
         with device_range("ensemble.gather_decode", source.device):
             cond, target = source.gather(idx)
         return update(params, opt_state, cond, target)
 
     return step
+
+
+class GraphedEnsembleStep:
+    """The fused ensemble step replayed from CUDA graphs.
+
+    The first call runs eagerly (cuDNN's plans and the kernel builds happen
+    there), and its outputs become the step's static buffers: the stacked
+    parameters, Adam's moments and step count, beside an (N, B) index
+    buffer into which each later call's indices are copied on the device.
+    The second call captures the step as three graphs in one memory pool,
+    one a stage: the gathered decode (:meth:`gather`), the vmapped
+    ``grad_and_value`` (:meth:`grad`) and Adam on the stacks, written into
+    the buffers in place (:meth:`optimize`); it and every later call replay
+    them, each inside the device range its eager phase has.  The span
+    ``ensemble.capture`` holds the capture and the graphs' instantiation,
+    ``ensemble.replay`` a call's three replays; the registry counts
+    ``ensemble.graph_captures`` and ``ensemble.graph_replays``.  A capture
+    that fails raises.
+
+    A call returns the buffers themselves: the caller's first tensors are
+    never written, and any but the step's own last outputs are copied in.
+    The returned loss is rewritten by the next call.
+    """
+    STAGES = (("ensemble.gather_decode", "gather"), ("ensemble.grad", "grad"),
+              ("ensemble.optimizer", "optimize"))
+
+    def __init__(self, source: DeviceEnsembleSource, model: Surrogate,
+                 opt_cfg: AdamConfig):
+        self.source, self.opt_cfg = source, opt_cfg
+        self._grad = ensemble_grad(model)
+        self._eager = _eager_fused_ensemble_step(source,
+                                                 make_ensemble_update(model, opt_cfg))
+        self.idx = self.params = self.opt_state = None
+        self.cond = self.target = self.grads = self.loss = None
+        self.graphs = None
+        self._launches: dict = {}
+        reg = obs_metrics.get_registry()
+        self._captures = reg.counter("ensemble.graph_captures")
+        self._replays = reg.counter("ensemble.graph_replays")
+
+    # -- the stages, on the buffers: what each graph captures ---------------
+
+    def gather(self) -> None:
+        self.cond, self.target = self.source.gather(self.idx)
+
+    def grad(self) -> None:
+        self.grads, self.loss = self._grad(self.params, self.cond, self.target)
+
+    def optimize(self) -> None:
+        adam_update(self.grads, self.opt_state, self.params, self.opt_cfg,
+                    stacked=True, inplace=True)
+
+    # -- the step -------------------------------------------------------------
+
+    def load(self, params, opt_state: AdamState, idx: torch.Tensor) -> None:
+        """Copy a call's indices, and any state that is not the buffers
+        themselves, into the buffers."""
+        if tuple(idx.shape) != tuple(self.idx.shape):
+            raise ValueError(f"indices of shape {tuple(idx.shape)}; the step's "
+                             f"buffer holds {tuple(self.idx.shape)}")
+        self.idx.copy_(idx)
+        s = self.opt_state
+        pairs = [(s.step, opt_state.step)]
+        for k, buf in self.params.items():
+            pairs += [(buf, params[k]), (s.m[k], opt_state.m[k]), (s.v[k], opt_state.v[k])]
+        for buf, t in pairs:
+            if t is not buf:
+                buf.copy_(t)
+
+    def __call__(self, params, opt_state: AdamState, idx: torch.Tensor):
+        if self.params is None:
+            params, opt_state, loss = self._eager(params, opt_state, idx)
+            self.params, self.opt_state = params, opt_state
+            self.idx = torch.empty_like(idx)
+            return params, opt_state, loss
+        self.load(params, opt_state, idx)
+        if self.graphs is None:
+            self._capture()
+        dev = self.source.device
+        with obs_trace.span("ensemble.replay", cat="ensemble"):
+            for (name, _), graph in zip(self.STAGES, self.graphs):
+                with device_range(name, dev):
+                    graph.replay()
+        zfp_codec.add_launches(self._launches)
+        self._replays.add(1)
+        return self.params, self.opt_state, self.loss
+
+    def _capture(self) -> None:
+        before = zfp_codec.launch_counts()
+        try:
+            with obs_trace.span("ensemble.capture", cat="ensemble"):
+                pool = torch.cuda.graph_pool_handle()
+                graphs = []
+                for _, stage in self.STAGES:
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool,
+                                          capture_error_mode="thread_local"):
+                        getattr(self, stage)()
+                    graphs.append(graph)
+        finally:
+            after = zfp_codec.launch_counts()
+            self._launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
+            zfp_codec.add_launches(self._launches, -1)
+        self.graphs = graphs
+        self._captures.add(1)
 
 
 def make_host_ensemble_step(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
