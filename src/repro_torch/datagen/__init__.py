@@ -11,7 +11,8 @@ and ``certify_tolerance`` use to accept produced-dataset paths.
 """
 from repro_torch.datagen.plan import (CodecPlan, ProductionPlan, ScenarioPlan,
                                       PLAN_FORMAT)
-from repro_torch.datagen.produce import (ProducedDataset, ProduceReport,
+from repro_torch.datagen.produce import (NonFiniteMemberError,
+                                         ProducedDataset, ProduceReport,
                                          ScenarioReport, PRODUCTION_NAME,
                                          finalize, finalize_scenario,
                                          load_provenance, open_produced,
@@ -21,7 +22,8 @@ from repro_torch.datagen.writer import ShardWriter, WriterStats
 
 __all__ = [
     "CodecPlan", "ProductionPlan", "ScenarioPlan", "PLAN_FORMAT",
-    "ProducedDataset", "ProduceReport", "ScenarioReport", "PRODUCTION_NAME",
+    "NonFiniteMemberError", "ProducedDataset", "ProduceReport",
+    "ScenarioReport", "PRODUCTION_NAME",
     "finalize", "finalize_scenario", "load_provenance", "open_produced",
     "produce", "produced_training_arrays", "resolve_store",
     "scenario_conditions", "ShardWriter", "WriterStats",

@@ -3,6 +3,9 @@
 A copy of ``repro/datagen/plan.py``: the same plans serialize to the same
 canonical JSON and hash to the same ``config_hash`` in both packages, so a
 ``production.json`` either package wrote names its plan for the other.
+A spec's time step is the one field the JAX package lacks: left out of the
+JSON while it is the solver's default, so such plans hash as they do there;
+a plan that carries another (``RT_PAPER_SPEC``'s) is the port's alone.
 
 A ``ProductionPlan`` pins everything that determines the bytes of a produced
 dataset: the scenario sweep (which ``EnsembleSpec`` ensembles, how many
@@ -20,7 +23,7 @@ import json
 from typing import Tuple
 
 from repro_torch.sim.ensemble import EnsembleSpec, sample_params
-from repro_torch.sim.solver import SimParams
+from repro_torch.sim.solver import DT, SimParams
 
 PLAN_FORMAT = "repro-production-plan-v1"
 CODEC_MODES = ("fixed_accuracy", "fixed_rate")
@@ -128,7 +131,7 @@ class ProductionPlan:
             "format": PLAN_FORMAT,
             "shard_size": self.shard_size,
             "codec": self.codec.to_dict(),
-            "scenarios": [dataclasses.asdict(s) for s in self.scenarios],
+            "scenarios": [_scenario_dict(s) for s in self.scenarios],
         }
 
     @classmethod
@@ -160,6 +163,13 @@ class ProductionPlan:
         canon = json.dumps(self.to_dict(), sort_keys=True,
                            separators=(",", ":"))
         return hashlib.sha256(canon.encode()).hexdigest()[:16]
+
+
+def _scenario_dict(s: ScenarioPlan) -> dict:
+    d = dataclasses.asdict(s)
+    if s.spec.dt == DT:
+        del d["spec"]["dt"]
+    return d
 
 
 def sim_provenance(p: SimParams) -> dict:

@@ -28,6 +28,12 @@ Durability and resume:
     resulting store is bit-identical to an uninterrupted run (and to the
     in-memory ``ShardedCompressedStore`` build; tests/test_torch_datagen.py).
 
+A member whose fields are not finite (a solver step too long for the
+grid) is refused: ``produce`` raises ``NonFiniteMemberError`` before the
+member reaches the writer, and the scenario is not finalized.  The codec
+would encode NaN into finite values, so a store made from such a member
+would train without complaint on garbage.
+
 Multi-host: ``host_id``/``num_hosts`` partition the shard table with
 ``distributed.sharding.owned_shards``; each host writes its own shards and
 progress file, and whichever host finishes last assembles the manifest.
@@ -54,7 +60,8 @@ from repro_torch.datagen.writer import ShardWriter
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.sharding import owned_shards
 from repro_torch.obs import trace as obs_trace
-from repro_torch.sim.solver import run_simulation
+from repro_torch.obs.metrics import get_registry
+from repro_torch.sim.solver import DT, run_simulation
 
 PRODUCTION_NAME = "production.json"
 PRODUCTION_FORMAT = "repro-production-v1"
@@ -110,6 +117,10 @@ def _load_progress(sdir: str, plan_hash: str) -> dict:
                 if os.path.exists(os.path.join(sdir, _shard_filename(k))):
                     shards[k] = rec["meta"]
     return shards
+
+
+class NonFiniteMemberError(FloatingPointError):
+    """A simulated member's fields hold NaN or infinity."""
 
 
 def _scenario_tolerances(plan: ProductionPlan, sc: ScenarioPlan) -> np.ndarray:
@@ -248,17 +259,38 @@ def _produce_scenario(plan: ProductionPlan, sc: ScenarioPlan, sdir: str,
                          depth=queue_depth)
     params = sc.params()
     codec = codec_from_plan(plan.codec)
+    reg = get_registry()
+    # the default step is left to the solver's default only so that a stand-in
+    # for run_simulation without a dt parameter still works: the JAX solver
+    # that tests/test_torch_datagen.py feeds through here; that stub is the
+    # only reason for the branch
+    step = {} if sc.spec.dt == DT else {"dt": sc.spec.dt}
     try:
         for i in sims:
             # on the card this span ends in a wait for the member's whole
             # simulation: the solver's last scalar upload is a synchronous
             # copy behind the graph's replays (it also holds the capture's
-            # device synchronise, a datagen.capture span)
+            # device synchronise, a datagen.capture span); the finite flags'
+            # read then waits only for the material's normalisation
+            t0 = time.perf_counter()
             with obs_trace.span("datagen.simulate", cat="datagen",
                                 scenario=sc.name, member=i):
                 fields = run_simulation(params[i], ny=sc.spec.ny,
                                         nx=sc.spec.nx, nsteps=sc.spec.nsteps,
-                                        nsnaps=nsnaps, device=dev)
+                                        nsnaps=nsnaps, device=dev, **step)
+                # NaN propagates through min and max and an infinity is an
+                # extreme: one pass over the fields, no temporary of their size
+                low, high = torch.aminmax(fields.view(nsnaps, -1), dim=1)
+                finite = (low.isfinite() & high.isfinite()).cpu()
+            reg.histogram("datagen.simulate_seconds").observe(time.perf_counter() - t0)
+            reg.counter("datagen.rk3_steps").add(sc.spec.rk3_steps)
+            if not finite.all():
+                reg.counter("datagen.nonfinite_members").add()
+                raise NonFiniteMemberError(
+                    f"scenario {sc.name!r}, member {i}: non-finite fields from "
+                    f"snapshot {int((~finite).nonzero()[0])} of {nsnaps} (dt "
+                    f"{sc.spec.dt} at {sc.spec.ny}x{sc.spec.nx}); the member was "
+                    "not written and the scenario is not finalized")
             samples = fields.movedim(-1, 1)              # (T, C, H, W)
             for lo in range(0, nsnaps, size):
                 chunk = samples[lo:lo + size]

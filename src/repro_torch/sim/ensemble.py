@@ -3,7 +3,10 @@
 Counterpart of ``repro/sim/ensemble.py`` (the same specs and the same
 parameters from the same seed, drawn in numpy): each ensemble member is one
 simulation of 51 time steps x 6 fields; each time step is a training
-sample conditioned on (input parameters, time).
+sample conditioned on (input parameters, time).  A spec carries its
+solver's time step, ``dt``: the JAX package's specs have none and run at
+the solver's default, which holds up to ``RT_SPEC``'s grid but not at the
+paper's RT grid, where the largest resolved wavenumbers are 8x larger.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import List, Tuple
 import numpy as np
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.sim.solver import PARAM_DIM, SimParams, run_simulation
+from repro_torch.sim.solver import DT, PARAM_DIM, SimParams, run_simulation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +31,23 @@ class EnsembleSpec:
     amplitude_range: Tuple[float, float] = (0.01, 0.05)
     mode_range: Tuple[float, float] = (1.0, 4.0)
     log_diff_range: Tuple[float, float] = (-3.9, -3.2)
+    dt: float = DT
+
+    @property
+    def rk3_steps(self) -> int:
+        """RK3 steps a member simulates: whole snapshot intervals."""
+        return self.nsteps // (self.nsnaps - 1) * (self.nsnaps - 1)
 
 
-# Paper: RT 768x256, PCHIP 512x512 -- scaled 8x for the container.
+# Paper: RT 768x256, PCHIP 512x512.  RT_SPEC and PCHIP_SPEC are those grids
+# scaled 8x down, at the default time step; RT_PAPER_SPEC is the paper's RT
+# grid, at RT_SPEC's step scaled with the grid (1.5e-3 x 32/256) over the
+# same end time, 3.0.  On the card its fastest members keep the advective
+# CFL number dt (max|u| kx_max + max|v| ky_max) at 0.52; twice the step
+# stays finite but passes 1, and 1.5e-3 turns members non-finite.
 RT_SPEC = EnsembleSpec(name="rt", ny=96, nx=32)
 PCHIP_SPEC = EnsembleSpec(name="pchip", ny=64, nx=64, pchip=True, nsteps=1600)
+RT_PAPER_SPEC = EnsembleSpec(name="rt", ny=768, nx=256, nsteps=16000, dt=1.875e-4)
 
 
 def sample_params(spec: EnsembleSpec, num: int, seed: int = 0) -> List[SimParams]:
@@ -60,8 +75,8 @@ def generate_ensemble(spec: EnsembleSpec, num_sims: int, seed: int = 0, *,
     plist = sample_params(spec, num_sims, seed)
     fields = []
     for p in plist:
-        f = run_simulation(p, ny=spec.ny, nx=spec.nx,
-                           nsteps=spec.nsteps, nsnaps=spec.nsnaps, device=dev)
+        f = run_simulation(p, ny=spec.ny, nx=spec.nx, nsteps=spec.nsteps,
+                           nsnaps=spec.nsnaps, dt=spec.dt, device=dev)
         fields.append(f.cpu().numpy())
     pvec = np.stack([p.as_vector() for p in plist])
     if pvec.shape[1] != PARAM_DIM:

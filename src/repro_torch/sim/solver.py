@@ -45,6 +45,7 @@ from repro_torch.obs import trace as obs_trace
 FIELD_NAMES = ("density", "velocity_x", "velocity_y", "pressure", "energy", "material")
 GAMMA = 5.0 / 3.0
 PARAM_DIM = 6
+DT = 1.5e-3          # the default time step, the JAX solver's fixed one
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,7 +291,7 @@ def _simulate(params: SimParams, ny: int, nx: int, nsteps: int, nsnaps: int,
 def run_simulation(params: SimParams, ny: int = 96, nx: int = 32,
                    nsteps: int = 2000, nsnaps: int = 51,
                    lx: float = 1.0, ly: float = 3.0,
-                   dt: float = 1.5e-3, g: float = 4.0, *,
+                   dt: float = DT, g: float = 4.0, *,
                    device: DeviceLike = None) -> torch.Tensor:
     """Run one simulation; returns (nsnaps, ny, nx, 6) float32 on ``device``
     (the card unless ``device="cpu"``; on the card each snapshot interval
