@@ -25,8 +25,8 @@ model width:
   the DCGAN surrogate with the gathered decode (one launch a batch) + L1 +
   Adam on the card;
 * the certification path (the paper's steps 5-7): a 4-seed ensemble on
-  stacked parameters (one vmapped step, one gathered decode a step for all
-  members) held to its members run one by one, and a member trained on
+  stacked parameters (one member-folded step, one gathered decode a step
+  for all members) held to its members run one by one, and a member trained on
   another member's batches shown to fail the same limits; one step's
   gather from the shared store and from the sweep's stacked candidate
   stores held bit for bit to the plain decode and to each member's own
@@ -279,7 +279,7 @@ ENS_STEPS = 10
 CERT_MULTIPLES = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0)
 CERT_EPOCHS = 2
 EVAL_SAMPLES = 256
-# ensemble vs its members run one by one (the vmapped convolutions are
+# ensemble vs its members run one by one (the ensemble's convolutions are
 # grouped, so cuDNN runs other algorithms; an L1 gradient sign that float
 # noise flips moves an element by 2 LR a step): logged losses to
 # ENS_LOSS_RTOL; final params by the quantile criterion of

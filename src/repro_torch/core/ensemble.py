@@ -6,9 +6,10 @@ variability band) plus one retrained model per candidate compression
 tolerance.  Here one step advances all N members:
 
   * parameters and Adam moments are stacked, ``{name: (N, ...)}``; the
-    step is ``torch.func.vmap`` of ``grad_and_value`` of the L1 loss over
-    the member axis (``functional_call`` on one module skeleton), then one
-    Adam update of the stacks (``repro_torch.train.source``);
+    step is the gradient of every member's L1 loss through one
+    member-folded forward (the members' channels grouped in one
+    channels-last batch, ``repro_torch.models.folded``), then one Adam
+    update of the stacks (``repro_torch.train.source``);
   * every member consumes the batch stream an independent
     ``train_surrogate`` run with the same seed would (``EnsembleLoader``);
   * a shared host store is read and decoded once per step for the union of
@@ -81,8 +82,8 @@ def ensemble_train_step(params, opt_state, cond, target, model: Surrogate,
                         opt_cfg: AdamConfig):
     """One step of all members: cond (N, B, cond_dim), target (N, B, H, W,
     F), stacked params and Adam state -> (params, opt_state, (N,) loss).
-    ``model`` is any ``Surrogate`` of the ensemble's config, used as the
-    skeleton of ``functional_call`` (its own weights are not read)."""
+    ``model`` is any ``Surrogate`` of the ensemble's config (its own
+    weights are not read)."""
     from repro_torch.train.source import make_ensemble_update
     return make_ensemble_update(model, opt_cfg)(params, opt_state, cond, target)
 

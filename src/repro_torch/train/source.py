@@ -19,12 +19,12 @@ in the fused step, ``train.forward``, ``train.backward``,
 configured or a ``torch.profiler`` capture runs.
 
 The seed ensemble has the same two backends (:func:`make_ensemble_source`)
-and one update for all members (:func:`make_ensemble_update`):
-``torch.func.vmap`` of ``grad_and_value`` of the L1 loss over the stacked
-parameters, then Adam on the stacks.  The gather + decode of every
-member's batch runs outside the vmap (a kernel reached through ``ctypes``
-cannot run inside it), as one launch of the gathered decode for all
-members.  On the card the device-resident ensemble step replays CUDA
+and one update for all members (:func:`make_ensemble_update`): the
+gradient of every member's L1 loss through one member-folded forward
+(the members' channels grouped in one channels-last batch,
+``models/folded.py``), then Adam on the stacked parameters.  The gather +
+decode of every member's batch is one launch of the gathered decode for
+all members.  On the card the device-resident ensemble step replays CUDA
 graphs of its three phases from its second call on
 (:class:`GraphedEnsembleStep`): the host launches three graphs a step
 instead of about a thousand kernels.
@@ -41,6 +41,7 @@ from repro_torch.data.loader import PrefetchLoader, ShardAwareLoader, ShardedLoa
 from repro_torch.data.store import ArrayStore, on_device, upload
 from repro_torch.device import same_device
 from repro_torch.kernels import zfp_codec
+from repro_torch.models.folded import folded_forward
 from repro_torch.models.surrogate import Surrogate, functional_l1_loss, l1_loss
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -354,15 +355,39 @@ def make_ensemble_source(data, conditions, target_transform=None):
 # ensemble steps
 # ---------------------------------------------------------------------------
 
+# identity readout of one member's prediction, the model of its loss
+_READOUT = torch.nn.Identity()
+
+
 def ensemble_grad(model: Surrogate) -> Callable:
     """``grad(params, cond, target) -> (grads, (N,) loss)`` for stacked
     parameters ``{name: (N, ...)}``, cond (N, B, cond_dim), target (N, B,
-    H, W, F): ``vmap(grad_and_value(L1))`` over the member axis through
-    ``model``'s skeleton (its own weights are not used)."""
-    def member_loss(p, cond, target):
-        return functional_l1_loss(model, p, cond, target)
+    H, W, F), of ``model``'s config (its own weights are not used).
 
-    return torch.func.vmap(torch.func.grad_and_value(member_loss))
+    One member-folded forward runs every member
+    (:func:`repro_torch.models.folded.folded_forward`: grouped convolutions
+    on channels-last activations); each member's L1 mean is
+    ``functional_l1_loss`` of an identity readout of its (B, H, W, F)
+    prediction; autograd of their sum gives each member its own gradient,
+    returned as contiguous stacks.  The registry counts
+    ``ensemble.folded_grad_steps``, one a call (a call captured into a CUDA
+    graph counts at each replay, :class:`GraphedEnsembleStep`)."""
+    cfg = model.cfg
+    steps = obs_metrics.get_registry().counter("ensemble.folded_grad_steps")
+
+    def grad(params, cond, target):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            pred = folded_forward(cfg, leaves, cond)
+            loss = torch.stack([functional_l1_loss(_READOUT, {}, p, t)
+                                for p, t in zip(pred, target)])
+            grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+        if not (cond.is_cuda and torch.cuda.is_current_stream_capturing()):
+            steps.add(1)
+        return ({k: g.contiguous() for k, g in zip(leaves, grads)},
+                loss.detach())
+
+    return grad
 
 
 def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
@@ -386,7 +411,7 @@ def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
 def make_fused_ensemble_step(source: DeviceEnsembleSource, model: Surrogate,
                              opt_cfg: AdamConfig) -> Callable:
     """One step of every member on the device: the gathered decode of all
-    members' batches, then the vmapped update.
+    members' batches, then the member-folded update.
     ``step(params, opt_state, idx (N, B)) -> (params, opt_state, loss)``.
     On the card the step replays CUDA graphs from its second call on
     (:class:`GraphedEnsembleStep`); elsewhere it runs eagerly."""
@@ -413,14 +438,15 @@ class GraphedEnsembleStep:
     parameters, Adam's moments and step count, beside an (N, B) index
     buffer into which each later call's indices are copied on the device.
     The second call captures the step as three graphs in one memory pool,
-    one a stage: the gathered decode (:meth:`gather`), the vmapped
-    ``grad_and_value`` (:meth:`grad`) and Adam on the stacks, written into
+    one a stage: the gathered decode (:meth:`gather`), the member-folded
+    gradient (:meth:`grad`) and Adam on the stacks, written into
     the buffers in place (:meth:`optimize`); it and every later call replay
     them, each inside the device range its eager phase has.  The span
     ``ensemble.capture`` holds the capture and the graphs' instantiation,
     ``ensemble.replay`` a call's three replays; the registry counts
-    ``ensemble.graph_captures`` and ``ensemble.graph_replays``.  A capture
-    that fails raises.
+    ``ensemble.graph_captures`` and ``ensemble.graph_replays``, and each
+    replay counts one ``ensemble.folded_grad_steps``.  A capture that fails
+    raises.
 
     A call returns the buffers themselves: the caller's first tensors are
     never written, and any but the step's own last outputs are copied in.
@@ -442,6 +468,7 @@ class GraphedEnsembleStep:
         reg = obs_metrics.get_registry()
         self._captures = reg.counter("ensemble.graph_captures")
         self._replays = reg.counter("ensemble.graph_replays")
+        self._folded_steps = reg.counter("ensemble.folded_grad_steps")
 
     # -- the stages, on the buffers: what each graph captures ---------------
 
@@ -488,6 +515,7 @@ class GraphedEnsembleStep:
                     graph.replay()
         zfp_codec.add_launches(self._launches)
         self._replays.add(1)
+        self._folded_steps.add(1)
         return self.params, self.opt_state, self.loss
 
     def _capture(self) -> None:

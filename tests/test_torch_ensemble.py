@@ -3,7 +3,7 @@ runs and against the JAX package, on the CPU.
 
 The JAX test's tiny configuration (16x16 grid, ``base_channels=16``, 32
 samples, seeds 0, 1, 2).  The port's ensemble (stacked parameters, one
-vmapped step for all members) is held to N ``train_surrogate`` runs with
+member-folded step for all members) is held to N ``train_surrogate`` runs with
 the criteria of tests/test_ensemble.py ``_assert_equivalent``, on raw,
 sharded, device-resident and per-member stores; and, with the JAX
 members' initial parameters carried over (``params_from_jax``), to JAX's
