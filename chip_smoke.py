@@ -43,7 +43,7 @@ model width:
   finite and of field shape, the two modes agreeing, the fleet step held
   to each member's own forward through ``compute_band`` and the card to a
   CPU copy of the fleet, the schedule's counts to the CPU engine's; the
-  fleet step profiled vmapped and with the members one after another; one
+  fleet step profiled folded and with the members one after another; one
   traced run (the serve, 10 device-resident and 10 host-streaming steps
   with the prefetch worker) whose spans, first-step split and recompile
   watch are checked and read back by ``tools/trace_report.py``;
@@ -331,7 +331,7 @@ LOGIT_ATOL = 0.25
 # surrogate serving path (Queue 1 item 10): the certification phase's
 # 4-member fleet serves SERVE_QUERIES queries of the seeded mixed workload
 # (rollouts of 1, 2, 4 and 16 steps) in SERVE_SLOTS slots, bands at
-# SERVE_SIGMAS.  The fleet step (vmapped, grouped convolutions) against each
+# SERVE_SIGMAS.  The fleet step (folded, grouped convolutions) against each
 # member's own forward and the card against a CPU copy of the fleet: mean
 # to SERVE_ATOL, width to 4 * SERVE_SIGMAS * SERVE_ATOL (f32 convolutions
 # in other algorithms; a population std moves by at most twice the largest
@@ -941,14 +941,13 @@ def profile_ensemble_steps(data, cond, cfg, steps: int = 10):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.ensemble import init_ensemble
     from repro_torch.data import EnsembleLoader, ShardedLoader, channels_last
-    from repro_torch.models.surrogate import init_surrogate
     from repro_torch.train.optimizer import AdamConfig, adam_init
     from repro_torch.train.source import make_ensemble_source, make_fused_ensemble_step
     stores = data if isinstance(data, list) else [data] * len(ENS_SEEDS)
     seeds = list(range(len(stores)))
     source = make_ensemble_source(data, cond, channels_last)
     opt_cfg = AdamConfig(lr=LR)
-    step = make_fused_ensemble_step(source, init_surrogate(cfg, 0, source.device), opt_cfg)
+    step = make_fused_ensemble_step(source, cfg, opt_cfg)
     params = init_ensemble(cfg, seeds, source.device)
     opt = adam_init(params, opt_cfg)
     loader = EnsembleLoader([ShardedLoader(st.num_samples, BATCH, seed=s)
@@ -4577,7 +4576,7 @@ def ensemble_gather_check(data, cond, idx_np: np.ndarray, what: str) -> None:
             f"arrays and each member's own store decode, bit for bit (per member {own})")
 
 
-# cuDNN's layout changes: its generic transposes (around vmap's grouped
+# cuDNN's layout changes: its generic transposes (around grouped NCHW
 # convolutions) and its NCHW <-> NHWC conversions
 LAYOUT_KERNELS = ("genericTranspose", "nchwToNhwc", "nhwcToNchw")
 
@@ -4599,7 +4598,7 @@ def device_time(prof, per: int):
 
 def profile_fleet(engine, cond_np: np.ndarray, fleet, cfg, steps: int = 10) -> dict:
     """Time 2 * ``steps`` serving fleet steps one by one (condition upload,
-    the vmapped forward of every member, mean and width, read back: the
+    the member-folded forward of every member, mean and width, read back: the
     read back syncs) and trace ``steps`` more with torch.profiler; beside
     them the same work with the members run one after another through one
     skeleton.  Prints both profiles and returns per way the median ms
@@ -4620,7 +4619,7 @@ def profile_fleet(engine, cond_np: np.ndarray, fleet, cfg, steps: int = 10) -> d
         return mean.cpu().numpy(), width.cpu().numpy()
 
     out = {}
-    for way, step in (("vmap", lambda: engine._step(cond_np)), ("loop", loop_step)):
+    for way, step in (("folded", lambda: engine._step(cond_np)), ("loop", loop_step)):
         for _ in range(2):
             step()
         torch.cuda.synchronize()
@@ -4636,7 +4635,7 @@ def profile_fleet(engine, cond_np: np.ndarray, fleet, cfg, steps: int = 10) -> d
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
         print(f"fleet step, {engine.num_members} members "
-              f"{'vmapped' if way == 'vmap' else 'one after another'}: median "
+              f"{'member-folded' if way == 'folded' else 'one after another'}: median "
               f"{statistics.median(times):.3f} ms over {2 * steps} steps (profiler off);",
               end=" ")
         kernels = print_profile(prof, wall_ms, steps, "step")
@@ -4849,7 +4848,7 @@ def surrogate_serving_path(dev, samples: np.ndarray, cond: np.ndarray, cfg, stor
                  "p50_ms": 1e3 * open_pct["p50"], "p99_ms": 1e3 * open_pct["p99"]},
         "fleet_step": prof, "members": members}}))
     return {"launches": launches, "qps": SERVE_QUERIES / closed_wall,
-            "fleet_ms": prof["vmap"]["median_ms"]}
+            "fleet_ms": prof["folded"]["median_ms"]}
 
 
 def count_launches(launches: dict, fn):

@@ -18,7 +18,8 @@ tolerance.  Here one step advances all N members:
     member's batch in one launch of the gathered decode, and on the card
     their step replays CUDA graphs from its second step on;
   * per-epoch metric trajectories (L1, PSNR, total mass and momentum) come
-    from a vmapped eval and feed ``compute_band`` and a persisted
+    from one member-folded forward of the eval set and feed
+    ``compute_band`` and a persisted
     ``BandArtifact`` (``repro-band-v1``, the JAX package's format: a band
     written by either package loads in the other).
 
@@ -48,8 +49,8 @@ from repro_torch.data.loader import EnsembleLoader, ShardAwareLoader
 from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.kernels import zfp_codec
 from repro_torch.metrics import psnr, total_mass, total_momentum
-from repro_torch.models.surrogate import (Surrogate, SurrogateConfig,
-                                          functional_forward, init_surrogate,
+from repro_torch.models.folded import folded_forward
+from repro_torch.models.surrogate import (SurrogateConfig, init_surrogate,
                                           member_params, stack_params)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import torchprof
@@ -78,33 +79,29 @@ def init_ensemble(model_cfg: SurrogateConfig, seeds: Sequence[int],
                          for s in seeds])
 
 
-def ensemble_train_step(params, opt_state, cond, target, model: Surrogate,
+def ensemble_train_step(params, opt_state, cond, target, cfg: SurrogateConfig,
                         opt_cfg: AdamConfig):
     """One step of all members: cond (N, B, cond_dim), target (N, B, H, W,
-    F), stacked params and Adam state -> (params, opt_state, (N,) loss).
-    ``model`` is any ``Surrogate`` of the ensemble's config (its own
-    weights are not read)."""
+    F), stacked params and Adam state -> (params, opt_state, (N,) loss)."""
     from repro_torch.train.source import make_ensemble_update
-    return make_ensemble_update(model, opt_cfg)(params, opt_state, cond, target)
+    return make_ensemble_update(cfg, opt_cfg)(params, opt_state, cond, target)
 
 
 @torch.no_grad()
-def _eval_ensemble(params, model: Surrogate, cond, targets) -> dict:
-    """Per-member metrics on a fixed eval set, vmapped over the members.
+def _eval_ensemble(params, cfg: SurrogateConfig, cond, targets) -> dict:
+    """Per-member metrics on a fixed eval set, every member in one
+    member-folded forward.
 
     Returns (N,) tensors: mean L1, mean per-sample-per-field PSNR, mean
     total mass and mean total momentum (x and y) of the predictions.
     """
-    def member(p):
-        pred = functional_forward(model, p, cond)
-        l1 = (pred - targets).abs().mean()
-        ps = psnr(targets, pred, axis=(-3, -2)).mean()
-        mass = total_mass(pred).mean()
-        mom = total_momentum(pred).mean(dim=0)
-        return l1, ps, mass, mom[0], mom[1]
-
-    outs = torch.func.vmap(member)(params)
-    return dict(zip(TRAJECTORY_METRICS, outs))
+    n = next(iter(params.values())).shape[0]
+    pred = folded_forward(cfg, params, cond.expand(n, -1, -1))   # (N, B, H, W, F)
+    mom = total_momentum(pred).mean(dim=1)
+    return {"l1": (pred - targets).abs().flatten(1).mean(dim=1),
+            "psnr": psnr(targets, pred, axis=(-3, -2)).flatten(1).mean(dim=1),
+            "mass": total_mass(pred).mean(dim=1),
+            "mom_x": mom[:, 0], "mom_y": mom[:, 1]}
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +143,7 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     stores (one lossy store per tolerance candidate in
     ``certify_tolerance``).  The stores must live on ``device``.
 
-    With ``eval_conditions``/``eval_targets`` a vmapped eval runs at the end
+    With ``eval_conditions``/``eval_targets`` an eval runs at the end
     of every ``eval_every``-th epoch, and the per-member trajectories (l1,
     psnr, mass, mom_x, mom_y) stream into ``result.trajectories`` as (N,
     n_evals) arrays.  ``params`` is a stacked state dict (default
@@ -181,13 +178,12 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     params = (init_ensemble(model_cfg, seeds, dev) if params is None else
               {k: torch.as_tensor(v).to(dev) for k, v in params.items()})
     opt_state = adam_init(params, opt_cfg)
-    model = init_surrogate(model_cfg, 0, dev)           # skeleton only
     device_path = source.kind == "device"
     if device_path:
-        step_fn = make_fused_ensemble_step(source, model, opt_cfg)
+        step_fn = make_fused_ensemble_step(source, model_cfg, opt_cfg)
         prefetch = 0
     else:
-        step_fn = make_host_ensemble_step(model, opt_cfg)
+        step_fn = make_host_ensemble_step(model_cfg, opt_cfg)
         prefetch = train_cfg.prefetch
 
     do_eval = eval_conditions is not None and eval_targets is not None
@@ -235,7 +231,7 @@ def train_ensemble(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
             if do_eval and step % spe == 0 and (step // spe) % eval_every == 0:
                 with obs_trace.span("ensemble.eval", cat="ensemble",
                                     step=step, members=len(seeds)):
-                    vals = _eval_ensemble(params, model, eval_cond, eval_tgt)
+                    vals = _eval_ensemble(params, model_cfg, eval_cond, eval_tgt)
                 for k in TRAJECTORY_METRICS:
                     traj[k].append(vals[k].cpu().numpy())
             if train_cfg.max_steps is not None and step >= train_cfg.max_steps:

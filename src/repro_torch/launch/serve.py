@@ -79,7 +79,7 @@ def serve_surrogate(args) -> list:
             done, latency_percentiles(done),
             f"{engine.queries_per_second:.1f} q/s "
             f"util={engine.slot_utilization:.2f} "
-            f"({args.members}-member fleet, one vmapped call/step; device {dev})")
+            f"({args.members}-member fleet, one folded forward/step; device {dev})")
     return done
 
 

@@ -6,9 +6,9 @@ conv.  The module runs NCHW inside; :meth:`Surrogate.forward` returns the
 JAX package's (B, H, W, fields) layout.
 
 A seed ensemble keeps its members' parameters stacked, ``{name: (N,
-...)}`` (:func:`stack_params`), and runs them through one module skeleton
-with :func:`functional_forward` (``torch.func.functional_call``), the form
-``torch.func.vmap`` maps over the member axis.
+...)}`` (:func:`stack_params`), and runs them all through one
+member-folded forward (``models/folded.py``).  :func:`functional_forward`
+runs this module with one member's parameters in place of its own.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Counterpart of ``repro/serving/surrogate_engine.py``.  The paper's
 deliverable is the *served* surrogate, and §III makes the seed-ensemble
 variability band the trust signal -- so the band IS the product: every
-query is answered by ALL N ensemble members in one vmapped call and returns
+query is answered by ALL N ensemble members in one call and returns
 the per-timestep member mean plus the +/-sigma band width (``hi - lo`` of
 ``core.variability.VariabilityBand`` over members).
 
@@ -11,10 +11,9 @@ A query is a conditioning->rollout: a simulation parameter vector plus the
 normalized times to roll the surrogate over (``models.surrogate`` maps
 ``[params, t]`` to the six output fields).  The engine packs the CURRENT
 timestep of every active slot into one ``(B, cond_dim)`` batch and runs the
-stacked ``(M, ...)`` member parameters through one ``torch.func.vmap`` of
-``functional_forward`` over the member axis, on one module skeleton (the
-pattern of ``core.ensemble``'s vmapped evaluation), under
-``torch.inference_mode()``.  The stacked parameters stay resident on the
+stacked ``(M, ...)`` member parameters on it through one member-folded
+forward (``models.folded.folded_forward``, as the ensemble's training and
+evaluation), under ``torch.inference_mode()``.  The stacked parameters stay resident on the
 engine's device for its lifetime; only the condition batch is uploaded per
 step, and mean and width are read back per step, as the JAX engine does.
 
@@ -32,8 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.surrogate import (SurrogateConfig, functional_forward,
-                                          init_surrogate)
+from repro_torch.models.folded import folded_forward
+from repro_torch.models.surrogate import Surrogate, SurrogateConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.scheduler import SlotScheduler
@@ -57,7 +56,7 @@ class SurrogateServeEngine:
     """Fixed-slot ensemble serving of a trained (or freshly stacked) fleet.
 
     ``member_params``: a stacked state dict ``{name: (M, ...)}`` -- e.g.
-    ``core.ensemble.EnsembleResult.params`` straight from the vmapped
+    ``core.ensemble.EnsembleResult.params`` straight from the ensemble
     trainer, or ``init_ensemble`` output.  Kept resident on ``device`` (the
     card unless ``device="cpu"``) for the engine's lifetime.
     """
@@ -66,8 +65,9 @@ class SurrogateServeEngine:
                  cfg: SurrogateConfig, batch_slots: int = 8,
                  sigmas: float = 2.0, device: DeviceLike = None):
         self.device = resolve_device(device)
-        self._skeleton = init_surrogate(cfg, 0, self.device)   # skeleton only
-        shapes = {n: tuple(p.shape) for n, p in self._skeleton.named_parameters()}
+        with torch.device("meta"):          # the parameters' shapes, no storage
+            shapes = {n: tuple(p.shape) for n, p in
+                      Surrogate(cfg, torch.Generator()).named_parameters()}
         if set(member_params) != set(shapes):
             raise ValueError("member_params must hold the surrogate's parameters "
                              f"{sorted(shapes)}; got {sorted(member_params)}")
@@ -88,10 +88,6 @@ class SurrogateServeEngine:
         self.stats = {"queries": 0, "field_evals": 0, "steps": 0,
                       "seconds": 0.0}
         self._t_run_start: Optional[float] = None   # perf stamp of run start
-        skeleton = self._skeleton
-        self._fleet = torch.func.vmap(
-            lambda p, cond: functional_forward(skeleton, p, cond),
-            in_dims=(0, None))
 
     # -- internals ----------------------------------------------------------
 
@@ -101,7 +97,8 @@ class SurrogateServeEngine:
         band width = hi - lo = 2 * sigmas * std) with the population std
         over members, as ``jnp.std`` and ``compute_band`` take it."""
         with torch.inference_mode():
-            preds = self._fleet(self.members, cond)
+            preds = folded_forward(self.cfg, self.members,
+                                   cond.expand(self.num_members, -1, -1))
             mean = preds.mean(dim=0)
             width = 2.0 * self.sigmas * preds.std(dim=0, correction=0)
         return mean, width

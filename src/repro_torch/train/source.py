@@ -42,7 +42,8 @@ from repro_torch.data.store import ArrayStore, on_device, upload
 from repro_torch.device import same_device
 from repro_torch.kernels import zfp_codec
 from repro_torch.models.folded import folded_forward
-from repro_torch.models.surrogate import Surrogate, functional_l1_loss, l1_loss
+from repro_torch.models.surrogate import (Surrogate, SurrogateConfig,
+                                          functional_l1_loss, l1_loss)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.torchprof import named_scope
@@ -359,22 +360,17 @@ def make_ensemble_source(data, conditions, target_transform=None):
 _READOUT = torch.nn.Identity()
 
 
-def ensemble_grad(model: Surrogate) -> Callable:
+def ensemble_grad(cfg: SurrogateConfig) -> Callable:
     """``grad(params, cond, target) -> (grads, (N,) loss)`` for stacked
-    parameters ``{name: (N, ...)}``, cond (N, B, cond_dim), target (N, B,
-    H, W, F), of ``model``'s config (its own weights are not used).
+    parameters ``{name: (N, ...)}`` of ``cfg``, cond (N, B, cond_dim),
+    target (N, B, H, W, F).
 
     One member-folded forward runs every member
     (:func:`repro_torch.models.folded.folded_forward`: grouped convolutions
     on channels-last activations); each member's L1 mean is
     ``functional_l1_loss`` of an identity readout of its (B, H, W, F)
     prediction; autograd of their sum gives each member its own gradient,
-    returned as contiguous stacks.  The registry counts
-    ``ensemble.folded_grad_steps``, one a call (a call captured into a CUDA
-    graph counts at each replay, :class:`GraphedEnsembleStep`)."""
-    cfg = model.cfg
-    steps = obs_metrics.get_registry().counter("ensemble.folded_grad_steps")
-
+    returned as contiguous stacks."""
     def grad(params, cond, target):
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         with torch.enable_grad():
@@ -382,25 +378,22 @@ def ensemble_grad(model: Surrogate) -> Callable:
             loss = torch.stack([functional_l1_loss(_READOUT, {}, p, t)
                                 for p, t in zip(pred, target)])
             grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
-        if not (cond.is_cuda and torch.cuda.is_current_stream_capturing()):
-            steps.add(1)
         return ({k: g.contiguous() for k, g in zip(leaves, grads)},
                 loss.detach())
 
     return grad
 
 
-def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
+def make_ensemble_update(cfg: SurrogateConfig, opt_cfg: AdamConfig) -> Callable:
     """``update(params, opt_state, cond, target) -> (params, opt_state,
     loss)``: :func:`ensemble_grad`, then one Adam update of the stacks.
     Returns the (N,) losses."""
-    grad_and_loss = ensemble_grad(model)
-    dev = next(model.parameters()).device
+    grad_and_loss = ensemble_grad(cfg)
 
     def update(params, opt_state: AdamState, cond, target):
-        with device_range("ensemble.grad", dev):
+        with device_range("ensemble.grad", cond.device):
             grads, loss = grad_and_loss(params, cond, target)
-        with device_range("ensemble.optimizer", dev):
+        with device_range("ensemble.optimizer", cond.device):
             params, opt_state = adam_update(grads, opt_state, params, opt_cfg,
                                             stacked=True)
         return params, opt_state, loss.detach()
@@ -408,7 +401,7 @@ def make_ensemble_update(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
     return update
 
 
-def make_fused_ensemble_step(source: DeviceEnsembleSource, model: Surrogate,
+def make_fused_ensemble_step(source: DeviceEnsembleSource, cfg: SurrogateConfig,
                              opt_cfg: AdamConfig) -> Callable:
     """One step of every member on the device: the gathered decode of all
     members' batches, then the member-folded update.
@@ -416,8 +409,8 @@ def make_fused_ensemble_step(source: DeviceEnsembleSource, model: Surrogate,
     On the card the step replays CUDA graphs from its second call on
     (:class:`GraphedEnsembleStep`); elsewhere it runs eagerly."""
     if source.device.type == "cuda":
-        return GraphedEnsembleStep(source, model, opt_cfg)
-    return _eager_fused_ensemble_step(source, make_ensemble_update(model, opt_cfg))
+        return GraphedEnsembleStep(source, cfg, opt_cfg)
+    return _eager_fused_ensemble_step(source, make_ensemble_update(cfg, opt_cfg))
 
 
 def _eager_fused_ensemble_step(source: DeviceEnsembleSource,
@@ -444,9 +437,8 @@ class GraphedEnsembleStep:
     them, each inside the device range its eager phase has.  The span
     ``ensemble.capture`` holds the capture and the graphs' instantiation,
     ``ensemble.replay`` a call's three replays; the registry counts
-    ``ensemble.graph_captures`` and ``ensemble.graph_replays``, and each
-    replay counts one ``ensemble.folded_grad_steps``.  A capture that fails
-    raises.
+    ``ensemble.graph_captures`` and ``ensemble.graph_replays``.  A capture
+    that fails raises.
 
     A call returns the buffers themselves: the caller's first tensors are
     never written, and any but the step's own last outputs are copied in.
@@ -455,12 +447,12 @@ class GraphedEnsembleStep:
     STAGES = (("ensemble.gather_decode", "gather"), ("ensemble.grad", "grad"),
               ("ensemble.optimizer", "optimize"))
 
-    def __init__(self, source: DeviceEnsembleSource, model: Surrogate,
+    def __init__(self, source: DeviceEnsembleSource, cfg: SurrogateConfig,
                  opt_cfg: AdamConfig):
         self.source, self.opt_cfg = source, opt_cfg
-        self._grad = ensemble_grad(model)
+        self._grad = ensemble_grad(cfg)
         self._eager = _eager_fused_ensemble_step(source,
-                                                 make_ensemble_update(model, opt_cfg))
+                                                 make_ensemble_update(cfg, opt_cfg))
         self.idx = self.params = self.opt_state = None
         self.cond = self.target = self.grads = self.loss = None
         self.graphs = None
@@ -468,7 +460,6 @@ class GraphedEnsembleStep:
         reg = obs_metrics.get_registry()
         self._captures = reg.counter("ensemble.graph_captures")
         self._replays = reg.counter("ensemble.graph_replays")
-        self._folded_steps = reg.counter("ensemble.folded_grad_steps")
 
     # -- the stages, on the buffers: what each graph captures ---------------
 
@@ -515,7 +506,6 @@ class GraphedEnsembleStep:
                     graph.replay()
         zfp_codec.add_launches(self._launches)
         self._replays.add(1)
-        self._folded_steps.add(1)
         return self.params, self.opt_state, self.loss
 
     def _capture(self) -> None:
@@ -538,9 +528,9 @@ class GraphedEnsembleStep:
         self._captures.add(1)
 
 
-def make_host_ensemble_step(model: Surrogate, opt_cfg: AdamConfig) -> Callable:
+def make_host_ensemble_step(cfg: SurrogateConfig, opt_cfg: AdamConfig) -> Callable:
     """One step of every member on a fetched ``(cond, target)`` stack."""
-    update = make_ensemble_update(model, opt_cfg)
+    update = make_ensemble_update(cfg, opt_cfg)
 
     def step(params, opt_state, item):
         cond, target = item

@@ -289,7 +289,7 @@ def test_ensemble_train_step_and_guards(tiny_study):
     c = torch.from_numpy(cond[idx])
     t = torch.from_numpy(fields[idx])
     new, opt, loss = ensemble_train_step(params, adam_init(params, opt_cfg), c, t,
-                                         init_surrogate(CFG, device="cpu"), opt_cfg)
+                                         CFG, opt_cfg)
     assert loss.shape == (len(SEEDS),) and int(opt.step) == 1
     assert all(new[k].shape == params[k].shape for k in params)
     with pytest.raises(ValueError, match="checkpoint"):

@@ -24,7 +24,7 @@ from repro_torch.core.ensemble import init_ensemble, train_ensemble
 from repro_torch.data import (DeviceResidentCompressedStore, EnsembleLoader,
                               channels_last)
 from repro_torch.kernels import zfp_codec
-from repro_torch.models.surrogate import SurrogateConfig, init_surrogate
+from repro_torch.models.surrogate import SurrogateConfig
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import get_registry
 from repro_torch.sim.synthetic import synthetic_study
@@ -81,14 +81,14 @@ def _data(kind, dev):
 
 
 def _setup(kind, dev, steps):
-    """(source, skeleton model, initial stacked parameters, ``steps``
-    batches of device indices)."""
+    """(source, initial stacked parameters, ``steps`` batches of device
+    indices)."""
     cond, data, seeds = _data(kind, dev)
     source = make_ensemble_source(data, cond, channels_last)
     stores = data if isinstance(data, list) else [data] * len(seeds)
     loader = EnsembleLoader([make_loader(st, BATCH, seed=s) for st, s in zip(stores, seeds)])
     idxs = [source.fetch(i) for i, _ in zip(loader.iter_epochs(None), range(steps))]
-    return source, init_surrogate(CFG, 0, dev), init_ensemble(CFG, seeds, dev), idxs
+    return source, init_ensemble(CFG, seeds, dev), idxs
 
 
 def _snapshot(params, state, loss):
@@ -155,12 +155,12 @@ def test_adam_update_equals_the_uploaded_bases_formula(stacked, grad_clip, inpla
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_stages_run_eagerly_equal_the_fused_step(kind):
-    source, model, params0, idxs = _setup(kind, "cpu", 3)
+    source, params0, idxs = _setup(kind, "cpu", 3)
     p0 = {k: v.clone() for k, v in params0.items()}
-    eager = make_fused_ensemble_step(source, model, OPT)
+    eager = make_fused_ensemble_step(source, CFG, OPT)
     assert not isinstance(eager, GraphedEnsembleStep)
     want = _run(eager, params0, idxs)
-    step = GraphedEnsembleStep(source, model, OPT)
+    step = GraphedEnsembleStep(source, CFG, OPT)
     params, state, loss = step(params0, adam_init(params0, OPT), idxs[0])
     got = [_snapshot(params, state, loss)]
     for idx in idxs[1:]:
@@ -174,8 +174,8 @@ def test_stages_run_eagerly_equal_the_fused_step(kind):
 
 
 def test_load_copies_foreign_state_and_refuses_another_batch_shape():
-    source, model, params0, idxs = _setup("shared", "cpu", 2)
-    step = GraphedEnsembleStep(source, model, OPT)
+    source, params0, idxs = _setup("shared", "cpu", 2)
+    step = GraphedEnsembleStep(source, CFG, OPT)
     params, state, _ = step(params0, adam_init(params0, OPT), idxs[0])
     other = {k: v + 1 for k, v in params.items()}
     step.load(other, state, idxs[1])
@@ -226,11 +226,11 @@ def deterministic(card, monkeypatch):
 @pytest.mark.parametrize("kind", KINDS)
 def test_graphed_step_equals_the_eager_step(deterministic, kind):
     steps = 5
-    source, model, params0, idxs = _setup(kind, deterministic, steps)
+    source, params0, idxs = _setup(kind, deterministic, steps)
     p0 = {k: v.clone() for k, v in params0.items()}
-    eager = _eager_fused_ensemble_step(source, make_ensemble_update(model, OPT))
+    eager = _eager_fused_ensemble_step(source, make_ensemble_update(CFG, OPT))
     want = _run(eager, params0, idxs)
-    graphed = make_fused_ensemble_step(source, model, OPT)
+    graphed = make_fused_ensemble_step(source, CFG, OPT)
     assert isinstance(graphed, GraphedEnsembleStep)
     counters, launches = _counters(), zfp_codec.launch_counts()
     got = _run(graphed, params0, idxs)
@@ -263,7 +263,7 @@ def test_train_ensemble_on_the_card_leaves_params_and_replays(card):
 def test_replays_keep_the_device_ranges_and_kernels_under_a_profiler(card):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    source, model, params0, idxs = _setup("shared", card, 8)
+    source, params0, idxs = _setup("shared", card, 8)
 
     def profiled(step, params, state, batch):
         obs_trace.shutdown(write=False)          # drop earlier captures' records
@@ -280,8 +280,8 @@ def test_replays_keep_the_device_ranges_and_kernels_under_a_profiler(card):
 
     counts = {}
     for name, step in (("eager", _eager_fused_ensemble_step(
-            source, make_ensemble_update(model, OPT))),
-            ("graphed", make_fused_ensemble_step(source, model, OPT))):
+            source, make_ensemble_update(CFG, OPT))),
+            ("graphed", make_fused_ensemble_step(source, CFG, OPT))):
         params, state = params0, adam_init(params0, OPT)
         for idx in idxs[:2]:                     # the eager first step; the capture
             params, state, _ = step(params, state, idx)
@@ -297,8 +297,8 @@ def test_replays_keep_the_device_ranges_and_kernels_under_a_profiler(card):
 
 @pytest.mark.card
 def test_a_capture_that_fails_raises(card):
-    source, model, params0, idxs = _setup("shared", card, 2)
-    step = make_fused_ensemble_step(source, model, OPT)
+    source, params0, idxs = _setup("shared", card, 2)
+    step = make_fused_ensemble_step(source, CFG, OPT)
     params, state, _ = step(params0, adam_init(params0, OPT), idxs[0])
     grad = step.grad
 

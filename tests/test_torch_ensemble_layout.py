@@ -1,13 +1,15 @@
 """The seed ensemble's member-folded gradient (``train/source.py``
-``ensemble_grad``, ``models/folded.py``): every member's convolutions as
-grouped convolutions on one channels-last batch.
+``ensemble_grad``, ``models/folded.py``) and evaluation
+(``core/ensemble.py`` ``_eval_ensemble``): every member's convolutions
+as grouped convolutions on one channels-last batch.
 
 On the CPU the folded gradient is held to each member's own
 ``grad_and_value`` of ``functional_l1_loss`` over its own parameters,
 with 1, 2 and 5 members, on one shared and on per-member device-resident
 stores: every leaf to 1e-5 of its norm, every loss to 1e-6; the
-gradients come back as contiguous ``(N, ...)`` stacks and each call
-counts one ``ensemble.folded_grad_steps``.
+gradients come back as contiguous ``(N, ...)`` stacks and leave the
+stacks alone.  The folded evaluation is held to each member's own
+``functional_forward`` metrics, every metric to 1e-5 of its size.
 
 Tests marked ``card`` need an NVIDIA card and skip without one.  On the
 card, from the repo root::
@@ -24,10 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.ensemble import init_ensemble
+from repro_torch.core.ensemble import TRAJECTORY_METRICS, _eval_ensemble, init_ensemble
 from repro_torch.data import DeviceResidentCompressedStore, channels_last
-from repro_torch.models.surrogate import (SurrogateConfig, functional_l1_loss,
-                                          init_surrogate, member_params)
+from repro_torch.metrics import psnr, total_mass, total_momentum
+from repro_torch.models.surrogate import (SurrogateConfig, functional_forward,
+                                          functional_l1_loss, init_surrogate,
+                                          member_params)
 from repro_torch.obs.metrics import get_registry
 from repro_torch.sim.synthetic import synthetic_study
 from repro_torch.train.optimizer import AdamConfig, adam_init
@@ -36,7 +40,7 @@ from repro_torch.train.source import (ensemble_grad, make_ensemble_source,
 
 CFG = SurrogateConfig(height=32, width=16, base_channels=32)
 N_SAMPLES, BATCH = 32, 8
-GRAD_RTOL, LOSS_RTOL = 1e-5, 1e-6
+GRAD_RTOL, LOSS_RTOL, EVAL_RTOL = 1e-5, 1e-6, 1e-5
 
 
 def _source(cfg, kind, members, dev, n_samples=N_SAMPLES):
@@ -79,7 +83,7 @@ def _oracle(model, params, cond, target):
 def test_folded_grad_equals_each_members_own_grad(kind, members):
     params, cond, target = _batch(CFG, kind, members)
     model = init_surrogate(CFG, 0, "cpu")
-    grads, loss = ensemble_grad(model)(params, cond, target)
+    grads, loss = ensemble_grad(CFG)(params, cond, target)
     want_grads, want_loss = _oracle(model, params, cond, target)
     assert loss.shape == (members,) and not loss.requires_grad
     torch.testing.assert_close(loss, want_loss, rtol=LOSS_RTOL, atol=0)
@@ -98,7 +102,7 @@ def test_folded_grad_at_a_width_below_16():
     cfg = SurrogateConfig(height=16, width=8, base_channels=8)
     params, cond, target = _batch(cfg, "shared", 2)
     model = init_surrogate(cfg, 0, "cpu")
-    grads, loss = ensemble_grad(model)(params, cond, target)
+    grads, loss = ensemble_grad(cfg)(params, cond, target)
     want_grads, want_loss = _oracle(model, params, cond, target)
     torch.testing.assert_close(loss, want_loss, rtol=LOSS_RTOL, atol=0)
     for k, g in grads.items():
@@ -107,19 +111,39 @@ def test_folded_grad_at_a_width_below_16():
             assert float((g[m] - want).norm()) <= GRAD_RTOL * float(want.norm()), (k, m)
 
 
-def test_folded_grad_leaves_the_stacks_and_counts_each_call():
+def test_folded_grad_leaves_the_stacks_under_no_grad():
     params, cond, target = _batch(CFG, "shared", 2)
     before = {k: v.clone() for k, v in params.items()}
-    counter = get_registry().counter("ensemble.folded_grad_steps")
-    grad = ensemble_grad(init_surrogate(CFG, 0, "cpu"))
-    start = counter.value
+    grad = ensemble_grad(CFG)
     with torch.no_grad():                       # a caller's no_grad does not stop it
         first, _ = grad(params, cond, target)
     second, _ = grad(params, cond, target)
-    assert counter.value - start == 2
     assert all(torch.equal(params[k], before[k]) and not params[k].requires_grad
                for k in params)
     assert all(torch.equal(first[k], second[k]) for k in first)
+
+
+@pytest.mark.parametrize("members", [1, 2, 5])
+def test_folded_eval_equals_each_members_own_metrics(members):
+    """``_eval_ensemble`` on one eval set against each member's own
+    ``functional_forward`` and the metrics reduced as a single model's
+    eval: L1 and PSNR over everything, mass and momentum over the batch."""
+    params, cond, target = _batch(CFG, "shared", members)
+    cond, target = cond[0], target[0]
+    model = init_surrogate(CFG, 0, "cpu")
+    got = _eval_ensemble(params, CFG, cond, target)
+    assert set(got) == set(TRAJECTORY_METRICS)
+    for m in range(members):
+        with torch.no_grad():
+            pred = functional_forward(model, member_params(params, m), cond)
+        mom = total_momentum(pred).mean(dim=0)
+        want = {"l1": (pred - target).abs().mean(),
+                "psnr": psnr(target, pred, axis=(-3, -2)).mean(),
+                "mass": total_mass(pred).mean(), "mom_x": mom[0], "mom_y": mom[1]}
+        for k, w in want.items():
+            assert got[k].shape == (members,) and not got[k].requires_grad, k
+            torch.testing.assert_close(got[k][m], w, rtol=EVAL_RTOL, atol=0,
+                                       msg=lambda e, k=k: f"{k}, member {m}: {e}")
 
 
 # -- the card --------------------------------------------------------------------------
@@ -145,8 +169,8 @@ def test_a_replayed_step_at_the_cells_shapes_spends_little_on_transposes(card, m
                                    for _ in range(members)])) for _ in range(4)]
     params = init_ensemble(cfg, range(members), card)
     state = adam_init(params, AdamConfig(lr=1e-4))
-    step = make_fused_ensemble_step(source, init_surrogate(cfg, 0, card), AdamConfig(lr=1e-4))
-    counter = get_registry().counter("ensemble.folded_grad_steps")
+    step = make_fused_ensemble_step(source, cfg, AdamConfig(lr=1e-4))
+    counter = get_registry().counter("ensemble.graph_replays")
     for idx in idxs[:2]:                         # the eager first step; the capture
         params, state, _ = step(params, state, idx)
     torch.cuda.synchronize()

@@ -130,3 +130,24 @@ def test_core_and_models_import_without_train():
         for k in [k for k in sys.modules if k.startswith(PORT)]:
             del sys.modules[k]
         sys.modules.update(saved)
+
+
+# the modules that run a seed ensemble's stacked members: each runs them
+# through models/folded.py, none maps the single model over the member axis
+FOLDED_CALLERS = ("core/ensemble.py", "train/source.py", "serving/surrogate_engine.py")
+
+
+def _vmap_calls(tree):
+    """Lines of ``tree``'s calls of ``vmap``, as ``torch.func.vmap``, or
+    imported by name."""
+    return sorted(n.lineno for n in ast.walk(tree) if isinstance(n, ast.Call)
+                  and (n.func.attr if isinstance(n.func, ast.Attribute)
+                       else getattr(n.func, "id", None)) == "vmap")
+
+
+@pytest.mark.parametrize("rel", FOLDED_CALLERS)
+def test_stacked_members_run_folded_not_vmapped(rel):
+    assert _vmap_calls(ast.parse("torch.func.vmap(f)(x)\nvmap(g)\n")) == [1, 2]
+    with open(os.path.join(PORT_SRC, rel)) as f:
+        calls = _vmap_calls(ast.parse(f.read(), filename=rel))
+    assert not calls, f"{rel} calls vmap on lines {calls}"

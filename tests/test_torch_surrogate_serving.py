@@ -21,6 +21,7 @@ from repro.models.surrogate import SurrogateConfig as JaxConfig
 
 from repro_torch.core.variability import compute_band
 from repro_torch.launch import serve as launcher
+from repro_torch.models.folded import folded_forward
 from repro_torch.models.surrogate import (SurrogateConfig, functional_forward,
                                           init_surrogate, member_params,
                                           params_from_jax, stack_params)
@@ -142,7 +143,8 @@ def test_width_is_the_band_of_the_members(fleets):
     # on the fleet step's own member predictions the band is the formula's,
     # to float32 rounding
     with torch.inference_mode():
-        own = compute_band(list(eng._fleet(eng.members, cond).numpy()), sigmas=SIGMAS)
+        own = compute_band(list(folded_forward(cfg, eng.members, cond.expand(
+            len(SEEDS), -1, -1)).numpy()), sigmas=SIGMAS)
     np.testing.assert_allclose(mean.numpy(), own.mean, rtol=0, atol=1e-6)
     np.testing.assert_allclose(width.numpy(), own.hi - own.lo, rtol=0, atol=1e-6)
     # the population std, not the unbiased one
