@@ -5,10 +5,15 @@
     python3 chip_smoke.py --codec [--baseline CSRC ...]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc`` under ``$CUDA_HOME`` or on
-``PATH``) and this checkout's ``src/``.  It builds the five kernels (the
-four ZFP kernels, fixed-accuracy and fixed-rate encode and decode, and flash
-attention) from ``src/repro_torch/csrc`` into ``build/``, all ``nvcc``
-processes started together, holds each ZFP kernel against its plain PyTorch
+``PATH``) and this checkout's ``src/``.  It builds the kernels (the four
+ZFP kernels, fixed-accuracy and fixed-rate encode and decode, flash
+attention, and the surrogate's layer norm + LeakyReLU pair) from
+``src/repro_torch/csrc`` into ``build/``, all ``nvcc`` processes started
+together, holds the layer norm + LeakyReLU pair against its plain twins
+(``kernels/ref.py``) at every block shape of the 512x512 and 768x256
+surrogates at batch 64 (y bit for bit from the kernel's own statistics,
+two backward calls bit for bit) and times it at the 512x512 blocks and at
+the device-resident path's, holds each ZFP kernel against its plain PyTorch
 version bit for bit (on the CPU: the main path's data, the F1 blocks, block
 counts around a warp's and a CTA's blocks, every fixed-rate width, a set
 of blocks that needs each of 0..6 correction passes, blocks holding NaN and
@@ -23,7 +28,8 @@ model width:
 * the device-resident path (the paper's workflow 2 with the store in device
   memory): encode a synthetic study into a device-resident store and train
   the DCGAN surrogate with the gathered decode (one launch a batch) + L1 +
-  Adam on the card;
+  Adam on the card, its five layer norm + LeakyReLU blocks one forward and
+  one backward launch pair each a step;
 * the certification path (the paper's steps 5-7): a 4-seed ensemble on
   stacked parameters (one member-folded step, one gathered decode a step
   for all members) held to its members run one by one, and a member trained on
@@ -257,6 +263,10 @@ BF16_TENSOR_FLOPS = 989e12
 N_SAMPLES = 64 * 51
 TOLERANCE = 1e-3
 BATCH, LR, STEPS = 64, 1e-4, 30
+# the layer norm + LeakyReLU pair against its plain twins: the card tests'
+# limit (tests/test_torch_ln_lrelu.py), relative to each tensor's largest
+# magnitude, and for dg and db to the sum of their terms' magnitudes
+LN_RTOL = 1e-5
 CHECK_SAMPLES = 128                  # 147,456 main-path blocks held to the CPU
 LOSS_RTOL = 1e-4                     # first-step loss, card vs CPU (f32 convs)
 # host-streaming path: fixed-rate store at 12 bits per value, shards of 32
@@ -596,6 +606,117 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
+
+
+def ln_block_shapes(height: int, width: int, base: int = 256, batch: int = BATCH) -> list:
+    """(B, C, H, W) of a surrogate's five layer norm + LeakyReLU blocks."""
+    from repro_torch.models.surrogate import SurrogateConfig, _stage_channels
+    h, w = height // 16, width // 16
+    out = [(batch, base, h, w)]
+    for i, (_, c) in enumerate(_stage_channels(SurrogateConfig(base_channels=base))):
+        out.append((batch, c, h << (i + 1), w << (i + 1)))
+    return out
+
+
+def ln_case(shape, dev, seed: int):
+    """x, g, b and a cotangent dy for one block, from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, device=dev, generator=gen) * 2.0 + 1.0
+    g = torch.rand(shape[1], device=dev, generator=gen) + 0.5
+    b = torch.randn(shape[1], device=dev, generator=gen) * 0.3
+    dy = torch.randn(shape, device=dev, generator=gen)
+    return x, g, b, dy
+
+
+def ln_bytes(shape) -> float:
+    """The pair's least memory traffic on one block: the forward reads x and
+    writes y (8 bytes a float) and a mean and rstd a pixel (8 bytes), the
+    backward reads dy and x and writes dx (12 bytes a float) and reads the
+    mean and rstd (8 bytes a pixel); g, b and the channel partials are
+    small beside them."""
+    n = math.prod(shape)
+    return 20.0 * n + 16.0 * (n // shape[1])
+
+
+def ln_err_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` as a share of ``torch.testing.assert_close``'s
+    limit at rtol ``LN_RTOL`` and atol ``LN_RTOL`` times want's largest
+    magnitude (the card tests' comparison); at most 1 where they pass."""
+    limit = LN_RTOL * (want.abs() + want.abs().max())
+    return float(((got - want).abs() / limit).max())
+
+
+def ln_lrelu_checks(dev) -> float:
+    """The layer norm + LeakyReLU pair (``kernels/ln_lrelu.py``) against its
+    plain twins at every block shape of the 512x512 and 768x256 surrogates
+    at batch 64: y bit for bit from the kernel's own mean and rstd in the
+    plain order; mean, rstd, y and dx within :func:`ln_err_share`'s limit;
+    dg and db within ``LN_RTOL`` of the sum of their terms'
+    magnitudes (the sums run in another order); a second backward call
+    bit for bit the first.  Returns the largest error as a share of its
+    limit."""
+    from repro_torch.kernels import ln_lrelu, ref
+    worst = 0.0
+    shapes = ln_block_shapes(512, 512) + ln_block_shapes(768, 256)
+    for shape in shapes:
+        x, g, b, dy = ln_case(shape, dev, sum(shape))
+        y, mean, rstd = ln_lrelu.forward(x, g, b, 1e-5, 0.2)
+        pre = (x - mean[:, None]) * rstd[:, None] * g[:, None, None] + b[:, None, None]
+        require(same_bits(y, torch.where(pre >= 0, pre, 0.2 * pre)),
+                f"ln_lrelu forward {shape}: y bit for bit from its own mean and rstd")
+        del pre
+        errs = {}
+        for what, got, want in zip(("y", "mean", "rstd"), (y, mean, rstd),
+                                   ref.ln_lrelu_forward(x, g, b)):
+            errs[what] = ln_err_share(got, want)
+        del y
+        dx, dg, db = ln_lrelu.backward(dy, x, g, b, mean, rstd, 0.2)
+        want_dx, want_dg, want_db = ref.ln_lrelu_backward(dy, x, g, b, mean, rstd)
+        errs["dx"] = ln_err_share(dx, want_dx)
+        del want_dx
+        xhat = (x - mean[:, None]) * rstd[:, None]
+        dpre = torch.where(xhat * g[:, None, None] + b[:, None, None] >= 0, dy, 0.2 * dy)
+        for what, got, want, mag in (
+                ("dg", dg, want_dg, (dpre * xhat).abs().sum(dim=(0, 2, 3))),
+                ("db", db, want_db, dpre.abs().sum(dim=(0, 2, 3)))):
+            errs[what] = float(((got - want).abs() / (LN_RTOL * mag + 1e-30)).max())
+        del xhat, dpre
+        again = ln_lrelu.backward(dy, x, g, b, mean, rstd, 0.2)
+        require(all(same_bits(a, c) for a, c in zip((dx, dg, db), again)),
+                f"ln_lrelu backward {shape}: a second call gives the same bits")
+        shown = ", ".join(f"{k} {v:.3f}" for k, v in errs.items())
+        require(max(errs.values()) <= 1.0,
+                f"ln_lrelu {shape} against its plain twins (error / limit: {shown})")
+        worst = max(worst, *errs.values())
+        del x, dy, dx, again
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ln_lrelu_timings(dev, shapes) -> dict:
+    """One step's pair over the blocks ``shapes``: each block's forward (with
+    its statistics) and backward back to back, beside the plain twins and
+    the byte bound at ``HBM_BYTES_PER_S``."""
+    from repro_torch.kernels import ln_lrelu, ref
+    cases = [ln_case(s, dev, i) for i, s in enumerate(shapes)]
+
+    def pair():
+        for x, g, b, dy in cases:
+            _, mean, rstd = ln_lrelu.forward(x, g, b, 1e-5, 0.2)
+            ln_lrelu.backward(dy, x, g, b, mean, rstd, 0.2)
+
+    def plain():
+        for x, g, b, dy in cases:
+            _, mean, rstd = ref.ln_lrelu_forward(x, g, b)
+            ref.ln_lrelu_backward(dy, x, g, b, mean, rstd)
+
+    res = {"ms": cuda_ms(pair, reps=10), "graph_ms": graph_ms(pair, reps=10),
+           "plain_ms": cuda_ms(plain, reps=3),
+           "bound_ms": sum(ln_bytes(s) for s in shapes) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "shapes": [list(s) for s in shapes]}
+    del cases
+    torch.cuda.empty_cache()
+    return res
 
 
 def ptxas_table(logs: dict) -> list:
@@ -1081,7 +1202,7 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.data import DeviceResidentCompressedStore, channels_last
-    from repro_torch.kernels import flash_attention, zfp_codec
+    from repro_torch.kernels import flash_attention, ln_lrelu, zfp_codec
     from repro_torch.models.surrogate import SurrogateConfig
     from repro_torch.sim.synthetic import synthetic_study
     from repro_torch.train.loop import TrainConfig, predict_fields, train_surrogate
@@ -1125,7 +1246,7 @@ def main(argv) -> int:
 
     jobs = [lambda: build(zfp_codec)]
     if not codec_only:
-        jobs.append(lambda: build(flash_attention))
+        jobs += [lambda: build(flash_attention), lambda: build(ln_lrelu)]
     jobs += [lambda i=i, c=c: build_base(i, c) for i, c in enumerate(args.baseline)]
     threads = [threading.Thread(target=job) for job in jobs]
     for t in threads:
@@ -1137,7 +1258,7 @@ def main(argv) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print_ptxas(zfp_codec.BUILD_LOGS, "this checkout's")
     print_ptxas(baseline_logs, "baseline's")
-    for key, log in flash_attention.BUILD_LOGS.items():
+    for key, log in {**flash_attention.BUILD_LOGS, **ln_lrelu.BUILD_LOGS}.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {key}: {line.strip()}")
@@ -1161,12 +1282,23 @@ def main(argv) -> int:
         print(json.dumps({"codec": codec, "card": smi}))
         return 0
 
+    # -- 3b. the layer norm + LeakyReLU pair against its plain twins ------------
+    ln_worst = ln_lrelu_checks(dev)
+    ln_times = ln_lrelu_timings(dev, ln_block_shapes(cfg_full.height, cfg_full.width,
+                                                     cfg_full.base_channels))
+    ln_times["at_512x512"] = ln_lrelu_timings(dev, ln_block_shapes(512, 512))
+    print(f"ln_lrelu: worst error {ln_worst:.3f} of its limit; a step's pair "
+          f"{ln_times['ms']:.4f} ms (plain twins {ln_times['plain_ms']:.4f}, bound "
+          f"{ln_times['bound_ms']:.4f}); at 512x512 {ln_times['at_512x512']['ms']:.3f} ms "
+          f"(bound {ln_times['at_512x512']['bound_ms']:.3f})", flush=True)
+
     launcher_s = launcher.join()
     print(f"launcher runs (beside the build and the kernel checks): {launcher_s:.1f} s; "
           f"{time.perf_counter() - t_start:.1f} s since start", flush=True)
 
     # -- 4. device-resident path at full width -----------------------------------
     zfp_codec.reset_launches()
+    ln_lrelu.reset_launches()
     t0 = time.perf_counter()
     store = DeviceResidentCompressedStore.from_samples(
         samples, np.full(N_SAMPLES, TOLERANCE, np.float32), device=DEV)
@@ -1182,6 +1314,7 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     resident_launches = dict(zfp_codec.LAUNCHES)
+    ln_launches = ln_lrelu.launch_counts()
     print(f"device-resident path: store build {t_store:.3f} s, {STEPS} steps "
           f"{t_train:.3f} s; launches {resident_launches}")
     print(f"store: {store.num_samples} samples x {store.nb} blocks, width "
@@ -1197,6 +1330,9 @@ def main(argv) -> int:
                                              f"path ({resident_launches[name]} times)")
     require(len(losses) == STEPS and all(np.isfinite(l) for _, l in losses),
             f"{STEPS} finite losses")
+    require(ln_launches == dict.fromkeys(ln_lrelu.LAUNCHES, 5 * STEPS),
+            f"the five layer norm + LeakyReLU blocks launched one pair each a step "
+            f"({ln_launches})")
 
     # -- 5. the device-resident outputs are right ---------------------------------
     worst = 0.0
@@ -1383,7 +1519,10 @@ def main(argv) -> int:
                                 ("zfp_encode_blocks_fa", "zfp_fa_encode.cu", 313),
                                 ("zfp_decode_blocks", "zfp_fr_decode.cu", 127),
                                 ("zfp_encode_blocks", "zfp_fr_encode.cu", 346))
-    ] + [attn]
+    ] + [attn, {
+        "name": "ln_lrelu", "route": "cuda", "source": "src/repro_torch/csrc/ln_lrelu.cu",
+        "replaces": None, "launches": sum(ln_launches.values()),
+        "launches_by_kernel": ln_launches, "max_err_share_of_limit": ln_worst, **ln_times}]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} launched on the paths "
                                    f"({k['launches']} times)")

@@ -5,7 +5,9 @@ Counterparts of ``zfp_{encode,decode}_blocks{,_fa}_ref`` and
 built on :mod:`repro_torch.compression.transform`.  The CPU tests hold them
 against the JAX package (the codec bit for bit, attention to a tolerance),
 and the CUDA kernels in ``repro_torch/csrc`` are held against them on the
-card.
+card.  ``ln_lrelu_forward`` / ``ln_lrelu_backward`` (the surrogate's layer
+norm + LeakyReLU pair, which has no TPU kernel) are held to autograd of
+the layers in ``models/nn.py`` on the CPU.
 """
 from __future__ import annotations
 
@@ -171,3 +173,37 @@ def _masked_logits(q, k, v, causal, sm_scale, window, kv_lens, q_shift):
     if window is not None:
         mask = mask & (kpos > qpos - window)
     return logits, mask, vf
+
+
+def ln_lrelu_forward(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                     eps: float = 1e-5, slope: float = 0.2):
+    """``leaky_relu(layernorm(x))`` over dim 1 of (B, C, H, W) x, in the
+    kernel's order -> (y, mean, rstd), mean and rstd (B, H, W): mean, the
+    population variance from it, ``rstd = rsqrt(var + eps)``, ``pre = (x -
+    mean) * rstd * g + b``, ``y = pre >= 0 ? pre : slope * pre``."""
+    mean = x.mean(dim=1)
+    d = x - mean[:, None]
+    rstd = torch.rsqrt(d.square().mean(dim=1) + eps)
+    pre = d * rstd[:, None] * g[:, None, None] + b[:, None, None]
+    return torch.where(pre >= 0, pre, slope * pre), mean, rstd
+
+
+def ln_lrelu_backward(dy: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
+                      b: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                      slope: float = 0.2):
+    """Gradients of :func:`ln_lrelu_forward`'s y for the cotangent ``dy``
+    -> (dx, dg, db), from x and the forward's mean and rstd: ``xhat`` and
+    ``pre`` recomputed as the forward computed them (so the mask is its
+    mask, 1 at exactly 0), ``dpre = pre >= 0 ? dy : slope * dy``, ``dxhat =
+    dpre * g``, ``dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat *
+    xhat))`` over C, ``dg = sum(dpre * xhat)`` and ``db = sum(dpre)`` over
+    the batch's pixels."""
+    c = x.shape[1]
+    xhat = (x - mean[:, None]) * rstd[:, None]
+    pre = xhat * g[:, None, None] + b[:, None, None]
+    dpre = torch.where(pre >= 0, dy, slope * dy)
+    dxhat = dpre * g[:, None, None]
+    m1 = dxhat.sum(dim=1, keepdim=True) / c
+    m2 = (dxhat * xhat).sum(dim=1, keepdim=True) / c
+    dx = rstd[:, None] * (dxhat - m1 - xhat * m2)
+    return dx, (dpre * xhat).sum(dim=(0, 2, 3)), dpre.sum(dim=(0, 2, 3))

@@ -13,6 +13,9 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ln_lrelu, ops
+from repro_torch.obs.metrics import get_registry
+
 Params = Mapping[str, torch.Tensor]
 
 
@@ -66,6 +69,22 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     # where(x >= 0) keeps JAX's gradient of 1 at exactly 0
     return torch.where(x >= 0, x, slope * x)
+
+
+def layernorm_leaky_relu(p: Params, x: torch.Tensor, eps: float = 1e-5,
+                         slope: float = 0.2) -> torch.Tensor:
+    """``leaky_relu(layernorm(p, x))``, the surrogate's block.  On the CPU
+    the two layers above, as they are; on the card the hand-written kernel
+    pair (``kernels/ln_lrelu.py``) on x made contiguous (an empty extent
+    comes out of ``conv2d_transpose`` expanded).  The registry counts
+    ``surrogate.ln_blocks`` for every block and ``surrogate.ln_kernel_blocks``
+    for every block that took the kernel."""
+    reg = get_registry()
+    reg.counter("surrogate.ln_blocks").add()
+    if ops._on_cpu(x, p["g"], p["b"], kind="layer norm"):
+        return leaky_relu(layernorm(p, x, eps), slope)
+    reg.counter("surrogate.ln_kernel_blocks").add()
+    return ln_lrelu.layernorm_leaky_relu(x.contiguous(), p["g"], p["b"], eps, slope)
 
 
 def count_params(tree) -> int:

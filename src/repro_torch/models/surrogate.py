@@ -78,11 +78,11 @@ class Surrogate(tnn.Module):
         h0, w0 = cfg.height // 16, cfg.width // 16
         x = nn.dense(self.proj, cond)
         x = x.reshape(x.shape[0], h0, w0, cfg.base_channels).permute(0, 3, 1, 2)
-        x = nn.leaky_relu(nn.layernorm(self.ln_in, x))
+        x = nn.layernorm_leaky_relu(self.ln_in, x)
         for i in range(4):
             x = nn.leaky_relu(nn.conv2d_transpose(getattr(self, f"up{i}_t"), x))
             x = nn.conv2d(getattr(self, f"up{i}_c"), x)
-            x = nn.leaky_relu(nn.layernorm(getattr(self, f"up{i}_ln"), x))
+            x = nn.layernorm_leaky_relu(getattr(self, f"up{i}_ln"), x)
         return nn.conv2d(self.out, x).permute(0, 2, 3, 1)
 
 

@@ -53,7 +53,7 @@ import torch
 
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.device import DeviceLike, resolve_device, same_device
-from repro_torch.kernels import zfp_codec
+from repro_torch.kernels import ln_lrelu, zfp_codec
 from repro_torch.models.surrogate import (Surrogate, SurrogateConfig,
                                           adam_state_from_jax, adam_state_to_jax,
                                           init_surrogate, params_from_jax,
@@ -204,6 +204,7 @@ def train_surrogate(model_cfg: SurrogateConfig, train_cfg: TrainConfig,
     watcher = torchprof.get_watcher()
     watcher.watch("train.fused_step" if source.kind == "device" else "train.step",
                   zfp_codec.build)
+    watcher.watch("train.ln_lrelu", ln_lrelu.build)
     first_in_run = True
     start_step = step
     losses = []
