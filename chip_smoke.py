@@ -2689,9 +2689,9 @@ def lm_training_path(dev, smi: str, launcher_s: float) -> dict:
         seen = []
         real_adam = launch.apply_adam
 
-        def capture(grads, *args):
+        def capture(grads, *args, **kw):
             seen.append(grads)
-            return real_adam(grads, *args)
+            return real_adam(grads, *args, **kw)
 
         t0 = time.perf_counter()
         with mock.patch.object(launch, "apply_adam", capture):
@@ -2861,7 +2861,11 @@ def lm_training_path(dev, smi: str, launcher_s: float) -> dict:
             return gh
 
         comp_s, comp_launches, comp_losses = [], [], []
+        # the in-place training steps leave the cache fragmented: the
+        # non-in-place step below needs room for new moments and parameters
+        torch.cuda.empty_cache()
         for i in range(LM_COMP_STEPS):
+            ghat = None     # the last step's f32 tree (7.6 GB), not needed in this one
             batch = launch.make_batch(rng, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3410,7 +3414,7 @@ def sharded_lm_path(dev, smi: str) -> dict:
     import dataclasses
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.compression import tree_flatten_with_path
+    from repro_torch.compression import tree_flatten_with_path, tree_map
     from repro_torch.configs import get_config
     from repro_torch.core.grad_compress import as_codec, compress_decompress
     from repro_torch.distributed.sharding import (batch_specs, distribute_tree,
@@ -3493,8 +3497,10 @@ def sharded_lm_path(dev, smi: str) -> dict:
                 lm.set_constraint_mesh(None)
 
         def plain_step():
-            return launch.train_step(params, launch.adam_init_tree(params), batch, cfg,
-                                     opt_cfg)
+            # train_step updates the parameters it is given in place: a copy,
+            # so that every call, and the serving below, starts from params
+            return launch.train_step(tree_map(torch.clone, params),
+                                     launch.adam_init_tree(params), batch, cfg, opt_cfg)
 
         new_s = flat(gather_tree(sharded_step()[0]))
         new_p = flat(plain_step()[0])

@@ -8,7 +8,7 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid | encdec | vlm
+    family: str                     # dense | moe | ssm | hybrid | encdec | vlm | mixed
     num_layers: int
     d_model: int
     num_heads: int
@@ -62,6 +62,28 @@ class ArchConfig:
     def sub_quadratic(self) -> bool:
         """Eligible for long_500k (SSM / hybrid-with-SWA)."""
         return self.family == "ssm" or (self.hybrid and self.attn_window > 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedArchConfig(ArchConfig):
+    """A stack of two kinds of layer (granite-4.0-h, family "mixed"): each
+    layer's mixer, in order, in ``layer_kinds`` ("mamba" or "attention"),
+    and on every layer a dropless MoE beside a shared SwiGLU expert."""
+    experts_held: int = 0           # experts held on this chip (0: all of them)
+    expert_offset: int = 0          # the first of them
+    shared_expert_ff: int = 0       # the shared expert's width
+    ssm_conv_bias: bool = False
+    layer_kinds: Tuple[str, ...] = ()
+    nope: bool = False              # no position encoding in attention
+    attn_scale: float = 0.0         # the score scale; 0: 1 / sqrt(head dim)
+    # muP: embeddings times, each residual branch times, logits divided by
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    @property
+    def held_experts(self) -> int:
+        return self.experts_held or self.num_experts
 
 
 @dataclasses.dataclass(frozen=True)

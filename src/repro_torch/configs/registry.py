@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MixedArchConfig
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -104,7 +104,29 @@ MAMBA2_130M = _register(ArchConfig(
     ssm_state=128, ssm_heads=24, ssm_head_dim=64, tie_embeddings=True))
 
 
+# the pool the JAX package shares; the configurations below it are the
+# port's alone
 ALL_ARCHS = tuple(_REGISTRY)
+
+# --- mixed -----------------------------------------------------------------
+# granite-4.0-h-small [hf:ibm-granite/granite-4.0-h-small config.json,
+# granitemoehybrid]: 40L d=4096 v=100352 tied; layer_types: Mamba2 (128 heads
+# x 64, state 128, 1 group, conv 4 with bias, chunk 256) but attention at
+# layers 5, 15, 25, 35 (GQA 32/8, head 128, NoPE, scale 1/128); on every
+# layer an MoE of 72 SwiGLU experts of width 768, top-10, dropless, and a
+# shared SwiGLU expert of width 1536; muP: embeddings x 12, residual
+# branches x 0.22, logits / 16; RMSNorm eps 1e-5
+GRANITE_4_H_SMALL = _register(MixedArchConfig(
+    name="granite-4.0-h-small", family="mixed",
+    num_layers=40, d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+    d_ff=768, vocab_size=100352, tie_embeddings=True,
+    num_experts=72, experts_per_token=10, shared_expert_ff=1536,
+    ssm_state=128, ssm_heads=128, ssm_head_dim=64, ssm_conv=4, ssm_conv_bias=True,
+    layer_kinds=tuple("attention" if i % 10 == 5 else "mamba" for i in range(40)),
+    nope=True, attn_scale=1 / 128,
+    embedding_multiplier=12.0, residual_multiplier=0.22, logits_scaling=16.0,
+    norm_eps=1e-5))
+PORT_ARCHS = tuple(a for a in _REGISTRY if a not in ALL_ARCHS)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -114,8 +136,16 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduced_config(name: str) -> ArchConfig:
-    """Structure-preserving miniature for CPU smoke tests."""
+    """Structure-preserving miniature for CPU smoke tests.  A mixed stack
+    keeps its first period of layer kinds (ten layers), all its experts
+    held, at the same miniature widths."""
     cfg = get_config(name)
+    if cfg.family == "mixed":
+        return dataclasses.replace(
+            cfg, num_layers=10, layer_kinds=cfg.layer_kinds[:10], d_model=64,
+            num_heads=4, num_kv_heads=2, head_dim=16, d_ff=32, shared_expert_ff=48,
+            vocab_size=512, num_experts=8, experts_per_token=3, ssm_state=16,
+            ssm_heads=8, ssm_head_dim=16, attn_chunk=64, param_dtype="float32")
     heads = max(cfg.num_heads // 8, 2) if cfg.num_heads else 0
     kv = max(min(cfg.num_kv_heads, heads), 1) if cfg.num_kv_heads else 0
     if heads and kv:

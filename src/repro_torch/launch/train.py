@@ -23,6 +23,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -40,30 +41,36 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import torchprof
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.optimizer import AdamConfig, AdamState, adam_update
+from repro_torch.train.optimizer import AdamConfig, AdamState, adam_update, global_norm
 
 CKPT_EVERY = 5
 
 
 def adam_init_tree(params) -> AdamState:
-    """Adam state of a nested parameter tree: m and v zeros like the
-    parameters (so bf16 for bf16 parameters until the first update
-    promotes them to f32, as in the JAX package), step 0."""
+    """Adam state of a nested parameter tree: m and v f32 zeros shaped like
+    the parameters, step 0.  The JAX package's moments start in the
+    parameters' dtype and its first update makes them f32; zeros are zeros
+    in either dtype, so the updates' bits are the same, and f32 from the
+    start lets :func:`apply_adam` write them in place."""
     dev = params["embed"].device
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)     # noqa: E731
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                     m=tree_map(torch.zeros_like, params),
-                     v=tree_map(torch.zeros_like, params))
+                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
 def loss_and_grads(params, cfg: ArchConfig, batch):
     """``(loss, grads)`` of :func:`lm.lm_loss` at ``params``, grads a tree
     like ``params``; ``params`` is not changed.  A leaf the loss does not
     use (a pure SSM layer's ``ln2``) gets a zero gradient, as under
-    ``jax.grad``."""
+    ``jax.grad``.  The device ranges ``lm.forward`` and ``lm.backward``
+    time the loss and its gradients."""
     pairs, treedef = tree_flatten_with_path(params)
     leaves = [p.detach().requires_grad_() for _, p in pairs]
-    loss = replicated(lm.lm_loss(treedef.unflatten(leaves), cfg, batch))
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    dev = leaves[0].device
+    with obs_trace.device_range("lm.forward", dev):
+        loss = replicated(lm.lm_loss(treedef.unflatten(leaves), cfg, batch))
+    with obs_trace.device_range("lm.backward", dev):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else like_param(g, p)
              for p, g in zip(leaves, grads)]
     return loss.detach(), treedef.unflatten(grads)
@@ -85,24 +92,60 @@ def like_param(g, p):
     return g
 
 
-def apply_adam(grads, opt: AdamState, params, opt_cfg: AdamConfig):
-    """:func:`repro_torch.train.optimizer.adam_update` on nested trees,
-    flattened in the JAX package's leaf order (so the clip's global norm
-    sums in its order)."""
+def apply_adam(grads, opt: AdamState, params, opt_cfg: AdamConfig, inplace: bool = False):
+    """:func:`repro_torch.train.optimizer.adam_update` on nested trees of
+    f32 gradients, flattened in the JAX package's leaf order (so the clip's
+    global norm sums in its order).
+
+    ``inplace`` (the launcher's step) writes the step count, moments and
+    parameters into their own tensors and returns them, where the moments
+    are f32 plain tensors (:func:`adam_init_tree`'s); it takes gradients in
+    any float dtype.  The clip's scale comes from the global norm of all of
+    them (``global_norm`` casts each leaf to f32, exactly), then each leaf
+    is cast to f32, scaled and updated by ``adam_update`` alone, so one
+    leaf's f32 copies live at a time; the same kernels, so the same bits,
+    as one ``adam_update`` of the whole f32 tree.  DTensors (the sharded
+    steps) and moments of another dtype (a state restored before its first
+    update) get new tensors."""
     g, treedef = tree_flatten_with_path(grads)
     keys = [k for k, _ in g]
     flat = lambda t: dict(tree_flatten_with_path(t)[0])          # noqa: E731
-    new_p, st = adam_update(dict(g), AdamState(opt.step, flat(opt.m), flat(opt.v)),
-                            flat(params), opt_cfg)
     nest = lambda d: treedef.unflatten([d[k] for k in keys])      # noqa: E731
-    return nest(new_p), AdamState(st.step, nest(st.m), nest(st.v))
+    m, v, p = flat(opt.m), flat(opt.v), flat(params)
+    if not (inplace and all(t.dtype == torch.float32 and not isinstance(t, DTensor)
+                            for t in (*m.values(), *v.values()))):
+        new_p, st = adam_update({k: t.float() for k, t in g}, AdamState(opt.step, m, v),
+                                p, opt_cfg)
+        return nest(new_p), AdamState(st.step, nest(st.m), nest(st.v))
+    grads = dict(g)
+    leaf_cfg = dataclasses.replace(opt_cfg, grad_clip=None)
+    scale = None
+    if opt_cfg.grad_clip is not None:
+        gn = global_norm(grads)
+        scale = torch.clamp(opt_cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
+    for k in keys:
+        gk = grads.pop(k).float()
+        gk = gk * scale if scale is not None else gk
+        adam_update({k: gk}, AdamState(opt.step.clone(), {k: m[k]}, {k: v[k]}), {k: p[k]},
+                    leaf_cfg, inplace=True)
+    opt.step.add_(1)
+    return params, opt
 
 
 def train_step(params, opt: AdamState, batch, cfg: ArchConfig, opt_cfg: AdamConfig):
     """The JAX launcher's step (train.py:77): the loss and its gradients,
-    gradients cast to f32, one Adam update.  Returns (params, opt, loss)."""
+    gradients cast to f32, one Adam update (:func:`apply_adam`, which casts
+    one leaf at a time), timed by the device range ``lm.optimizer``.
+    Returns (params, opt, loss).
+
+    For every family, plain tensors and f32 moments (:func:`adam_init_tree`'s)
+    are updated in place: the returned ``params`` and ``opt`` are the
+    tensors passed in, so a caller that reads the parameters it passed
+    after the step passes a copy.  DTensors, and moments of another
+    dtype, get new tensors and leave the inputs as they were."""
     loss, grads = loss_and_grads(params, cfg, batch)
-    params, opt = apply_adam(tree_map(torch.Tensor.float, grads), opt, params, opt_cfg)
+    with obs_trace.device_range("lm.optimizer", loss.device):
+        params, opt = apply_adam(grads, opt, params, opt_cfg, inplace=True)
     return params, opt, loss
 
 

@@ -1,5 +1,6 @@
 """LMs, serving and training: the dense, MoE, SSM (Mamba2 SSD), hybrid
-(Hymba), VLM and encoder-decoder families of ``repro/models/lm.py``.
+(Hymba), VLM and encoder-decoder families of ``repro/models/lm.py``, and
+the port's own mixed stacks (granite-4.0-h, ``MixedArchConfig``).
 
 Parameters are a plain dictionary in the JAX package's layout: ``embed``
 (V, D), ``final_norm`` (D,), ``lm_head`` (D, V) unless embeddings are tied,
@@ -12,7 +13,13 @@ N), ``ssm_norm`` (di,), ``ssm_out`` (di, D), and ``ssm_A``, ``ssm_D``,
 layer's ``router`` (D, E), ``e_gate``/``e_up`` (E, D, F), ``e_down`` (E,
 F, D) in place of the MLP, with Arctic's dense residual MLP ``w_gate``/
 ``w_up``/``w_down`` at ``moe_dense_ff`` beside them).  A pure SSM layer has
-no attention and no MLP; a hybrid layer has both branches.  An
+no attention and no MLP; a hybrid layer has both branches.  A mixed
+stack (``layer_kinds``) stacks each mixer's leaves over the layers of its
+kind only (``wq`` (L_attention, ...), ``ssm_in`` (L_mamba, ...), with the
+conv bias ``ssm_conv_b`` (L_mamba, di + 2 N)) and the rest over every
+layer: ``ln1``, ``ln2``, the router (D, E), the held experts ``e_gate``/
+``e_up`` (E_held, D, F), ``e_down`` (E_held, F, D) and the shared expert
+``s_gate``/``s_up`` (D, Fs), ``s_down`` (Fs, D).  An
 encoder-decoder model's decoder layers add the cross-attention leaves
 ``ln_x`` (D,), ``xwq`` (D, H, Dh), ``xwk``/``xwv`` (D, Hkv, Dh), ``xwo``
 (H, Dh, D), and the model ``enc_layers`` (stacked encoder layers, without
@@ -33,7 +40,10 @@ Which attention each call takes:
 * :func:`lm_forward` and :func:`lm_loss` (training) attend through
   :func:`attention_train`, plain PyTorch that autograd differentiates, as
   the JAX package's training runs its jnp ``attention``: the kernel has no
-  backward.
+  backward.  A mixed stack's attention layers (no JAX counterpart) attend
+  through ``scaled_dot_product_attention`` (:func:`_nope_attention`), and
+  a mixed stack is not served (:func:`lm_prefill`, :func:`serve_step` and
+  :func:`init_cache` raise ``ValueError``).
 
 The hybrid's local layers attend in a sliding window of ``attn_window``
 keys, its ``global_attn_layers`` without one.  The cache is a dictionary
@@ -56,7 +66,8 @@ tokens in groups of ``moe_group``, router scores snapped to the bf16 grid,
 top-k in ``jax.lax.top_k``'s order, queue positions per expert, and the
 dispatch, expert and combine products over every expert's ``capacity``
 rows.  Its load-balance loss reaches :func:`lm_loss` through the layer
-loop.
+loop.  A mixed stack's MoE (:func:`moe_dropless`) drops nothing: every
+pair routed to an expert the chip holds goes through grouped products.
 
 With a constraint mesh (:func:`set_constraint_mesh`) and parameters and
 inputs that are DTensors on it, the same functions run sharded, as the
@@ -94,6 +105,8 @@ from repro_torch.distributed.sharding import (P, _axes, axis_sizes, cache_specs,
                                               placements, resolve_specs)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import DECODE_MAX_SQ
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.trace import device_range
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -126,6 +139,7 @@ def _layer_param_shapes(cfg: ArchConfig, cross_attn: bool = False
     "ssm"; the Mamba2 block for "ssm" and the hybrid."""
     d, hd = cfg.d_model, cfg.hdim
     h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    mixed = cfg.family == "mixed"
     shapes = {"ln1": (d,), "ln2": (d,)}
     if cfg.family != "ssm":
         shapes.update(wq=(d, h, hd), wk=(d, hkv, hd), wv=(d, hkv, hd), wo=(h, hd, d))
@@ -136,19 +150,49 @@ def _layer_param_shapes(cfg: ArchConfig, cross_attn: bool = False
                       xwo=(h, hd, d))
     if cfg.num_experts:
         e = cfg.num_experts
-        shapes.update(router=(d, e), e_gate=(e, d, f), e_up=(e, d, f), e_down=(e, f, d))
+        eh = cfg.held_experts if mixed else e
+        shapes.update(router=(d, e), e_gate=(eh, d, f), e_up=(eh, d, f), e_down=(eh, f, d))
         if cfg.moe_dense_ff:
             fd = cfg.moe_dense_ff
             shapes.update(w_gate=(d, fd), w_up=(d, fd), w_down=(fd, d))
+        if mixed:
+            fs = cfg.shared_expert_ff
+            shapes.update(s_gate=(d, fs), s_up=(d, fs), s_down=(fs, d))
     elif cfg.family != "ssm":
         shapes.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
-    if cfg.family == "ssm" or cfg.hybrid:
+    if cfg.family == "ssm" or mixed or cfg.hybrid:
         nh, p, n, k = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
         di = nh * p
         shapes.update(ssm_in=(d, 2 * di + 2 * n + nh), ssm_conv_w=(k, di + 2 * n),
                       ssm_A=(nh,), ssm_D=(nh,), ssm_dt_bias=(nh,), ssm_norm=(di,),
                       ssm_out=(di, d))
+        if mixed and cfg.ssm_conv_bias:
+            shapes["ssm_conv_b"] = (di + 2 * n,)
     return shapes
+
+
+# a mixed stack's leaves that only one kind of layer has; the others
+# (norms, router, experts, shared expert) every layer has
+_MIXER_LEAVES = {"attention": ("wq", "wk", "wv", "wo"),
+                 "mamba": ("ssm_in", "ssm_conv_w", "ssm_conv_b", "ssm_A", "ssm_D",
+                           "ssm_dt_bias", "ssm_norm", "ssm_out")}
+
+
+def _leaf_kind(name: str) -> Optional[str]:
+    return next((kind for kind, names in _MIXER_LEAVES.items() if name in names), None)
+
+
+def _stack_shapes(cfg: ArchConfig, cross_attn: bool = False, n_layers: Optional[int] = None
+                  ) -> Dict[str, Tuple[int, ...]]:
+    """Stacked shapes of a layer stack's leaves: (L, ...) each, or, in a
+    mixed stack (``layer_kinds``), a mixer's leaves stacked over the layers
+    of its kind only, in order."""
+    shapes = _layer_param_shapes(cfg, cross_attn)
+    n_layers = cfg.num_layers if n_layers is None else n_layers
+    if cfg.family != "mixed":
+        return {k: (n_layers,) + s for k, s in shapes.items()}
+    return {k: ((cfg.layer_kinds.count(_leaf_kind(k)) if _leaf_kind(k) else n_layers,) + s)
+            for k, s in shapes.items()}
 
 
 def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
@@ -191,8 +235,8 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
 
     def stack(n_l, cross):
         layers = {}
-        for name, shape in sorted(_layer_param_shapes(cfg, cross).items()):
-            full = (n_l,) + shape
+        for name, full in sorted(_stack_shapes(cfg, cross, n_l).items()):
+            shape = full[1:]
             if name.startswith("ln") or name == "ssm_norm":
                 layers[name] = torch.ones(full, dtype=dt, device=dev)
             elif name == "ssm_A":
@@ -204,8 +248,12 @@ def init_lm(gen: Union[torch.Generator, int], cfg: ArchConfig,
                                           dtype=torch.float32, device=dev)
             elif name.startswith("b"):
                 layers[name] = torch.zeros(full, dtype=dt, device=dev)
+            elif name == "ssm_conv_b":
+                layers[name] = normal(full, 1.0 / math.sqrt(cfg.ssm_conv))
             else:
                 fan_in = shape[0] * shape[1] if name in ("wo", "xwo") else shape[0]
+                if cfg.family == "mixed" and name in _EXPERT_LEAVES:
+                    fan_in = shape[1]               # the product's contraction
                 layers[name] = normal(full, 1.0 / math.sqrt(fan_in))
         return layers
 
@@ -232,8 +280,8 @@ def _meta_params(cfg: ArchConfig) -> Params:
         return torch.empty(shape, dtype=dtype, device="meta")
 
     def stack(n_l, cross):
-        return {name: empty((n_l,) + shape, torch.float32 if name in _F32_LEAVES else dt)
-                for name, shape in sorted(_layer_param_shapes(cfg, cross).items())}
+        return {name: empty(full, torch.float32 if name in _F32_LEAVES else dt)
+                for name, full in sorted(_stack_shapes(cfg, cross, n_l).items())}
 
     params: Params = {"embed": empty((v, d)), "final_norm": empty((d,))}
     if not cfg.tie_embeddings:
@@ -269,12 +317,12 @@ def param_count(cfg: ArchConfig) -> int:
     cross-attention leaves for an encoder-decoder), ``final_norm``, the
     encoder's layers and ``enc_norm``, the embedding and head, and
     ``frontend_proj``."""
-    def per_layer(cross):
-        return sum(math.prod(s) for s in _layer_param_shapes(cfg, cross).values())
+    def stacked(cross, n_l):
+        return sum(math.prod(s) for s in _stack_shapes(cfg, cross, n_l).values())
 
-    n = per_layer(cfg.encoder_layers > 0) * cfg.num_layers + cfg.d_model
+    n = stacked(cfg.encoder_layers > 0, cfg.num_layers) + cfg.d_model
     if cfg.encoder_layers:
-        n += per_layer(False) * cfg.encoder_layers + cfg.d_model
+        n += stacked(False, cfg.encoder_layers) + cfg.d_model
     n += cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     if cfg.frontend != "none":
         n += cfg.frontend_dim * cfg.d_model
@@ -288,6 +336,12 @@ def active_param_count(cfg: ArchConfig) -> int:
     reference's, leaves out ``final_norm``."""
     if not cfg.num_experts:
         return param_count(cfg)
+    if cfg.family == "mixed":
+        # every layer's k experts of the published width, wherever they are held
+        shapes = _stack_shapes(cfg)
+        held = sum(math.prod(shapes[n]) for n in _EXPERT_LEAVES)
+        return (param_count(cfg) - held - cfg.d_model
+                + cfg.num_layers * cfg.experts_per_token * 3 * cfg.d_model * cfg.d_ff)
     shapes = _layer_param_shapes(cfg)
     experts = sum(math.prod(shapes[n]) for n in _EXPERT_LEAVES)
     per_layer = (sum(math.prod(s) for s in shapes.values()) - experts
@@ -877,10 +931,12 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor, Bm: torch.
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 conv_state: Optional[torch.Tensor] = None):
+                 conv_state: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None):
     """Depthwise causal convolution (lm.py:442).  x: (B, S, C); w: (K, C).
     Returns (y, new state (B, K-1, C)).  The reference's sum of K shifted
-    products, starting from 0 and in x's dtype, in its order."""
+    products, starting from 0 and in x's dtype, in its order; ``bias`` (C,)
+    (granite-4.0-h's ``mamba_conv_bias``) is added to that sum."""
     k = w.shape[0]
     if conv_state is None:
         pad = _lift(torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
@@ -889,6 +945,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
         pad = conv_state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    if bias is not None:
+        y = y + bias
     return y, xp[:, -(k - 1):, :]
 
 
@@ -919,7 +977,8 @@ def ssm_block(lp: Params, x: torch.Tensor, cfg: ArchConfig,
     xbc_in = xbc
     if conv_state is not None:
         conv_state = _constrain(conv_state, DP, None, None)
-    xbc, new_conv = _causal_conv(xbc, _constrain(lp["ssm_conv_w"], None, None), conv_state)
+    xbc, new_conv = _causal_conv(xbc, _constrain(lp["ssm_conv_w"], None, None), conv_state,
+                                 lp.get("ssm_conv_b"))
     if pad_mask is not None:
         # the window that ends at each row's last real token: columns
         # [len, len + K - 1) of the input extended on the left by the state
@@ -1204,6 +1263,198 @@ def encoder_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch
 
 
 # ===========================================================================
+# mixed stacks (granite-4.0-h): Mamba2 and attention layers in one stack, and
+# on every layer a dropless MoE over the held experts beside a shared expert
+# ===========================================================================
+
+def _expert_mm(xs: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Rows of ``xs`` (M, a), sorted by expert, each through its expert's
+    matrix of ``w`` (E_held, a, b): expert e takes rows ``offs[e - 1] ..
+    offs[e]`` (``offs`` the int32 running count).  The rows past
+    ``offs[-1]`` come out unspecified, and so do their gradients.  One
+    grouped matrix product (``torch._grouped_mm``) where this build of
+    PyTorch has one for the dtype and device; else one product per expert
+    over its contiguous rows, whose bounds the host reads (one synchronise
+    a call)."""
+    if hasattr(torch, "_grouped_mm") and (xs.dtype == torch.bfloat16
+                                          or xs.device.type == "cpu"):
+        return torch._grouped_mm(xs, w, offs=offs)
+    bounds = [0] + offs.tolist()
+    rest = xs.new_zeros((xs.shape[0] - bounds[-1], w.shape[2]))
+    return torch.cat([xs[lo:hi] @ w[e] for e, (lo, hi) in enumerate(zip(bounds, bounds[1:]))]
+                     + [rest])
+
+
+class _PermuteRows(torch.autograd.Function):
+    """``x.index_select(0, perm)`` for a permutation ``perm`` of x's rows,
+    whose gradient is the inverse permutation's gather (``index_select``'s
+    own backward scatters with atomic adds)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return x.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return g.index_select(0, inv), None, None
+
+
+def moe_dropless(lp: Params, x: torch.Tensor, cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y (B, S, D) in x's dtype, the Switch load-balance
+    loss, 0-d f32): a dropless MoE over the ``cfg.held_experts`` experts
+    ``cfg.expert_offset ..`` that ``e_gate``/``e_up``/``e_down`` hold,
+    routed over all ``cfg.num_experts`` (granite-4.0-h's
+    ``GraniteMoeHybridMoE``, on one chip of an expert-parallel layer).
+
+    Router logits (``x @ router``, rounded to bf16 as a bf16 product gives
+    them) pick each token's top ``k`` experts (:func:`top_k`'s order); the
+    gates are the softmax of those ``k`` logits.  Every (token, k) pair
+    routed to a held expert is computed, none dropped: the pairs are sorted
+    by expert (ties in token order) and each held expert's SwiGLU runs on
+    its contiguous rows as three grouped products (:func:`_expert_mm`).
+    The buffer holds all ``B S k`` pairs, so its shape does not depend on
+    the routing and nothing is read back to the host; the pairs of the
+    other chips' experts sit past the last held row, zeroed before and
+    after the products so that neither they nor their gradients reach x.
+    Each token's output is its pairs' outputs weighted by the gates (in
+    x's dtype, as the published model weighs them), which is this chip's
+    part of the layer's result.  The registry counts ``lm.moe.held_pairs``
+    and ``lm.moe.max_expert_pairs`` (the busiest held expert's pairs) on
+    the device, with no synchronise.  The aux, ``E * sum_e f_e p_e``,
+    needs only the router, which every chip holds whole."""
+    b, s, d = x.shape
+    n, e, k = b * s, cfg.num_experts, cfg.experts_per_token
+    eh = cfg.held_experts
+    xf = x.reshape(n, d)
+    logits = (xf @ lp["router"]).float().to(torch.bfloat16).float()    # (n, E)
+    top_l, top_ids = top_k(logits, k)
+    gates = torch.softmax(top_l, -1)                                    # (n, k) f32
+    frac = torch.bincount(top_ids.reshape(-1), minlength=e).float() / n
+    aux = e * (frac * torch.softmax(logits, -1).mean(0)).sum()
+
+    local = top_ids.reshape(-1) - cfg.expert_offset                     # (n k,)
+    key = torch.where((local >= 0) & (local < eh), local, eh)           # eh: not held
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=eh + 1)[:eh]
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(n * k, device=x.device))
+    held = (key[order] < eh)[:, None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    xs = _PermuteRows.apply(xf[:, None].expand(n, k, d).reshape(n * k, d), order, inv)
+    xs = torch.where(held, xs, zero)
+    hs = F.silu(_expert_mm(xs, lp["e_gate"], offs)) * _expert_mm(xs, lp["e_up"], offs)
+    ys = torch.where(held, _expert_mm(hs, lp["e_down"], offs), zero)
+    yk = _PermuteRows.apply(ys, inv, order).reshape(n, k, d)          # (token, k) order
+    y = torch.bmm(gates.to(yk.dtype)[:, None, :], yk)[:, 0]
+
+    reg = get_registry()
+    reg.counter("lm.moe.held_pairs").add(counts.sum())
+    reg.counter("lm.moe.max_expert_pairs").add(counts.max())
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _nope_attention(lp: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Causal GQA without a position encoding, scores scaled by
+    ``cfg.attn_scale`` (granite-4.0-h's ``attention_multiplier``), over
+    packed sequences (no document mask): the KV heads repeated to the
+    query heads and one ``scaled_dot_product_attention``, whose backward
+    keeps no (S, S) scores (at 8k tokens the plain :func:`attention_train`
+    would keep tens of GB of them)."""
+    q, k, v = _project_qkv(lp, x, cfg)
+    g = cfg.num_heads // cfg.num_kv_heads
+    k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    y = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       is_causal=True, scale=cfg.attn_scale or None)
+    return _out_proj(y.transpose(1, 2), lp["wo"])
+
+
+def mixed_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, kind: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of a mixed stack (``GraniteMoeHybridDecoderLayer``):
+    ``x + m * mixer(ln1(x))``, the mixer a Mamba2 block (:func:`ssm_block`,
+    with its conv bias) or :func:`_nope_attention` as ``kind`` says, then
+    ``x + m * (moe(h) + shared(h))`` of ``h = ln2(x)``, ``m`` the
+    residual multiplier.  Returns (x, the MoE's aux).  The device ranges
+    ``lm.mamba``, ``lm.attention`` and ``lm.moe`` (the MoE block and the
+    shared expert) time each forward, a recompute's too."""
+    m = cfg.residual_multiplier
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        with device_range("lm.mamba", x.device):
+            y, _ = ssm_block(lp, h, cfg)
+    else:
+        with device_range("lm.attention", x.device):
+            y = _nope_attention(lp, h, cfg)
+    x = x + m * y
+    h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    with device_range("lm.moe", x.device):
+        y, aux = moe_dropless(lp, h, cfg)
+        y = y + swiglu(h, lp["s_gate"], lp["s_up"], lp["s_down"])
+    return x + m * y, aux
+
+
+def _mixed_layer_params(params: Params, cfg: ArchConfig, i: int) -> Params:
+    """Layer ``i``'s leaves: the shared ones at ``i``, its mixer's at its
+    place among the layers of its kind."""
+    kind = cfg.layer_kinds[i]
+    j = cfg.layer_kinds[:i].count(kind)
+    return {name: v[i if _leaf_kind(name) is None else j]
+            for name, v in params["layers"].items() if _leaf_kind(name) in (None, kind)}
+
+
+class _EmbedRows(torch.autograd.Function):
+    """``table[tokens]`` whose gradient sums each row's repeats in f32 and
+    rounds once to the table's dtype.  Indexing's own backward (and
+    ``F.embedding``'s on the CPU) rounds at every repeat, so a bf16 row
+    stops growing once its sum is 2^8 times a term: on Zipf-distributed
+    text the most frequent tokens' gradients lose most of their size."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        d = g.shape[-1]
+        acc = torch.zeros((ctx.rows, d), dtype=torch.float32, device=g.device)
+        acc.index_add_(0, tokens.reshape(-1), g.reshape(-1, d).float())
+        return acc.to(g.dtype), None
+
+
+def _run_mixed_stack(params: Params, cfg: ArchConfig, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer loop of a mixed stack's training forward -> (x, total
+    aux): each layer (:func:`mixed_layer`) under the config's remat."""
+    if not cfg.nope or _on_mesh(x):
+        raise NotImplementedError("a mixed stack attends without a position encoding, "
+                                  "on one device")
+
+    def body(h, i):
+        return mixed_layer(_mixed_layer_params(params, cfg, i), h, cfg, cfg.layer_kinds[i])
+
+    body = _remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, a = body(x, i)
+        aux = aux + a
+    return x, aux
+
+
+def _refuse_mixed(cfg: ArchConfig, what: str) -> None:
+    if cfg.family == "mixed":
+        raise ValueError(
+            f"{what}: {cfg.name} mixes {' and '.join(sorted(set(cfg.layer_kinds)))} layers "
+            f"in one stack, whose serving needs SSM state and a KV cache in one cache "
+            f"(ROADMAP Queue 6); it trains through lm_loss")
+
+
+# ===========================================================================
 # training forward and loss
 # ===========================================================================
 
@@ -1283,7 +1534,12 @@ def lm_forward(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
     """Full forward (lm.py:712) -> (final-normed hidden (B, S, D), aux); S
     counts a VLM's prepended image tokens.  An encoder-decoder model encodes
     ``batch["encoder_embeds"]`` first, and every decoder layer attends to
-    it."""
+    it.  A mixed stack scales its embeddings by the embedding multiplier
+    and runs :func:`_run_mixed_stack`."""
+    if cfg.family == "mixed":
+        x = _EmbedRows.apply(params["embed"], batch["tokens"].long()) * cfg.embedding_multiplier
+        x, aux = _run_mixed_stack(params, cfg, x)
+        return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
     x, positions = _embed_inputs(params, cfg, batch)
     enc_out = (_encode(params, cfg, batch["encoder_embeds"], x.dtype, serving=False)
                if cfg.encoder_layers else None)
@@ -1291,11 +1547,14 @@ def lm_forward(params: Params, cfg: ArchConfig, batch) -> Tuple[torch.Tensor,
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def _chunk_ce(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _chunk_ce(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor,
+              logits_scaling: float = 1.0) -> torch.Tensor:
     # hx @ w in the params' dtype, then f32, as einsum(...).astype(f32)
     if _on_mesh(hx):
         return _chunk_ce_sharded(hx, lx, w)
     logits = (hx @ w).float()
+    if logits_scaling != 1.0:
+        logits = logits / logits_scaling
     gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
     return (torch.logsumexp(logits, -1) - gold).sum()
 
@@ -1359,7 +1618,8 @@ def lm_loss(params: Params, cfg: ArchConfig, batch,
 
     ``c = min(vocab_chunk_tokens, S)`` tokens a chunk and ``S // c`` chunks:
     tokens past the last whole chunk are dropped, and the sum is divided by
-    ``B * nc * c``.  Each chunk is checkpointed, so no (tokens, V) tensor
+    ``B * nc * c``.  A mixed stack's logits are divided by its
+    ``logits_scaling``.  Each chunk is checkpointed, so no (tokens, V) tensor
     outlives its chunk.  A VLM's hidden rows of the prepended image
     tokens are dropped (after the final norm) so that the last S rows meet
     the S labels.  Returns ``loss + 0.01 * aux``, 0-d f32."""
@@ -1368,6 +1628,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch,
     if hidden.shape[1] != labels.shape[1]:      # a frontend prepended tokens
         hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
     w = _head_weight(params, cfg)
+    scaling = cfg.logits_scaling if cfg.family == "mixed" else 1.0
     b, s, _ = hidden.shape
     c = min(vocab_chunk_tokens, s)
     nc = s // c
@@ -1375,7 +1636,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch,
     for i in range(nc):
         sl = slice(i * c, (i + 1) * c)
         total = total + checkpoint(_chunk_ce, hidden[:, sl], labels[:, sl], w,
-                                   use_reentrant=False)
+                                   scaling, use_reentrant=False)
     return total / (b * nc * c) + 0.01 * aux
 
 
@@ -1440,7 +1701,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     Hkv, Dh).  With a named ``mesh`` every leaf is a DTensor on it, sharded
     as :func:`repro_torch.distributed.sharding.cache_specs` says for that
     mesh (resolved against the shapes); ``device="meta"`` allocates
-    nothing."""
+    nothing.  A mixed stack has no cache yet (``ValueError``)."""
+    _refuse_mixed(cfg, "init_cache")
     dev = torch.device("meta") if device is not None and \
         torch.device(device).type == "meta" else resolve_device(device)
     if mesh is not None:
@@ -1514,6 +1776,7 @@ def lm_prefill(params: Params, cfg: ArchConfig, batch, max_seq: int,
     pad mask over the whole sequence.  An encoder-decoder model encodes
     ``batch["encoder_embeds"]`` (without remat, through the serving kernel)
     and sizes the cross cache to its length."""
+    _refuse_mixed(cfg, "lm_prefill")
     x, positions = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     pad_mask = None
@@ -1543,6 +1806,7 @@ def serve_step(params: Params, cfg: ArchConfig, cache: Cache, tokens: torch.Tens
     cross cache (or attends to ``enc_out``, written into the cache, where
     given).  Writes the cache in place; returns (logits (B, V) f32,
     cache)."""
+    _refuse_mixed(cfg, "serve_step")
     x = _constrain(_embed(params["embed"], tokens)[:, None], DP, None, None)
     positions = _lift(_as_positions(pos, x.shape[0], 1, x.device), x, shard_batch=True)
     if not _is_scalar(pos):

@@ -32,7 +32,9 @@ from typing import Optional
 
 
 class Counter:
-    """Accumulating numeric metric (float-valued; ints stay exact)."""
+    """Accumulating numeric metric (float-valued; ints stay exact).  A
+    device tensor added accumulates on its device, with no synchronise;
+    ``snapshot()`` reads it as a number."""
     __slots__ = ("value",)
 
     def __init__(self):
@@ -157,7 +159,8 @@ class MetricsRegistry:
         with self._lock:
             items = list(self._metrics.items())
         for name, m in items:
-            out[name] = m.summary() if isinstance(m, Histogram) else m.value
+            v = m.summary() if isinstance(m, Histogram) else m.value
+            out[name] = v.item() if hasattr(v, "item") else v
         return out
 
     def merge(self, other: "MetricsRegistry") -> "MetricsRegistry":

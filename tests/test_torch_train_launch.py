@@ -26,7 +26,7 @@ from repro.train.optimizer import AdamConfig as JaxAdamConfig
 from repro.train.optimizer import adam_init as jax_adam_init
 from repro.train.optimizer import adam_update as jax_adam_update
 
-from repro_torch.compression import tree_flatten_with_path
+from repro_torch.compression import tree_flatten_with_path, tree_map
 from repro_torch.configs import reduced_config
 from repro_torch.launch import train as launch
 from repro_torch.models import lm
@@ -157,10 +157,11 @@ def test_jax_checkpoint_resumes_the_port_launcher(tmp_path):
 
 
 def test_restored_moments_keep_the_saved_f32_dtype(tmp_path):
-    """bf16 parameters: adam_init's moments are bf16, the first update makes
-    them f32, and a restore into the bf16 template keeps f32 -- in the port
-    and in the JAX package.  Raw bf16 parameters round-trip bit for bit in
-    the port."""
+    """bf16 parameters: the launcher's moments are f32 (from step 0; the JAX
+    package's adam_init gives bf16 ones, which its first update makes f32),
+    and a restore into a template whose moments are bf16 zeros, as the JAX
+    package's are, keeps the saved f32 -- in the port and in the JAX
+    package.  Raw bf16 parameters round-trip bit for bit in the port."""
     cfg = dataclasses.replace(reduced_config(ARCH), param_dtype="bfloat16")
     params = lm.init_lm(0, cfg, device="cpu")
     opt = launch.adam_init_tree(params)
@@ -170,7 +171,10 @@ def test_restored_moments_keep_the_saved_f32_dtype(tmp_path):
     path = ckpt.save_checkpoint(str(tmp_path), 1, {"params": params, "opt": opt},
                                 device="cpu")
     template = {"params": lm.init_lm(1, cfg, device="cpu")}
-    template["opt"] = launch.adam_init_tree(template["params"])
+    template["opt"] = launch.adam_init_tree(template["params"])._replace(
+        m=tree_map(torch.zeros_like, template["params"]),
+        v=tree_map(torch.zeros_like, template["params"]))
+    assert {v.dtype for v in _leaves(template["opt"].m).values()} == {torch.bfloat16}
     state, _ = ckpt.restore_checkpoint(path, template, device="cpu")
     for k, v in _leaves(state["opt"].m).items():
         assert v.dtype == torch.float32 and torch.equal(v, _leaves(opt.m)[k]), k

@@ -63,6 +63,7 @@ def _flat(tree, prefix: str, out: dict) -> dict:
 def run_train(arch: str, inputs: dict, out_path: str, rank: int) -> None:
     import torch
     from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.compression import tree_map
     from repro_torch.configs import reduced_config
     from repro_torch.distributed.sharding import (batch_specs, distribute_tree,
                                                   gather_tree, opt_specs, param_specs)
@@ -98,7 +99,9 @@ def run_train(arch: str, inputs: dict, out_path: str, rank: int) -> None:
                 tok = logits.argmax(-1).to(torch.int32)
     finally:
         lm.set_constraint_mesh(None)
-    ref, _, _ = train_step(params, adam_init_tree(params), batch, cfg,
+    # the launcher's step updates its parameters in place: give it a copy,
+    # the prefill below reads the initial ones
+    ref, _, _ = train_step(tree_map(torch.clone, params), adam_init_tree(params), batch, cfg,
                            AdamConfig(lr=1e-4, grad_clip=1.0))
     _flat(ref, "w/", out)
     with torch.no_grad():
